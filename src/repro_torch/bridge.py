@@ -1,0 +1,40 @@
+"""Carry parameters between the JAX package's trees and the port's.
+
+Both sides keep one layout (``x @ W`` with ``W`` shaped ``[d_in, d_out]``,
+block weights stacked ``[L, ...]``, the same key names), so the bridge is
+a plain copy with no transposes.  The JAX side is handed over as a tree
+of numpy arrays (``jax.tree.map(np.asarray, params)``): the port imports
+nothing of JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.utils.trees import tree_map
+
+
+def _to_torch(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":                  # ml_dtypes' bfloat16
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:                   # numpy has no bf16
+        t = t.to(torch.float32)
+    return t.numpy().copy()
+
+
+def params_from_jax(tree, device="cpu"):
+    """JAX parameter tree (nested dicts of numpy arrays) -> port params."""
+    return tree_map(lambda a: _to_torch(a, device), tree)
+
+
+def params_to_jax(params):
+    """Port params -> nested dicts of numpy arrays (bf16 widened to f32),
+    the inverse of ``params_from_jax`` for names and shapes."""
+    return tree_map(_to_numpy, params)

@@ -1,0 +1,18 @@
+"""Architecture registry: ``--arch <id>`` resolves through here.
+
+Only the architectures whose path the port runs are registered; the
+rest of the JAX package's zoo is listed in ROADMAP.md.
+"""
+from __future__ import annotations
+
+from repro_torch.configs import qwen15_4b
+from repro_torch.configs.base import ArchSpec
+
+ARCHS = {spec.name: spec for spec in (qwen15_4b.SPEC,)}
+
+
+def get_arch(name: str) -> ArchSpec:
+    if name not in ARCHS:
+        raise KeyError(
+            f"unknown arch {name!r}; available: {sorted(ARCHS)}")
+    return ARCHS[name]

@@ -1,0 +1,18 @@
+"""Architecture registry plumbing.
+
+Every ported architecture contributes an ``ArchSpec`` with
+  * ``full``  — the exact published config (the card's main path),
+  * ``smoke`` — a reduced same-family config (CPU tests).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.models.config import LMConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    name: str
+    full: LMConfig
+    smoke: LMConfig

@@ -1,0 +1,197 @@
+"""Per-layer blocks: init, prefill (full sequence) and decode (one token).
+
+Port of the ``"attn"`` kind of the JAX package's ``models/blocks.py``:
+global causal attention with a dense MLP.  The other kinds (local, xattn,
+enc, rglru, rwkv) and the MoE MLP are listed in ROADMAP.md.
+
+Parameters keep the reference's layout (``x @ W`` with ``W`` shaped
+``[d_in, d_out]``, norm weights in f32) so that ``bridge.py`` is a plain
+copy.  Every use casts a matmul weight to the compute dtype, as the
+reference does.
+
+Decode state is updated IN PLACE: the K/V cache tensors a block is given
+are written at ``position`` (the reference returns new buffers; the port
+saves the copy of the whole cache per token).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.common import (activation, apply_norm, apply_rope,
+                                       chunked_attention, decode_attention,
+                                       dense_init, init_norm)
+from repro_torch.models.config import LMConfig
+
+ATTN_KINDS = ("attn",)
+
+
+def _require_attn(kind: str):
+    if kind not in ATTN_KINDS:
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported yet (have {ATTN_KINDS})")
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def _stacked(fn, layers):
+    """``fn()`` once, or ``layers`` draws stacked on a leading axis."""
+    if layers is None:
+        return fn()
+    return torch.stack([fn() for _ in range(layers)])
+
+
+def _zeros(n, layers, device):
+    shape = (n,) if layers is None else (layers, n)
+    return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+def init_block(generator: torch.Generator, cfg: LMConfig, kind: str, *,
+               device, weight_dtype=torch.float32, layers: int | None = None):
+    """One layer's parameters, or ``layers`` of them stacked ``[L, ...]``
+    (the reference's scan layout).  Matmul weights are drawn in f32 and
+    stored at ``weight_dtype``; norms and biases stay f32."""
+    _require_attn(kind)
+    if cfg.is_moe:
+        raise NotImplementedError("MoE MLP is not ported yet")
+    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+
+    def dense(d_in, d_out):
+        return _stacked(lambda: dense_init(generator, d_in, d_out,
+                                           device=device, dtype=weight_dtype),
+                        layers)
+
+    def norm():
+        n = init_norm(d, cfg.norm, device=device)
+        if layers is None:
+            return n
+        return {k: torch.stack([v] * layers) for k, v in n.items()}
+
+    attn = {"q": dense(d, cfg.n_heads * hd), "k": dense(d, cfg.n_kv * hd),
+            "v": dense(d, cfg.n_kv * hd), "o": dense(cfg.n_heads * hd, d)}
+    if cfg.qkv_bias or cfg.mlp_bias:
+        attn["qb"] = _zeros(cfg.n_heads * hd, layers, device)
+        attn["kb"] = _zeros(cfg.n_kv * hd, layers, device)
+        attn["vb"] = _zeros(cfg.n_kv * hd, layers, device)
+    if cfg.mlp_bias:
+        attn["ob"] = _zeros(d, layers, device)
+    mlp = {"w1": dense(d, f), "w2": dense(f, d)}
+    if cfg.mlp_gated:
+        mlp["w3"] = dense(d, f)
+    if cfg.mlp_bias:
+        mlp["b1"] = _zeros(f, layers, device)
+        mlp["b2"] = _zeros(d, layers, device)
+    return {"ln1": norm(), "ln2": norm(), "attn": attn, "mlp": mlp}
+
+
+def init_block_state(cfg: LMConfig, kind: str, batch: int, cache_len: int,
+                     dtype=torch.bfloat16, *, device, layers: int | None = None):
+    """Zeroed K/V cache ``[B, cache_len, n_kv, hd]`` (``[L, ...]`` when
+    ``layers`` is given)."""
+    _require_attn(kind)
+    shape = (batch, cache_len, cfg.n_kv, cfg.hd)
+    if layers is not None:
+        shape = (layers,) + shape
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# --------------------------------------------------------------------------
+# pieces
+# --------------------------------------------------------------------------
+
+def _proj_qkv(p, h, cfg: LMConfig, dt):
+    b, s, _ = h.shape
+    hd = cfg.hd
+    q = h @ p["q"].to(dt)
+    k = h @ p["k"].to(dt)
+    v = h @ p["v"].to(dt)
+    if "qb" in p:
+        q = q + p["qb"].to(dt)
+        k = k + p["kb"].to(dt)
+        v = v + p["vb"].to(dt)
+    return (q.reshape(b, s, cfg.n_heads, hd),
+            k.reshape(b, s, cfg.n_kv, hd),
+            v.reshape(b, s, cfg.n_kv, hd))
+
+
+def _mlp(p, h, cfg: LMConfig, dt):
+    a = h @ p["w1"].to(dt)
+    if "b1" in p:
+        a = a + p["b1"].to(dt)
+    a = activation(a, cfg.act)
+    if cfg.mlp_gated:
+        a = a * (h @ p["w3"].to(dt))
+    out = a @ p["w2"].to(dt)
+    if "b2" in p:
+        out = out + p["b2"].to(dt)
+    return out
+
+
+def _ffn(p, x, cfg: LMConfig, dt):
+    """Second half-block: norm + MLP with residual."""
+    h = apply_norm(x, p["ln2"], cfg.norm)
+    return x + _mlp(p["mlp"], h, cfg, dt)
+
+
+def _attn_out(p, att, x, cfg: LMConfig, dt):
+    b, s = att.shape[0], att.shape[1]
+    out = att.reshape(b, s, cfg.n_heads * cfg.hd) @ p["o"].to(dt)
+    if "ob" in p:
+        out = out + p["ob"].to(dt)
+    return x + out
+
+
+def _kv_into_cache(k, v, state):
+    """Write full-sequence K/V [B, S, kv, hd] into the layer's decode
+    cache [B, cache_len, kv, hd] (global attention: zero-padded past S),
+    in place, cast to the cache dtype."""
+    s, cache_len = k.shape[1], state["k"].shape[1]
+    if s > cache_len:
+        raise ValueError(f"prompt of {s} tokens exceeds cache_len {cache_len}")
+    for name, t in (("k", k), ("v", v)):
+        state[name][:, :s].copy_(t)
+        state[name][:, s:].zero_()
+    return state
+
+
+# --------------------------------------------------------------------------
+# prefill: full-sequence forward that also fills the decode state
+# --------------------------------------------------------------------------
+
+def apply_block_prefill(p, x, cfg: LMConfig, kind: str, *, positions, state):
+    """x: [B, S, D] -> [B, S, D]; fills ``state`` (this layer's K/V cache)
+    in place.  Dense blocks carry no aux loss, so none is returned."""
+    _require_attn(kind)
+    dt = x.dtype
+    h = apply_norm(x, p["ln1"], cfg.norm)
+    q, k, v = _proj_qkv(p["attn"], h, cfg, dt)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    att = chunked_attention(q, k, v, causal=True)
+    _kv_into_cache(k, v, state)
+    x = _attn_out(p["attn"], att, x, cfg, dt)
+    return _ffn(p, x, cfg, dt)
+
+
+# --------------------------------------------------------------------------
+# decode (single token with state)
+# --------------------------------------------------------------------------
+
+def apply_block_decode(p, x, state, cfg: LMConfig, kind: str, *,
+                       position: int):
+    """x: [B, 1, D] -> [B, 1, D]; writes this token's K/V into ``state``
+    at ``position`` in place."""
+    _require_attn(kind)
+    dt = x.dtype
+    h = apply_norm(x, p["ln1"], cfg.norm)
+    q, k, v = _proj_qkv(p["attn"], h, cfg, dt)
+    pos_arr = torch.full((1,), position, device=x.device)
+    q = apply_rope(q, pos_arr, cfg.rope_theta)
+    k = apply_rope(k, pos_arr, cfg.rope_theta)
+    state["k"][:, position] = k[:, 0].to(state["k"].dtype)
+    state["v"][:, position] = v[:, 0].to(state["v"].dtype)
+    att = decode_attention(q, state["k"], state["v"], position=position)
+    x = _attn_out(p["attn"], att, x, cfg, dt)
+    return _ffn(p, x, cfg, dt)

@@ -1,0 +1,210 @@
+"""Length-prefixed frame protocol of the UE -> BS runtime, on tensors.
+
+Port of the JAX package's ``runtime/protocol.py``.  One frame on the wire::
+
+    u32 total_len | header (20 B) | meta (JSON) | payload sections
+
+    header = !4s B B H I I I
+             magic 'C2P2' | version | ftype | client_id
+             | step | meta_len | payload_len
+
+``payload`` is the concatenation of named binary sections; the meta JSON
+carries a ``sections`` table ``[[name, dtype, shape], ...]``.  For the
+same input a frame is byte-identical to the reference's: same section
+names, dtype names and meta JSON.  Section bytes move as ``uint8`` views
+of the tensors, and dtype names resolve through ``DTYPES`` (the
+reference needs ``ml_dtypes`` for ``bfloat16`` and ``float8_e4m3fn``;
+the port needs nothing beyond torch).
+
+Sections named in ``PAYLOAD_SECTIONS`` are codec payload (what the
+planner bills as hop bytes); everything else is aux traffic.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import struct
+
+import torch
+
+from repro_torch.analysis import autotune
+from repro_torch.parallel import wire
+
+MAGIC = b"C2P2"
+VERSION = 1
+
+# frame types, numbered as the reference numbers them (2-4, the training
+# runtime's ACT/GRAD/STATS, come with the training slice)
+HELLO = 1     # client -> server: join (meta: wire_dtype, shapes)
+BYE = 5       # client -> server: clean shutdown
+INFER = 6     # serving: UE->BS coded cut activation (phase=prefill/decode),
+              # BS->UE sampled token reply (phase=tok, aux section, un-billed)
+
+_HEADER = struct.Struct("!4sBBHIII")
+_LEN = struct.Struct("!I")
+
+PAYLOAD_SECTIONS = ("q", "scale", "idx", "raw")
+
+MAX_FRAME_BYTES = 1 << 30
+
+# section dtype name (numpy's spelling, as the reference writes it) <-> torch
+DTYPES = {
+    "float32": torch.float32, "float64": torch.float64,
+    "float16": torch.float16, "bfloat16": torch.bfloat16,
+    "float8_e4m3fn": torch.float8_e4m3fn,
+    "int8": torch.int8, "uint8": torch.uint8, "int16": torch.int16,
+    "int32": torch.int32, "int64": torch.int64, "bool": torch.bool,
+}
+_NAMES = {dt: name for name, dt in DTYPES.items()}
+
+
+def dtype_name(dt: torch.dtype) -> str:
+    if dt not in _NAMES:
+        raise TypeError(f"no wire name for dtype {dt}")
+    return _NAMES[dt]
+
+
+def _dtype(name: str) -> torch.dtype:
+    if name not in DTYPES:
+        raise ValueError(f"unknown section dtype {name!r}")
+    return DTYPES[name]
+
+
+@dataclasses.dataclass
+class Frame:
+    """A decoded frame: typed header + meta dict + named CPU tensors."""
+
+    ftype: int
+    client: int
+    step: int
+    meta: dict
+    arrays: dict
+    wire_nbytes: int        # total bytes on the socket (prefix included)
+
+    @property
+    def payload_nbytes(self) -> int:
+        """Codec-payload bytes only (the billed hop traffic)."""
+        return sum(t.numel() * t.element_size()
+                   for name, t in self.arrays.items()
+                   if name in PAYLOAD_SECTIONS)
+
+    @property
+    def aux_nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for name, t in self.arrays.items()
+                   if name not in PAYLOAD_SECTIONS)
+
+
+def _section_bytes(t: torch.Tensor) -> bytes:
+    flat = t.detach().contiguous().reshape(-1).cpu()
+    return flat.view(torch.uint8).numpy().tobytes()
+
+
+def pack_frame(ftype: int, client: int, step: int, meta: dict | None = None,
+               arrays: dict | None = None) -> bytes:
+    """Frame bytes; ``arrays`` are tensors on any device (copied to the
+    host here)."""
+    meta = dict(meta or {})
+    arrays = arrays or {}
+    sections = []
+    chunks = []
+    for name, t in arrays.items():
+        sections.append([name, dtype_name(t.dtype), list(t.shape)])
+        chunks.append(_section_bytes(t))
+    meta["sections"] = sections
+    meta_b = json.dumps(meta, separators=(",", ":")).encode()
+    payload = b"".join(chunks)
+    header = _HEADER.pack(MAGIC, VERSION, int(ftype), int(client),
+                          int(step), len(meta_b), len(payload))
+    body = header + meta_b + payload
+    return _LEN.pack(len(body)) + body
+
+
+def unpack_frame(body: bytes, *, wire_nbytes: int | None = None) -> Frame:
+    """Decode a frame body (everything after the length prefix)."""
+    magic, version, ftype, client, step, meta_len, payload_len = \
+        _HEADER.unpack_from(body)
+    if magic != MAGIC:
+        raise ValueError(f"bad frame magic {magic!r} (expected {MAGIC!r})")
+    if version != VERSION:
+        raise ValueError(f"frame version {version} != {VERSION}")
+    if _HEADER.size + meta_len + payload_len != len(body):
+        raise ValueError(
+            f"frame length mismatch: header says "
+            f"{_HEADER.size + meta_len + payload_len}, body is {len(body)}")
+    meta = json.loads(body[_HEADER.size:_HEADER.size + meta_len])
+    start = _HEADER.size + meta_len
+    buf = torch.frombuffer(bytearray(body[start:]), dtype=torch.uint8) \
+        if payload_len else torch.empty(0, dtype=torch.uint8)
+    arrays = {}
+    off = 0
+    for name, dtype, shape in meta.pop("sections", []):
+        dt = _dtype(dtype)
+        n = 1
+        for s in shape:
+            n *= int(s)
+        nb = n * dt.itemsize
+        if off + nb > payload_len:
+            raise ValueError(f"section {name!r} overruns the payload")
+        seg = buf[off:off + nb]
+        if off % dt.itemsize:
+            seg = seg.clone()           # realign for the dtype view
+        arrays[name] = seg.view(dt).reshape(shape)
+        off += nb
+    if off != payload_len:
+        raise ValueError(
+            f"payload sections cover {off} bytes, header says {payload_len}")
+    return Frame(ftype=ftype, client=client, step=step, meta=meta,
+                 arrays=arrays,
+                 wire_nbytes=(wire_nbytes if wire_nbytes is not None
+                              else _LEN.size + len(body)))
+
+
+async def read_frame(reader) -> Frame:
+    """Read one length-prefixed frame from an asyncio StreamReader."""
+    prefix = await reader.readexactly(_LEN.size)
+    (n,) = _LEN.unpack(prefix)
+    if n > MAX_FRAME_BYTES:
+        raise ValueError(f"frame of {n} bytes exceeds MAX_FRAME_BYTES")
+    body = await reader.readexactly(n)
+    return unpack_frame(body, wire_nbytes=_LEN.size + n)
+
+
+# ---------------------------------------------------------------------------
+# Activation payload codec (forward hop).
+# ---------------------------------------------------------------------------
+
+
+def encode_act_payload(x: torch.Tensor, wire_dtype: str):
+    """Cut activation [..., d] -> (arrays, meta fields) for an INFER
+    frame, coded on x's device.  Dense base codec; 'none' and the
+    net-loss condition ship raw."""
+    base, _frac = wire.parse_wire_dtype(wire_dtype)
+    meta = {"codec": str(wire_dtype), "shape": list(x.shape),
+            "dtype": dtype_name(x.dtype)}
+    if base == "none":
+        return {"raw": x}, dict(meta, kind="raw")
+    q, scale = wire.encode(x, base)
+    if scale is None:
+        return {"raw": q}, dict(meta, kind="raw")
+    return {"q": q, "scale": scale}, dict(meta, kind="dense")
+
+
+def decode_act_payload(frame: Frame, device) -> torch.Tensor:
+    """The activation of an INFER frame, decoded on ``device``."""
+    out_dtype = _dtype(frame.meta["dtype"])
+    if frame.meta["kind"] == "raw":
+        return frame.arrays["raw"].to(device).to(out_dtype)
+    return wire.decode(frame.arrays["q"].to(device),
+                       frame.arrays["scale"].to(device), out_dtype)
+
+
+def billed_hop_bytes(n_elements: int, d_model: int, wire_dtype: str,
+                     act_bytes: float) -> float:
+    """What the planner bills this forward hop:
+    ``autotune.wire_bytes_per_element`` x elements at the effective block
+    for this width — the number a frame's measured ``payload_nbytes``
+    must match."""
+    block = autotune.wire_block_for(int(d_model))
+    per = autotune.wire_bytes_per_element(wire_dtype, act_bytes, block)
+    return float(per) * int(n_elements)

@@ -1,0 +1,103 @@
+"""The PyTorch port stands alone: no JAX, nothing of the JAX package.
+
+A subprocess imports every ``repro_torch`` module and finds neither
+``jax`` nor ``repro`` in ``sys.modules``; an AST scan finds no such
+import in the package or in ``chip_smoke.py``; and the port's config
+copies equal the reference's field for field.
+"""
+import ast
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+from repro.configs import qwen15_4b as ref_qwen
+from repro.models.config import LMConfig as RefLMConfig
+from repro_torch.configs import get_arch
+from repro_torch.configs import qwen15_4b as port_qwen
+from repro_torch.models.config import LMConfig as PortLMConfig
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "src", "repro_torch")
+
+
+def _port_files():
+    out = []
+    for root, _dirs, names in os.walk(PKG):
+        out.extend(os.path.join(root, n) for n in sorted(names)
+                   if n.endswith(".py"))
+    return sorted(out) + [os.path.join(ROOT, "chip_smoke.py")]
+
+
+def _module_name(path):
+    rel = os.path.relpath(path, os.path.join(ROOT, "src"))[:-3]
+    parts = rel.split(os.sep)
+    if parts[-1] == "__init__":
+        parts = parts[:-1]
+    return ".".join(parts)
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in ("jax", "jaxlib", "repro")
+
+
+def test_importing_every_module_pulls_in_no_jax():
+    mods = [_module_name(p) for p in _port_files()
+            if p.startswith(PKG)]
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "    if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    assert len(mods) >= 20
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_reference_import_in_source(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0 and _forbidden(node.module):
+            bad.append(node.module)
+    assert bad == [], f"{path} imports {bad}"
+
+
+def _field_table(cls):
+    return [(f.name, str(f.type), f.default) for f in dataclasses.fields(cls)]
+
+
+def test_lmconfig_fields_and_defaults_match_reference():
+    assert _field_table(PortLMConfig) == _field_table(RefLMConfig)
+
+
+@pytest.mark.parametrize("size", ["FULL", "SMOKE"])
+def test_qwen_configs_match_reference(size):
+    ref, port = getattr(ref_qwen, size), getattr(port_qwen, size)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    for prop in ("padded_vocab", "hd", "layer_kinds", "homogeneous",
+                 "is_moe", "r_width"):
+        assert getattr(port, prop) == getattr(ref, prop), prop
+    assert port.param_count() == ref.param_count()
+
+
+def test_arch_registry():
+    spec = get_arch("qwen1.5-4b")
+    assert spec.full is port_qwen.FULL and spec.smoke is port_qwen.SMOKE
+    assert (spec.full.num_layers, spec.full.d_model, spec.full.hd) \
+        == (40, 2560, 128)
+    with pytest.raises(KeyError):
+        get_arch("no-such-arch")
