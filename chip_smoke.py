@@ -8,21 +8,34 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build every CUDA kernel from src/repro_torch/csrc (one nvcc per source,
      all at once) and print the build time and ptxas' register report;
   3. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes: the wire codec bit for bit (int8 and fp8, bf16 and
+     main paths' shapes: the wire codec bit for bit (int8 and fp8, bf16 and
      f32 inputs, d = 2560 and 96 and 200), flash attention within 2e-4 (f32)
-     and 5e-2 (bf16), causal, GQA and sliding-window;
-  4. the main path at the full width of qwen1.5-4b (40 layers, random
-     weights from seed 0, bf16, batch 4, prompt 512, 32 greedy tokens)
-     through the serving CLI's entry point: the static path, then split
-     inference at cut 20 over a loopback socket for none, int8 and fp8.
-     Measured payload bytes must equal billed bytes, there must be gen + 1
-     uplink frames, 'none' split tokens must equal the static tokens bit
-     for bit, and every kernel's launch count must be above 0.  A small
-     f32 model on the card is also held to the same model on the CPU;
-  5. timings: a torch.profiler trace of one prefill and four decode steps
-     (device busy time and idle share, top kernels); per kernel its device
-     time, its plain version's, its bound and the library yardstick where
-     one PyTorch call computes the same function.
+     and 5e-2 (bf16), causal, GQA and sliding-window, and refusing autograd;
+     the WKV6 forward and backward kernels against the plain version's
+     forward and autograd (the training shape in bf16 and f32, S = 96,
+     strong decay, a given initial state).  Small f32 models on the card
+     are held to the same models on the CPU: a qwen prefill, and one
+     training step of an RWKV model (loss and updated parameters);
+  4. the main paths at full width, random weights from seed 0, bf16 compute:
+     a. serving qwen1.5-4b (40 layers, batch 4, prompt 512, 32 greedy
+        tokens) through the serving CLI's entry point: the static path, then
+        split inference at cut 20 over a loopback socket for none, int8 and
+        fp8.  Measured payload bytes must equal billed bytes, there must be
+        gen + 1 uplink frames, 'none' split tokens must equal the static
+        tokens bit for bit, and every serving kernel must have launched;
+     b. C2P2SL training of rwkv6-3b (32 layers, f32 master weights, batch 8,
+        seq 512) through the training CLI's entry point: 3 steps of the
+        2-stage, 4-micro-batch pipeline cut at 16, for wire none and int8.
+        Every loss finite, every parameter tensor changed, the hop's bytes
+        per step equal to the billed bytes up and down, and the WKV6 and
+        (int8) codec kernels launched.  Then one make_c2p2sl_step with 2 UEs
+        and a ragged shard_batch (b = [5, 3], k = 4), its loss printed
+        beside the pipelined loss on the same weights and batch;
+  5. timings: torch.profiler traces of one prefill and four decode steps
+     and of one training step (device busy time and idle share, top
+     kernels); per kernel its device time, its plain version's, its bound
+     and the library yardstick where one PyTorch call computes the same
+     function.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -46,6 +59,13 @@ BF16_OPS_S = 989e12
 F32_OPS_S = 67e12
 
 ARCH, CUT, BATCH, PROMPT, GEN, SEED = "qwen1.5-4b", 20, 4, 512, 32, 0
+# the training path: rwkv6-3b, 2 stages (cut 16), 4 micro-batches
+T_ARCH, T_BATCH, T_SEQ, T_K, T_STEPS = "rwkv6-3b", 8, 512, 4, 3
+WKV_SHAPE = (T_BATCH // T_K, T_SEQ, 40, 64)     # one micro-batch's call
+
+
+SERVING_KERNELS = ("wire_encode", "wire_decode", "flash_attention")
+TRAINING_KERNELS = ("wkv6", "wkv6_bwd", "wire_encode", "wire_decode")
 
 
 def fail(msg: str):
@@ -197,6 +217,131 @@ def check_small_model(torch, dev):
     print(f"small f32 model, card vs CPU prefill logits: max err {err:.3e}")
 
 
+def check_flash_refuses_autograd(torch, ops, dev):
+    """The flash kernel has no backward: under autograd it must raise
+    instead of returning a tensor that drops the gradients."""
+    t = torch.randn(1, 2, 16, 64, device=dev, requires_grad=True)
+    try:
+        ops.flash_attention(t, t, t)
+    except NotImplementedError:
+        print("flash under autograd on the card: raises NotImplementedError")
+    else:
+        fail("ops.flash_attention ran under autograd on the card")
+
+
+WKV_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def _rel_err(a, b):
+    """max |a - b| / max(1, max |b|): the error against the plain version
+    in units of its largest value."""
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max()) / max(1.0,
+                                                    float(b.abs().max()))
+
+
+def check_wkv6(torch, rw, dev):
+    """WKV6 forward and backward kernels against the plain version's
+    forward and autograd.  Tolerance relative to the largest value: 1e-4
+    in f32 (sums in another order over up to 512 steps); 1e-2 in bf16,
+    whose r, k, v, out and dr, dk, dv are rounded to bf16 (step 2^-8).
+    Returns the max abs errors of out and of the gradients at the
+    training shape in bf16."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    # (shape [B, S, H, dh], dtype, strong decay, initial state)
+    cases = [(WKV_SHAPE, torch.bfloat16, False, False),
+             (WKV_SHAPE, torch.float32, False, False),
+             ((2, 96, 4, 64), torch.float32, False, False),
+             ((2, 96, 4, 64), torch.bfloat16, False, False),
+             ((2, 128, 3, 32), torch.float32, True, False),
+             ((1, 70, 2, 16), torch.float32, False, True),
+             ((2, 64, 3, 64), torch.float32, True, True)]
+    main = None
+    for shape, dt, strong, with_s0 in cases:
+        b, s, h, dh = shape
+        rnd = lambda *sh: torch.randn(sh, generator=gen, device=dev)
+        r, k, v = (rnd(*shape).to(dt) for _ in range(3))
+        # the reference's decay draws: w = exp(-exp(U(lo, 0.5)))
+        lo = -3.0 if strong else -6.0
+        logw = -torch.exp(torch.rand(shape, generator=gen, device=dev)
+                          * (0.5 - lo) + lo)
+        u = rnd(h, dh) * 0.2
+        s0 = rnd(b, h, dh, dh) * 0.1 if with_s0 else None
+        out, s_t = rw.wkv6_fwd_cuda(r, k, v, logw, u, s0)
+        dout = rnd(*shape).to(dt)
+        ds_t = rnd(b, h, dh, dh) if with_s0 else None
+        grads = rw.wkv6_bwd_cuda(r, k, v, logw, u, s0, dout, ds_t)
+        ins = [t.detach().clone().requires_grad_(True)
+               for t in (r, k, v, logw, u)]
+        s0p = s0.detach().clone().requires_grad_(True) if with_s0 else None
+        op, sp = rw.wkv6_plain(*ins, s0p)
+        loss = (op.float() * dout.float()).sum()
+        if with_s0:
+            loss = loss + (sp * ds_t).sum()
+        plain = torch.autograd.grad(loss, ins + ([s0p] if with_s0 else []))
+        torch.cuda.synchronize()
+        tol = WKV_TOL[str(dt).split(".")[-1]]
+        errs = {"out": _rel_err(out, op), "state": _rel_err(s_t, sp)}
+        for name, g, gp in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"),
+                               grads, plain):
+            errs[name] = _rel_err(g, gp)
+        name = (f"wkv6 {shape} {dt}{' strong decay' if strong else ''}"
+                f"{' s0 given' if with_s0 else ''}")
+        bad = {n: e for n, e in errs.items() if not e <= tol}
+        if bad:
+            fail(f"{name}: relative errors {bad} > {tol}")
+        print(f"{name}: forward and backward within {tol} of plain "
+              f"(max rel {max(errs.values()):.2e}: "
+              + ", ".join(f"{n} {e:.1e}" for n, e in errs.items()) + ")")
+        if shape == WKV_SHAPE and dt == torch.bfloat16:
+            main = (float((out.float() - op.detach().float()).abs().max()),
+                    max(float((g.float() - gp.float()).abs().max())
+                        for g, gp in zip(grads, plain)))
+    return main
+
+
+def check_small_training(torch, dev):
+    """One training step of a small f32 RWKV model (the 2-stage, 2-micro-
+    batch pipeline) on the card against the same step on the CPU, with
+    the hop raw and int8-coded (the codec is bit-exact on both devices,
+    so the coded hop's backward on the card is held here too).  SGD, so
+    the updated parameters are linear in the gradients (Adam's first step
+    divides by |g| and turns rounding noise into sign flips)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import LM
+    from repro_torch.parallel.pipeline import PipelineSpec
+    from repro_torch.parallel.steps import make_lm_train_step
+    from repro_torch.training.optim import sgd
+    from repro_torch.utils.trees import tree_leaves, tree_map
+    cfg = get_arch(T_ARCH).smoke
+    params = LM(cfg, "cpu").init(torch.Generator().manual_seed(SEED),
+                                 master=True)
+    gen = torch.Generator().manual_seed(7)
+    batch = {n: torch.randint(0, cfg.vocab, (4, 40), generator=gen)
+             for n in ("tokens", "labels")}
+    for wire in ("none", "int8"):
+        spec = PipelineSpec(num_stages=2, microbatches=2, wire_dtype=wire)
+        out = {}
+        for where in ("cpu", dev):
+            model = LM(cfg, where)
+            opt = sgd(0.1, momentum=0.9)
+            p = tree_map(lambda t: t.detach().clone().to(where), params)
+            state = {"params": p, "opt_state": opt.init(p), "step": 0}
+            step = make_lm_train_step(model, opt, pipeline=spec)
+            state, mets = step(state, {n: t.to(where)
+                                       for n, t in batch.items()})
+            out[str(where)] = (float(mets["loss"]), state["params"])
+        (lc, pc), (lg, pg) = out["cpu"], out[str(dev)]
+        perr = max(float((a.detach().cpu() - b.detach()).abs().max())
+                   for a, b in zip(tree_leaves(pg), tree_leaves(pc)))
+        if not (abs(lg - lc) <= 1e-4 * abs(lc) and perr <= 1e-4):
+            fail(f"small RWKV training step ({wire} hop), card vs CPU: loss "
+                 f"{lg} vs {lc}, max parameter diff {perr}")
+        print(f"small f32 RWKV training step ({wire} hop), card vs CPU: "
+              f"loss {lg:.6f} vs {lc:.6f}, max updated-parameter diff "
+              f"{perr:.2e} (tol 1e-4)")
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -225,11 +370,162 @@ def run_main_path(torch, ops, serve):
     if not torch.equal(split["none"]["tokens"], toks):
         fail("split 'none' tokens differ from the static path's")
     print(f"split none tokens == static tokens ({BATCH}x{GEN})")
-    for name in ops.KERNELS:
+    for name in SERVING_KERNELS:
         if launches.get(name, 0) <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    print(f"main-path launches: {json.dumps(launches, sort_keys=True)}")
+            fail(f"kernel {name} was not launched on the serving path")
+    print(f"serving-path launches: {json.dumps(launches, sort_keys=True)}")
     return static, split, launches
+
+
+def _train_argv(wire: str):
+    return ["--arch", T_ARCH, "--size", "full", "--pipeline-stages", "2",
+            "--pipeline-k", str(T_K), "--batch", str(T_BATCH), "--seq",
+            str(T_SEQ), "--steps", str(T_STEPS), "--seed", str(SEED),
+            "--wire-dtype", wire, "--log-every", "1"]
+
+
+def unchanged_params(torch, LM, tree_leaves, res, dev):
+    """(number of parameter tensors, how many equal their initial value):
+    the initial values are drawn again from the run's seed."""
+    fresh = LM(res["model"].cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(SEED), master=True)
+    pairs = zip(tree_leaves(res["state"]["params"]), tree_leaves(fresh))
+    flags = [bool(torch.equal(a, b)) for a, b in pairs]
+    return len(flags), sum(flags)
+
+
+def run_training_path(torch, ops, train, protocol, dev, profile_int8):
+    """C2P2SL training of rwkv6-3b at full width through the training
+    CLI, wire none then int8.  Returns (rows per wire, launches); the
+    int8 run's final state goes to ``profile_int8(result)`` after the
+    launch counts are read."""
+    from repro_torch.models.lm import LM
+    from repro_torch.utils.trees import tree_leaves
+    rows, launches, keep = {}, None, None
+    ops.reset_launches()
+    for wire in ("none", "int8"):
+        res = train.main(_train_argv(wire))
+        torch.cuda.synchronize()
+        rows[wire] = res["rows"]
+        d = res["model"].cfg.d_model
+        billed = protocol.billed_hop_bytes(T_BATCH * T_SEQ * d, d, wire, 2)
+        for row in res["rows"]:
+            if not math.isfinite(row["loss"]):
+                fail(f"train {wire}: step {row['step']} loss {row['loss']}")
+            if row["hop_bytes_up"] != billed or \
+                    row["hop_bytes_down"] != billed:
+                fail(f"train {wire} step {row['step']}: hop bytes up "
+                     f"{row['hop_bytes_up']} down {row['hop_bytes_down']} "
+                     f"!= billed {billed}")
+        n, same = unchanged_params(torch, LM, tree_leaves, res, dev)
+        if same:
+            fail(f"train {wire}: {same} of {n} parameter tensors did not "
+                 "change")
+        print(f"train {wire}: losses "
+              f"{[round(r['loss'], 5) for r in res['rows']]}, all {n} "
+              f"parameter tensors changed, hop bytes per step up == down == "
+              f"billed {billed:.0f}")
+        if wire == "int8":
+            launches = dict(ops.LAUNCHES)
+            keep = res
+        del res
+        torch.cuda.empty_cache()
+    for name in TRAINING_KERNELS:
+        if launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the training path")
+    print(f"training-path launches: {json.dumps(launches, sort_keys=True)}")
+    profile_int8(keep)
+    del keep
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def run_c2p2sl(torch, dev):
+    """One full-width make_c2p2sl_step with 2 UEs and a ragged shard_batch,
+    its loss beside the pipelined (wire none) loss on the same weights and
+    batch."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import TokenTaskConfig, token_batches
+    from repro_torch.models.lm import LM
+    from repro_torch.parallel.pipeline import (PipelineSpec,
+                                               make_pipelined_loss)
+    from repro_torch.sl.c2p2sl import (init_sl_state, make_c2p2sl_step,
+                                       shard_batch)
+    from repro_torch.sl.split import lm_split
+    from repro_torch.training.optim import adamw
+    cfg = get_arch(T_ARCH).full
+    model = LM(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        master=True)
+    batch = {n: torch.as_tensor(a, device=dev) for n, a in next(
+        token_batches(TokenTaskConfig(vocab=cfg.vocab), T_BATCH, T_SEQ,
+                      seed=SEED)).items()}
+    with torch.no_grad():
+        pipe_loss, _ = make_pipelined_loss(
+            model, PipelineSpec(num_stages=2, microbatches=T_K))(params,
+                                                                  batch)
+    spec = lm_split(model, cfg.num_layers // 2)
+    opt = adamw(1e-4, grad_clip=1.0)
+    st = init_sl_state(spec, params, opt)
+    del params
+    tree = {"ue_params": st.ue_params, "bs_params": st.bs_params,
+            "opt_state_ue": st.opt_state_ue, "opt_state_bs": st.opt_state_bs,
+            "step": st.step}
+    del st
+    xs, ys = shard_batch(batch["tokens"], batch["labels"], np.array([5, 3]),
+                         T_K)
+    sizes = [[int(x.shape[0]) for x in xi] for xi in xs]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree, mets = make_c2p2sl_step(spec, opt, T_K)(tree, xs, ys)
+    loss = float(mets["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if not math.isfinite(loss):
+        fail(f"c2p2sl step loss {loss}")
+    print(f"c2p2sl full width, 2 UEs b=[5, 3] k={T_K} micro-batch sizes "
+          f"{sizes}: loss {loss:.6f} beside the pipelined none loss "
+          f"{float(pipe_loss):.6f} on the same weights and batch (bf16, no "
+          f"equality asked); step {ms:.1f} ms, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del tree
+    torch.cuda.empty_cache()
+
+
+def profile_training_step(torch, res):
+    """Where a training step's time goes: one more step of the int8 run
+    traced with torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.synthetic import TokenTaskConfig, token_batches
+    from repro_torch.parallel.steps import make_lm_train_step
+    from repro_torch.training.optim import adamw, cosine_schedule
+    model, state = res["model"], res["state"]
+    opt = adamw(cosine_schedule(3e-4, warmup=20, total=T_STEPS),
+                grad_clip=1.0)
+    step = make_lm_train_step(model, opt, pipeline=res["pipeline"])
+    batch = {n: torch.as_tensor(a, device=model.device) for n, a in next(
+        token_batches(TokenTaskConfig(vocab=model.cfg.vocab), T_BATCH,
+                      T_SEQ, seed=SEED + 1)).items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, mets = step(state, batch)
+        float(mets["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy_us, rows, us = _kernel_us(prof.key_averages())
+    print(f"profile training step (int8, traced): wall {wall:.3f} ms, "
+          f"device busy {busy_us / 1e3:.3f} ms, idle share "
+          f"{1 - busy_us / 1e3 / wall:.3f}, "
+          f"{sum(e.count for e in rows)} device operations")
+    for e in rows[:8]:
+        print(f"  {us(e) / 1e3:9.3f} ms/step  {e.count:6d} calls/step  "
+              f"{e.key[:70]}")
 
 
 def profile_serving(torch, dev):
@@ -285,8 +581,15 @@ def profile_serving(torch, dev):
 # ------------------------------------------------------------------ phase 5
 
 
-def time_kernels(torch, wc, fa, dev, launches, flash_err):
+def time_kernels(torch, wc, fa, rw, dev, serve_launches, train_launches,
+                 flash_err, wkv_err):
+    """Device time of every kernel at its main path's shape beside its
+    plain version's, its bound and a library call where one exists.
+    ``launches`` sums each kernel's count over the serving and training
+    main paths."""
     import torch.nn.functional as F
+    launches = {n: serve_launches.get(n, 0) + train_launches.get(n, 0)
+                for n in set(serve_launches) | set(train_launches)}
     gen = torch.Generator(device=dev).manual_seed(4)
     rows, d = BATCH * PROMPT, 2560
     out = []
@@ -345,11 +648,62 @@ def time_kernels(torch, wc, fa, dev, launches, flash_err):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
             *contig, is_causal=True))})
+    out += time_wkv6(torch, rw, dev, launches, wkv_err)
     for k in out:
         print(f"kernel {k['name']}: {k['ms']:.4f} ms, plain "
               f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}), library {k['library_ms']}, "
               f"launches {k['launches']}")
+    return out
+
+
+def time_wkv6(torch, rw, dev, launches, wkv_err):
+    """WKV6 forward and backward at one micro-batch's call of the training
+    path: [2, 512, 40, 64], bf16 r/k/v, f32 log-decay from the model's
+    init range.  Bounds: bytes read and written once at 3.35 TB/s against
+    the recurrence's f32 operations at 67 TFLOP/s — forward 5 per state
+    element per step (the r.S product and the w.S + k v update), backward
+    12 (state and adjoint recurrences, and the dr, dk, dv products)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    b, s, h, dh = WKV_SHAPE
+    n, cells = b * s * h * dh, b * s * h * dh * dh
+    r, k, v = (torch.randn(WKV_SHAPE, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    logw = -torch.exp(torch.rand(WKV_SHAPE, generator=gen, device=dev)
+                      * 6.5 - 6.0)
+    u = torch.randn((h, dh), generator=gen, device=dev) * 0.2
+    dout = torch.randn(WKV_SHAPE, generator=gen, device=dev).to(
+        torch.bfloat16)
+    state_bytes, u_bytes = b * h * dh * dh * 4, h * dh * 4
+    fwd_bytes = 3 * n * 2 + n * 4 + u_bytes + n * 2 + state_bytes
+    bwd_bytes = 3 * n * 2 + n * 4 + u_bytes + n * 2 + 3 * n * 2 + n * 4 \
+        + u_bytes
+    ins = [t.detach().clone().requires_grad_(True)
+           for t in (r, k, v, logw, u)]
+    op, _ = rw.wkv6_plain(*ins)
+    out = []
+    b_ms, b_by = bound(fwd_bytes, 5 * cells, F32_OPS_S)
+    out.append({
+        "name": "wkv6", "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6.py:64",
+        "launches": launches.get("wkv6", 0), "max_abs_err": wkv_err[0],
+        "ms": device_ms(lambda: rw.wkv6_fwd_cuda(r, k, v, logw, u)),
+        "plain_ms": device_ms(lambda: rw.wkv6_plain(r, k, v, logw, u),
+                              iters=5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    b_ms, b_by = bound(bwd_bytes, 12 * cells, F32_OPS_S)
+    out.append({
+        "name": "wkv6_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv6.cu",
+        "replaces": "src/repro/models/rwkv.py:95",   # no Pallas backward
+
+        "launches": launches.get("wkv6_bwd", 0), "max_abs_err": wkv_err[1],
+        "ms": device_ms(lambda: rw.wkv6_bwd_cuda(r, k, v, logw, u, None,
+                                                 dout)),
+        "plain_ms": device_ms(lambda: torch.autograd.grad(
+            op, ins, dout, retain_graph=True), iters=5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     return out
 
 
@@ -373,8 +727,10 @@ def main():
 
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6 as rw
     from repro_torch.kernels import wire_codec as wc
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
+    from repro_torch.runtime import protocol
 
     t0 = time.perf_counter()
     built = build.build_all()
@@ -386,7 +742,10 @@ def main():
 
     check_codec(torch, wc, dev)
     flash_err = check_flash(torch, fa, dev)
+    check_flash_refuses_autograd(torch, ops, dev)
+    wkv_err = check_wkv6(torch, rw, dev)
     check_small_model(torch, dev)
+    check_small_training(torch, dev)
 
     static, split, launches = run_main_path(torch, ops, serve)
     print(f"main path static: prefill {static['prefill_ms']:.2f} ms, "
@@ -397,7 +756,22 @@ def main():
               f"frames, {res['measured_payload_bytes']} B measured == billed")
 
     profile_serving(torch, dev)
-    kernels = time_kernels(torch, wc, fa, dev, launches, flash_err)
+    torch.cuda.empty_cache()
+
+    rows, train_launches = run_training_path(
+        torch, ops, train, protocol, dev,
+        lambda res: profile_training_step(torch, res))
+    for wire, rs in rows.items():
+        for r in rs:
+            print(f"main path train {wire} step {r['step']}: loss "
+                  f"{r['loss']:.5f}, {r['step_ms']:.1f} ms, "
+                  f"{r['tokens_per_s']:.0f} tokens/s, peak "
+                  f"{r['peak_gb']:.2f} GB, hop up {r['hop_bytes_up']} B, "
+                  f"down {r['hop_bytes_down']} B")
+    run_c2p2sl(torch, dev)
+
+    kernels = time_kernels(torch, wc, fa, rw, dev, launches, train_launches,
+                           flash_err, wkv_err)
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

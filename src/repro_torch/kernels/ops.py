@@ -5,6 +5,12 @@ tensor launches the hand-written kernel, which raises when it cannot
 (no build, a refused launch, a shape it does not take).  Nothing falls
 back.  ``LAUNCHES[name]`` grows by one at each launch of that kernel and
 nowhere else, so a run can show that its path went through the kernels.
+
+``wkv6`` is differentiable on both devices: on the CPU autograd runs
+through the plain version, on the card through ``_WKV6``, whose backward
+is the hand-written backward kernel (counted as ``wkv6_bwd``).  The flash
+kernel has no backward yet, so on the card it refuses to run under
+autograd rather than drop the gradients of q, k and v.
 """
 from __future__ import annotations
 
@@ -13,9 +19,11 @@ import collections
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rwkv6 as _rw
 from repro_torch.kernels import wire_codec as _wc
 
-KERNELS = ("wire_encode", "wire_decode", "flash_attention")
+KERNELS = ("wire_encode", "wire_decode", "flash_attention", "wkv6",
+           "wkv6_bwd")
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -54,6 +62,42 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q [B,Hq,S,dh], k/v [B,Hkv,S,dh] -> [B,Hq,S,dh]."""
     if not _on_cuda(q):
         return _fa.attention_plain(q, k, v, causal=causal, window=window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "the flash kernel has no backward yet: attention on the card "
+            "runs only without autograd (torch.no_grad / inference_mode)")
     out = _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+class _WKV6(torch.autograd.Function):
+    """The CUDA forward and backward kernels as one autograd node.  The
+    decay enters as log w: its gradient is the backward kernel's d log w."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, s0):
+        ctx.set_materialize_grads(False)
+        out, s_t = _rw.wkv6_fwd_cuda(r, k, v, logw, u, s0)
+        LAUNCHES["wkv6"] += 1
+        ctx.save_for_backward(r, k, v, logw, u, s0)
+        return out, s_t
+
+    @staticmethod
+    def backward(ctx, dout, ds_t):
+        r, k, v, logw, u, s0 = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(r)
+        dr, dk, dv, dlogw, du, ds0 = _rw.wkv6_bwd_cuda(
+            r, k, v, logw, u, s0, dout, ds_t)
+        LAUNCHES["wkv6_bwd"] += 1
+        return dr, dk, dv, dlogw, du, ds0
+
+
+def wkv6(r, k, v, logw, u, s0=None):
+    """WKV6 on r, k, v [B,S,H,dh], decay ``logw = log w`` [B,S,H,dh] f32,
+    bonus u [H,dh] f32, initial state s0 [B,H,dh,dh] f32 or None ->
+    (out [B,S,H,dh] in r's dtype, final state [B,H,dh,dh] f32)."""
+    if not _on_cuda(r):
+        return _rw.wkv6_plain(r, k, v, logw, u, s0)
+    return _WKV6.apply(r, k, v, logw, u, s0)

@@ -1,8 +1,10 @@
-"""Per-layer blocks: init, prefill (full sequence) and decode (one token).
+"""Per-layer blocks: init, full-sequence apply, prefill and decode.
 
-Port of the ``"attn"`` kind of the JAX package's ``models/blocks.py``:
-global causal attention with a dense MLP.  The other kinds (local, xattn,
-enc, rglru, rwkv) and the MoE MLP are listed in ROADMAP.md.
+Port of two kinds of the JAX package's ``models/blocks.py``: ``"attn"``
+(global causal attention with a dense MLP; apply, prefill and decode) and
+``"rwkv"`` (RWKV6 time-mix + channel-mix; the full-sequence apply that
+training runs).  The other kinds (local, xattn, enc, rglru) and the MoE
+MLP are listed in ROADMAP.md.
 
 Parameters keep the reference's layout (``x @ W`` with ``W`` shaped
 ``[d_in, d_out]``, norm weights in f32) so that ``bridge.py`` is a plain
@@ -21,6 +23,8 @@ from repro_torch.models.common import (activation, apply_norm, apply_rope,
                                        chunked_attention, decode_attention,
                                        dense_init, init_norm)
 from repro_torch.models.config import LMConfig
+from repro_torch.models.rwkv import (apply_rwkv_channel, apply_rwkv_time,
+                                     init_rwkv_channel, init_rwkv_time)
 
 ATTN_KINDS = ("attn",)
 
@@ -52,21 +56,29 @@ def init_block(generator: torch.Generator, cfg: LMConfig, kind: str, *,
     """One layer's parameters, or ``layers`` of them stacked ``[L, ...]``
     (the reference's scan layout).  Matmul weights are drawn in f32 and
     stored at ``weight_dtype``; norms and biases stay f32."""
-    _require_attn(kind)
-    if cfg.is_moe:
-        raise NotImplementedError("MoE MLP is not ported yet")
     d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
-
-    def dense(d_in, d_out):
-        return _stacked(lambda: dense_init(generator, d_in, d_out,
-                                           device=device, dtype=weight_dtype),
-                        layers)
 
     def norm():
         n = init_norm(d, cfg.norm, device=device)
         if layers is None:
             return n
         return {k: torch.stack([v] * layers) for k, v in n.items()}
+
+    if kind == "rwkv":
+        kw = dict(device=device, weight_dtype=weight_dtype, layers=layers)
+        return {"ln1": norm(),
+                "time": init_rwkv_time(generator, d, cfg.rwkv_head_dim,
+                                       cfg.rwkv_lora, **kw),
+                "ln2": norm(),
+                "channel": init_rwkv_channel(generator, d, f, **kw)}
+    _require_attn(kind)
+    if cfg.is_moe:
+        raise NotImplementedError("MoE MLP is not ported yet")
+
+    def dense(d_in, d_out):
+        return _stacked(lambda: dense_init(generator, d_in, d_out,
+                                           device=device, dtype=weight_dtype),
+                        layers)
 
     attn = {"q": dense(d, cfg.n_heads * hd), "k": dense(d, cfg.n_kv * hd),
             "v": dense(d, cfg.n_kv * hd), "o": dense(cfg.n_heads * hd, d)}
@@ -157,12 +169,36 @@ def _kv_into_cache(k, v, state):
 
 
 # --------------------------------------------------------------------------
+# apply (full sequence)
+# --------------------------------------------------------------------------
+
+def apply_block(p, x, cfg: LMConfig, kind: str, *, positions=None):
+    """x: [B, S, D] -> ([B, S, D], aux loss).  The full-sequence forward
+    that training runs; positions are 0..S-1 (RWKV uses none).  An
+    attention block is the prefill without a cache to fill."""
+    no_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind != "rwkv":
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)
+        return apply_block_prefill(p, x, cfg, kind, positions=positions,
+                                   state=None), no_aux
+    dt = x.dtype
+    h = apply_norm(x, p["ln1"], cfg.norm)
+    t_out, _ = apply_rwkv_time(p["time"], h, cfg.rwkv_head_dim, dt=dt)
+    x = x + t_out
+    h = apply_norm(x, p["ln2"], cfg.norm)
+    c_out, _ = apply_rwkv_channel(p["channel"], h, dt=dt)
+    return x + c_out, no_aux
+
+
+# --------------------------------------------------------------------------
 # prefill: full-sequence forward that also fills the decode state
 # --------------------------------------------------------------------------
 
 def apply_block_prefill(p, x, cfg: LMConfig, kind: str, *, positions, state):
     """x: [B, S, D] -> [B, S, D]; fills ``state`` (this layer's K/V cache)
-    in place.  Dense blocks carry no aux loss, so none is returned."""
+    in place, unless it is None.  Dense blocks carry no aux loss, so none
+    is returned."""
     _require_attn(kind)
     dt = x.dtype
     h = apply_norm(x, p["ln1"], cfg.norm)
@@ -170,7 +206,8 @@ def apply_block_prefill(p, x, cfg: LMConfig, kind: str, *, positions, state):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     att = chunked_attention(q, k, v, causal=True)
-    _kv_into_cache(k, v, state)
+    if state is not None:
+        _kv_into_cache(k, v, state)
     x = _attn_out(p["attn"], att, x, cfg, dt)
     return _ffn(p, x, cfg, dt)
 

@@ -1,24 +1,37 @@
-"""Top-level language model: init, prefill with cache, decode step.
+"""Top-level language model: init, training forward, prefill, decode.
 
-Port of the serving half of the JAX package's ``models/lm.py`` for
-homogeneous decoder stacks of ``"attn"`` blocks.  Parameters are a tree
+Port of the JAX package's ``models/lm.py`` for homogeneous stacks with an
+untied head: ``"attn"`` decoders (training forward, prefill with cache,
+decode) and ``"rwkv"`` stacks (training forward).  Parameters are a tree
 of nested dicts in the reference's layout, block weights stacked
-``[L, ...]``.  Matmul weights are stored at the compute dtype (bf16 on
-the card): the reference's ``cast_gather_weights`` shows every use casts
-them to that dtype anyway.  Norm weights and biases stay f32.
+``[L, ...]``.
+
+Two storage modes.  Serving (``init()``) stores matmul weights at the
+compute dtype (bf16 on the card): the reference's ``cast_gather_weights``
+shows every use casts them to that dtype anyway.  Training
+(``init(master=True)``) keeps every parameter in f32, the reference's
+master weights; each forward casts the matmul weights to the compute
+dtype once (``cast_gather_weights``).  Norm weights and biases are f32
+in both.
+
+The training forward keeps one activation checkpoint per block
+(``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` on the
+scan body) and a sequence-chunked, rematerialised cross entropy, so the
+[B, S, V] logits are never alive at once.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.blocks import (apply_block_decode,
+from repro_torch.models.blocks import (apply_block, apply_block_decode,
                                        apply_block_prefill, init_block,
                                        init_block_state)
 from repro_torch.models.common import apply_norm, init_norm
 from repro_torch.models.config import LMConfig
-from repro_torch.utils.trees import tree_map
+from repro_torch.utils.trees import tree_leaves, tree_map
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -60,24 +73,83 @@ def decode_blocks(cfg: LMConfig, blocks, x, cache, position: int):
     return x
 
 
+# params consumed in f32 inside the blocks (norms, decay LoRAs, bonus) —
+# everything else is matmul weight, safe to pre-cast (the reference's list)
+_KEEP_F32 = {"ln1", "ln2", "lnx", "enc_norm", "final_norm", "gate_a",
+             "gate_x", "lambda", "router", "w0", "w_a", "w_b", "u",
+             "ln_w", "ln_b"}
+
+
+def cast_gather_weights(tree, dt):
+    """Pre-cast matmul weights to the compute dtype, once per step.
+
+    The reference's ``cast_gather_weights``: every use casts them to that
+    dtype anyway, so the result is the same; casting the stacked leaves
+    once saves a cast (and its backward) per layer, use and micro-batch —
+    thousands of kernel launches a step on rwkv6-3b, whose step the host
+    bounds.  Autograd runs through the cast to the f32 master weights."""
+    def walk(node, keep):
+        if isinstance(node, dict):
+            return {k: walk(v, keep or k in _KEEP_F32)
+                    for k, v in node.items()}
+        if keep or node.dtype != torch.float32 or node.dim() < 2:
+            return node
+        return node.to(dt)
+    return walk(tree, False)
+
+
+def unstack(blocks, dt) -> list:
+    """A stacked block tree ``[L, ...]`` -> its L per-layer trees, matmul
+    weights cast to the compute dtype ``dt`` (``cast_gather_weights``).
+
+    One ``unbind`` per leaf: its backward stacks the L layer gradients
+    once.  Indexing ``a[i]`` per layer instead would give every layer's
+    backward a zero-filled gradient of the whole stacked leaf (a 2.9 GB
+    f32 tensor for rwkv6-3b's channel-mix weights) to add into."""
+    parts = tree_map(lambda a: a.unbind(0), cast_gather_weights(blocks, dt))
+    n = len(tree_leaves(parts)[0])
+    return [tree_map(lambda t, i=i: t[i], parts) for i in range(n)]
+
+
+def run_blocks(cfg: LMConfig, layers: list, x):
+    """Per-layer block trees (``unstack``) over x [B, S, D] (positions
+    0..S-1), one activation checkpoint per block when autograd records.
+    -> (x, summed aux loss)."""
+    kind = cfg.layer_kinds[0]
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in layers:
+        fn = lambda h, p=p: apply_block(p, h, cfg, kind, positions=positions)
+        if torch.is_grad_enabled():
+            x, a = checkpoint(fn, x, use_reentrant=False)
+        else:
+            x, a = fn(x)
+        aux = aux + a
+    return x, aux
+
+
 class LM:
-    """Decoder-only LM over a homogeneous stack of attention blocks."""
+    """Decoder-only LM over a homogeneous stack of attention or RWKV
+    blocks with an untied head."""
 
     def __init__(self, cfg: LMConfig, device):
         if not cfg.homogeneous or cfg.tie_embeddings or cfg.enc_layers \
-                or cfg.family != "dense":
+                or cfg.family not in ("dense", "ssm"):
             raise NotImplementedError(
-                f"{cfg.name}: only homogeneous dense decoders with an "
-                "untied head are ported yet")
+                f"{cfg.name}: only homogeneous dense or RWKV stacks with "
+                "an untied head are ported yet")
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = torch_dtype(cfg.dtype)
 
     # ---------------- init ----------------
 
-    def init(self, generator: torch.Generator):
-        """Random parameters drawn from ``generator`` (on ``self.device``)."""
-        cfg, dev, dt = self.cfg, self.device, self.dtype
+    def init(self, generator: torch.Generator, *, master: bool = False):
+        """Random parameters drawn from ``generator`` (on ``self.device``):
+        matmul weights at the compute dtype, or every tensor in f32 with
+        ``master=True`` (training's master weights)."""
+        cfg, dev = self.cfg, self.device
+        dt = torch.float32 if master else self.dtype
 
         def normal(shape, std):
             w = torch.randn(shape, generator=generator, device=dev,
@@ -103,6 +175,61 @@ class LM:
 
     def _head_w(self, params, dt):
         return params["head"].to(dt)
+
+    def _run_blocks(self, params, x):
+        return run_blocks(self.cfg, unstack(params["blocks"], x.dtype), x)
+
+    # ---------------- training ----------------
+
+    def _xent_chunk(self, hc, lc, w):
+        cfg = self.cfg
+        logits = _softcap(hc @ w, cfg.logit_softcap).to(torch.float32)
+        if cfg.padded_vocab != cfg.vocab:
+            pad = torch.arange(cfg.padded_vocab, device=hc.device) >= cfg.vocab
+            logits = logits.masked_fill(pad, -1e30)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lc.clamp_min(0)[..., None])[..., 0]
+        mask = (lc >= 0).to(torch.float32)
+        return torch.sum((lse - ll) * mask), mask.sum()
+
+    def xent(self, params, h, labels, chunk: int = 512):
+        """Chunked softmax cross entropy.  h [B,S,D], labels [B,S] (-1 pad).
+        Each chunk's logits are recomputed in the backward pass."""
+        s = h.shape[1]
+        w = self._head_w(params, h.dtype)
+        labels = labels.to(torch.long)
+        pad = (-s) % chunk
+        if pad:
+            h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+            labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+        count = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c in range(0, s + pad, chunk):
+            hc, lc = h[:, c:c + chunk], labels[:, c:c + chunk]
+            if torch.is_grad_enabled():
+                ls, n = checkpoint(self._xent_chunk, hc, lc, w,
+                                   use_reentrant=False)
+            else:
+                ls, n = self._xent_chunk(hc, lc, w)
+            loss_sum, count = loss_sum + ls, count + n
+        return loss_sum / torch.clamp_min(count, 1.0)
+
+    def forward(self, params, batch):
+        """Training forward.  Returns (loss, metrics); with no labels,
+        (final hidden states, {"aux": ...})."""
+        x = self._embed(params, batch["tokens"], self.dtype)
+        x, aux = self._run_blocks(params, x)
+        x = apply_norm(x, params["final_norm"], self.cfg.norm)
+        labels = batch.get("labels")
+        if labels is None:
+            return x, {"aux": aux}
+        loss = self.xent(params, x, labels)
+        return loss + 0.01 * aux, {"xent": loss, "aux": aux}
+
+    def hidden(self, params, batch):
+        """Final hidden states without loss."""
+        out, _ = self.forward(params, {**batch, "labels": None})
+        return out
 
     def logits(self, params, x):
         """Final norm + head on the last position: x [B, S, D] -> [B, V] f32."""

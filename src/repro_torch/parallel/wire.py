@@ -5,8 +5,13 @@ codec grammar, the degenerate-block net-loss rule and
 ``encode``/``decode``/``roundtrip``.  ``encode`` and ``decode`` go through
 ``kernels.ops``: the CUDA kernels for a tensor on the card, their plain
 versions for a tensor on the CPU (the port has no "jnp off-TPU" rule).
-Top-k sparsification and error feedback ride the gradient hop and come
-with the training slice.
+
+``CodedHop`` is the one-card counterpart of the reference's
+``coded_ppermute``: the cut activation goes through encode -> decode, and
+its gradient through the same codec on the way back (the straight-through
+wire transpose), with the wire bytes of each direction counted in a
+``HopMeter``.  Top-k sparsification with error feedback on the gradient
+hop is not ported yet.
 
 Codec grammar (``parse_wire_dtype``):
 
@@ -14,6 +19,7 @@ Codec grammar (``parse_wire_dtype``):
 """
 from __future__ import annotations
 
+import dataclasses
 import warnings
 
 import torch
@@ -127,3 +133,67 @@ def roundtrip(x: torch.Tensor, wire_dtype: str):
     (what the receiver gets when the link is lossless)."""
     q, s = encode(x, wire_dtype)
     return decode(q, s, x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The coded hop between pipeline stages, with its backward.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class HopMeter:
+    """Wire bytes of the coded hop: payload + scale bytes (raw bytes for
+    'none' and the net-loss fallback), per direction."""
+    up: int = 0            # forward: cut activations
+    down: int = 0          # backward: their gradients
+    hops_up: int = 0
+    hops_down: int = 0
+
+    def reset(self) -> None:
+        self.up = self.down = self.hops_up = self.hops_down = 0
+
+
+def _wire_roundtrip(x: torch.Tensor, wire_dtype: str):
+    """What the receiving stage gets, and the bytes that crossed."""
+    if wire_dtype == "none":
+        return x, x.numel() * x.element_size()
+    q, s = encode(x, wire_dtype)
+    nbytes = q.numel() * q.element_size()
+    if s is not None:
+        nbytes += s.numel() * s.element_size()
+    return decode(q, s, x.dtype), nbytes
+
+
+class CodedHop(torch.autograd.Function):
+    """encode -> decode of the cut activation; the backward codes the
+    cotangent the same way (the straight-through transpose: quantization
+    is piecewise constant, so its true derivative is zero almost
+    everywhere; the downlink payload is quantized like the uplink's)."""
+
+    @staticmethod
+    def forward(ctx, x, wire_dtype: str, meter):
+        ctx.wire_dtype, ctx.meter = wire_dtype, meter
+        y, nbytes = _wire_roundtrip(x, wire_dtype)
+        if meter is not None:
+            meter.up += nbytes
+            meter.hops_up += 1
+        return x.view_as(x) if y is x else y
+
+    @staticmethod
+    def backward(ctx, g):
+        dx, nbytes = _wire_roundtrip(g.contiguous(), ctx.wire_dtype)
+        if ctx.meter is not None:
+            ctx.meter.down += nbytes
+            ctx.meter.hops_down += 1
+        return dx, None, None
+
+
+def coded_hop(x: torch.Tensor, wire_dtype: str = "none",
+              meter: HopMeter | None = None) -> torch.Tensor:
+    """One stage-to-stage hop of ``x`` [..., d] under ``wire_dtype``."""
+    base, frac = parse_wire_dtype(wire_dtype)
+    if frac is not None:
+        raise NotImplementedError(
+            f"wire_dtype {wire_dtype!r}: top-k with error feedback on the "
+            "gradient hop is not ported yet (dense none/int8/fp8 only)")
+    return CodedHop.apply(x, base, meter)

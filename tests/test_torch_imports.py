@@ -15,9 +15,11 @@ import sys
 import pytest
 
 from repro.configs import qwen15_4b as ref_qwen
+from repro.configs import rwkv6_3b as ref_rwkv
 from repro.models.config import LMConfig as RefLMConfig
 from repro_torch.configs import get_arch
 from repro_torch.configs import qwen15_4b as port_qwen
+from repro_torch.configs import rwkv6_3b as port_rwkv
 from repro_torch.models.config import LMConfig as PortLMConfig
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -94,10 +96,23 @@ def test_qwen_configs_match_reference(size):
     assert port.param_count() == ref.param_count()
 
 
+@pytest.mark.parametrize("size", ["FULL", "SMOKE"])
+def test_rwkv_configs_match_reference(size):
+    ref, port = getattr(ref_rwkv, size), getattr(port_rwkv, size)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    for prop in ("padded_vocab", "hd", "layer_kinds", "homogeneous",
+                 "is_moe", "r_width"):
+        assert getattr(port, prop) == getattr(ref, prop), prop
+    assert port.param_count() == ref.param_count()
+
+
 def test_arch_registry():
     spec = get_arch("qwen1.5-4b")
     assert spec.full is port_qwen.FULL and spec.smoke is port_qwen.SMOKE
     assert (spec.full.num_layers, spec.full.d_model, spec.full.hd) \
         == (40, 2560, 128)
+    spec = get_arch("rwkv6-3b")
+    assert spec.full is port_rwkv.FULL and spec.smoke is port_rwkv.SMOKE
+    assert spec.full.param_count() == 3_282_042_880
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
