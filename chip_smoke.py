@@ -10,12 +10,18 @@ Phases (any failure exits non-zero; nothing is caught):
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes: the wire codec bit for bit (int8 and fp8, bf16 and
      f32 inputs, d = 2560 and 96 and 200), flash attention within 2e-4 (f32)
-     and 5e-2 (bf16), causal, GQA and sliding-window, and refusing autograd;
-     the WKV6 forward and backward kernels against the plain version's
-     forward and autograd (the training shape in bf16 and f32, S = 96,
-     strong decay, a given initial state).  Small f32 models on the card
-     are held to the same models on the CPU: a qwen prefill, and one
-     training step of an RWKV model (loss and updated parameters);
+     and 5e-2 (bf16), causal, GQA and sliding-window, head dims 128 and 256
+     (recurrentgemma's 10 q heads on one kv head, window 2048, at S = 512
+     and at S = 3072 where the window bites), flash and RG-LRU refusing
+     autograd; the RG-LRU scan within 2e-4 (f32) / 1e-2 (bf16) of its
+     plain version relative to the largest value ([4, 512, 2560] with and
+     without h0, and ragged [3, 300, 200]); the WKV6 forward and backward
+     kernels against the plain version's forward and autograd (the
+     training shape in bf16 and f32, S = 96, strong decay, a given initial
+     state).  Small f32 models on the card are held to the same models on
+     the CPU: a qwen prefill, a recurrentgemma prefill of a 12-token prompt
+     (window 8: the ring wraps) and 8 decode steps, and one training step
+     of an RWKV model (loss and updated parameters);
   4. the main paths at full width, random weights from seed 0, bf16 compute:
      a. serving qwen1.5-4b (40 layers, batch 4, prompt 512, 32 greedy
         tokens) through the serving CLI's entry point: the static path, then
@@ -23,7 +29,13 @@ Phases (any failure exits non-zero; nothing is caught):
         fp8.  Measured payload bytes must equal billed bytes, there must be
         gen + 1 uplink frames, 'none' split tokens must equal the static
         tokens bit for bit, and every serving kernel must have launched;
-     b. C2P2SL training of rwkv6-3b (32 layers, f32 master weights, batch 8,
+     b. serving recurrentgemma-2b (26 layers: 18 RG-LRU, 8 local attention
+        with window 2048; tied embeddings; batch 4, prompt 512, 32 greedy
+        tokens) through the same entry point: tokens in range, exactly 18
+        rglru_scan and 8 flash_attention launches (the prefill's layers),
+        and --split-cut refused with ValueError; prefill ms, decode tok/s
+        and peak GB printed;
+     c. C2P2SL training of rwkv6-3b (32 layers, f32 master weights, batch 8,
         seq 512) through the training CLI's entry point: 3 steps of the
         2-stage, 4-micro-batch pipeline cut at 16, for wire none and int8.
         Every loss finite, every parameter tensor changed, the hop's bytes
@@ -32,10 +44,10 @@ Phases (any failure exits non-zero; nothing is caught):
         and a ragged shard_batch (b = [5, 3], k = 4), its loss printed
         beside the pipelined loss on the same weights and batch;
   5. timings: torch.profiler traces of one prefill and four decode steps
-     and of one training step (device busy time and idle share, top
-     kernels); per kernel its device time, its plain version's, its bound
-     and the library yardstick where one PyTorch call computes the same
-     function.
+     of qwen, one prefill and one decode step of recurrentgemma, and one
+     training step (device busy time and idle share, top kernels); per
+     kernel its device time, its plain version's, its bound and the library
+     yardstick where one PyTorch call computes the same function.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -59,6 +71,11 @@ BF16_OPS_S = 989e12
 F32_OPS_S = 67e12
 
 ARCH, CUT, BATCH, PROMPT, GEN, SEED = "qwen1.5-4b", 20, 4, 512, 32, 0
+# the hybrid serving path: recurrentgemma-2b, the same batch and lengths
+RG_ARCH = "recurrentgemma-2b"
+RG_LAUNCHES = {"rglru_scan": 18, "flash_attention": 8}   # one per layer
+RG_SHAPE = (BATCH, PROMPT, 2560)                # the prefill's scan call
+RG_HEADS = (10, 1, 256, 2048)                   # q heads, kv heads, dh, window
 # the training path: rwkv6-3b, 2 stages (cut 16), 4 micro-batches
 T_ARCH, T_BATCH, T_SEQ, T_K, T_STEPS = "rwkv6-3b", 8, 512, 4, 3
 WKV_SHAPE = (T_BATCH // T_K, T_SEQ, 40, 64)     # one micro-batch's call
@@ -162,17 +179,22 @@ def check_codec(torch, wc, dev):
 
 def check_flash(torch, fa, dev):
     """Flash kernel against the plain version; returns the max error at
-    the main path's bf16 shape."""
+    each main path's bf16 shape, by head dim."""
     gen = torch.Generator(device=dev).manual_seed(2)
     tol = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+    hq, hkv, dh, w = RG_HEADS
     # (B, Hq, Hkv, S, dh, causal, window, dtype, model layout [B,S,H,dh])
     cases = [(BATCH, 20, 20, PROMPT, 128, True, 0, torch.bfloat16, True),
              (BATCH, 20, 20, PROMPT, 128, True, 0, torch.float32, True),
+             (BATCH, hq, hkv, PROMPT, dh, True, w, torch.bfloat16, True),
+             (BATCH, hq, hkv, PROMPT, dh, True, w, torch.float32, True),
+             (1, hq, hkv, 3072, dh, True, w, torch.float32, False),
+             (1, hq, hkv, 3072, dh, True, w, torch.bfloat16, False),
              (2, 8, 4, 200, 64, True, 0, torch.float32, False),
              (2, 8, 4, 200, 64, True, 0, torch.bfloat16, False),
              (2, 4, 4, 300, 128, True, 64, torch.float32, False),
              (1, 4, 2, 130, 32, False, 0, torch.float32, False)]
-    main_err = None
+    main_err = {}
     for b, hq, hkv, s, dh, causal, window, dt, bshd in cases:
         def mk(h):
             if bshd:
@@ -191,8 +213,77 @@ def check_flash(torch, fa, dev):
             fail(f"{name}: max abs err {err} > {tol[dt]}")
         print(f"{name}: max abs err {err:.3e} (tol {tol[dt]})")
         if bshd and dt == torch.bfloat16:
-            main_err = err
+            main_err[dh] = err
     return main_err
+
+
+RGLRU_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
+
+
+def check_rglru(torch, rg, dev):
+    """RG-LRU scan kernel against its plain version, relative to the
+    largest value: 2e-4 in f32 (the reference's bound on its own kernel),
+    1e-2 in bf16 (h and h_last rounded to bf16).  log a is drawn from the
+    model's range, -8 softplus(lambda) r in (-0.105, 0).  Returns the max
+    abs error of h at the model's call (f32, no h0)."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    cases = [(RG_SHAPE, torch.float32, False), (RG_SHAPE, torch.float32, True),
+             (RG_SHAPE, torch.bfloat16, False),
+             (RG_SHAPE, torch.bfloat16, True),
+             ((3, 300, 200), torch.float32, True),
+             ((3, 300, 200), torch.bfloat16, False)]
+    main = None
+    for shape, dt, with_h0 in cases:
+        x = torch.randn(shape, generator=gen, device=dev).to(dt)
+        la = (-0.105 * torch.rand(shape, generator=gen, device=dev)).to(dt)
+        h0 = torch.randn((shape[0], shape[2]), generator=gen, device=dev) \
+            if with_h0 else None
+        h, last = rg.rglru_cuda(x, la, h0)
+        hp, lastp = rg.rglru_plain(x, la, h0)
+        torch.cuda.synchronize()
+        tol = RGLRU_TOL[str(dt).split(".")[-1]]
+        err = max(_rel_err(h, hp), _rel_err(last, lastp))
+        name = f"rglru {shape} {dt}{' h0 given' if with_h0 else ''}"
+        if not (err <= tol and h.dtype == last.dtype == dt):
+            fail(f"{name}: max rel err {err} > {tol} (or dtype {h.dtype})")
+        print(f"{name}: max rel err {err:.3e} (tol {tol})")
+        if shape == RG_SHAPE and dt == torch.float32 and not with_h0:
+            main = float((h - hp).abs().max())
+    return main
+
+
+def check_small_hybrid(torch, dev):
+    """The f32 SMOKE recurrentgemma (3 layers, window 8) on the card
+    against the same model on the CPU: prefill logits of a 12-token prompt
+    (the ring wraps, the window masks) and 8 decode steps' logits, 1e-3."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import LM
+    from repro_torch.utils.trees import tree_map
+    cfg = get_arch(RG_ARCH).smoke
+    cpu, card = LM(cfg, "cpu"), LM(cfg, dev)
+    params = cpu.init(torch.Generator().manual_seed(SEED))
+    pcard = tree_map(lambda t: t.to(dev), params)
+    toks = torch.randint(0, cfg.vocab, (2, 12),
+                         generator=torch.Generator().manual_seed(3))
+    errs = []
+    with torch.inference_mode():
+        lc, sc = cpu.prefill_with_cache(params, {"tokens": toks}, 20,
+                                        torch.float32)
+        lg, sg = card.prefill_with_cache(pcard, {"tokens": toks.to(dev)}, 20,
+                                         torch.float32)
+        errs.append(float((lg.cpu() - lc).abs().max()))
+        tok = torch.argmax(lc, -1, keepdim=True)
+        for pos in range(12, 20):
+            lc, _ = cpu.decode_step(params, tok, sc["cache"], pos)
+            lg, _ = card.decode_step(pcard, tok.to(dev), sg["cache"], pos)
+            errs.append(float((lg.cpu() - lc).abs().max()))
+            tok = torch.argmax(lc, -1, keepdim=True)
+    if not (lg.shape == (2, cfg.vocab) and all(math.isfinite(e) and e <= 1e-3
+                                               for e in errs)):
+        fail(f"small recurrentgemma on the card vs CPU: logit errs {errs}")
+    print(f"small f32 recurrentgemma, card vs CPU: prefill logits max err "
+          f"{errs[0]:.3e}, 8 decode steps max err {max(errs[1:]):.3e} "
+          f"(tol 1e-3)")
 
 
 def check_small_model(torch, dev):
@@ -217,16 +308,19 @@ def check_small_model(torch, dev):
     print(f"small f32 model, card vs CPU prefill logits: max err {err:.3e}")
 
 
-def check_flash_refuses_autograd(torch, ops, dev):
-    """The flash kernel has no backward: under autograd it must raise
-    instead of returning a tensor that drops the gradients."""
+def check_refuses_autograd(torch, ops, dev):
+    """The flash and RG-LRU kernels have no backward: under autograd they
+    must raise instead of returning a tensor that drops the gradients."""
     t = torch.randn(1, 2, 16, 64, device=dev, requires_grad=True)
-    try:
-        ops.flash_attention(t, t, t)
-    except NotImplementedError:
-        print("flash under autograd on the card: raises NotImplementedError")
-    else:
-        fail("ops.flash_attention ran under autograd on the card")
+    for name, call in (("flash_attention", lambda: ops.flash_attention(
+            t, t, t)), ("rglru_scan", lambda: ops.rglru_scan(t[0], t[0]))):
+        try:
+            call()
+        except NotImplementedError:
+            print(f"{name} under autograd on the card: raises "
+                  "NotImplementedError")
+        else:
+            fail(f"ops.{name} ran under autograd on the card")
 
 
 WKV_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -375,6 +469,41 @@ def run_main_path(torch, ops, serve):
             fail(f"kernel {name} was not launched on the serving path")
     print(f"serving-path launches: {json.dumps(launches, sort_keys=True)}")
     return static, split, launches
+
+
+def run_hybrid_serving(torch, ops, serve):
+    """recurrentgemma-2b static serving at full width through the serving
+    CLI's entry point; the launch counts are read around that one run.
+    Then --split-cut on it must raise ValueError (as the reference's
+    SplitDecode does for a heterogeneous stack)."""
+    from repro_torch.configs import get_arch
+    argv = ["--arch", RG_ARCH, "--size", "full", "--batch", str(BATCH),
+            "--prompt-len", str(PROMPT), "--gen", str(GEN), "--seed",
+            str(SEED)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    toks = res["tokens"]
+    vocab = get_arch(RG_ARCH).full.vocab
+    if tuple(toks.shape) != (BATCH, GEN) or int(toks.min()) < 0 \
+            or int(toks.max()) >= vocab:
+        fail(f"{RG_ARCH} tokens {tuple(toks.shape)} out of range")
+    if launches != RG_LAUNCHES:
+        fail(f"{RG_ARCH} serving launches {launches} != {RG_LAUNCHES}")
+    print(f"{RG_ARCH} serving-path launches: "
+          f"{json.dumps(launches, sort_keys=True)}")
+    try:
+        serve.main(argv + ["--split-cut", "13"])
+    except ValueError as e:
+        print(f"{RG_ARCH} --split-cut 13: ValueError ({e})")
+    else:
+        fail(f"{RG_ARCH} --split-cut ran on a heterogeneous stack")
+    torch.cuda.empty_cache()
+    return res, launches, peak_gb
 
 
 def _train_argv(wire: str):
@@ -528,16 +657,17 @@ def profile_training_step(torch, res):
               f"{e.key[:70]}")
 
 
-def profile_serving(torch, dev):
-    """Where the time of the static path goes: one prefill and four
-    decode steps traced with torch.profiler; wall time (host clock, ends
-    in a synchronise), device busy time (sum of kernel time) and the
-    device's idle share, with the kernels that take the most time."""
+def profile_serving(torch, dev, arch, decode_steps):
+    """Where the time of the static path goes: one prefill and
+    ``decode_steps`` decode steps traced with torch.profiler; wall time
+    (host clock, ends in a synchronise), device busy time (sum of kernel
+    time) and the device's idle share, with the kernels that take the most
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_arch
     from repro_torch.models.lm import LM
-    model = LM(get_arch(ARCH).full, dev)
+    model = LM(get_arch(arch).full, dev)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
     prompts = torch.randint(0, model.cfg.vocab, (BATCH, PROMPT), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(5))
@@ -559,8 +689,10 @@ def profile_serving(torch, dev):
     with torch.inference_mode():
         _, state = prefill()
         decode(state, 2)                                     # warm
-        for name, fn, steps in (("prefill", prefill, 1),
-                                ("decode", lambda: decode(state, 4), 4)):
+        for name, fn, steps in (
+                ("prefill", prefill, 1),
+                ("decode", lambda: decode(state, decode_steps),
+                 decode_steps)):
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -569,7 +701,8 @@ def profile_serving(torch, dev):
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
             busy_us, rows, us = _kernel_us(prof.key_averages())
-            print(f"profile {name} ({steps} step{'s' * (steps > 1)}): wall "
+            print(f"profile {arch} {name} ({steps} step"
+                  f"{'s' * (steps > 1)}): wall "
                   f"{wall / steps:.3f} ms/step, device busy "
                   f"{busy_us / 1e3 / steps:.3f} ms/step, idle share "
                   f"{1 - busy_us / 1e3 / wall:.3f}")
@@ -581,12 +714,13 @@ def profile_serving(torch, dev):
 # ------------------------------------------------------------------ phase 5
 
 
-def time_kernels(torch, wc, fa, rw, dev, serve_launches, train_launches,
-                 flash_err, wkv_err):
+def time_kernels(torch, wc, fa, rw, rg, dev, serve_launches, rg_launches,
+                 train_launches, flash_err, wkv_err, rglru_err):
     """Device time of every kernel at its main path's shape beside its
     plain version's, its bound and a library call where one exists.
-    ``launches`` sums each kernel's count over the serving and training
-    main paths."""
+    ``launches`` sums each kernel's count over the qwen serving and the
+    training main paths; the recurrentgemma rows (the scan, and flash at
+    head dim 256) take that path's counts."""
     import torch.nn.functional as F
     launches = {n: serve_launches.get(n, 0) + train_launches.get(n, 0)
                 for n in set(serve_launches) | set(train_launches)}
@@ -641,7 +775,7 @@ def time_kernels(torch, wc, fa, rw, dev, serve_launches, train_launches,
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:73",
         "launches": launches.get("flash_attention", 0),
-        "max_abs_err": flash_err,
+        "max_abs_err": flash_err[128],
         "ms": device_ms(lambda: fa.flash_attention_cuda(*qkv, causal=True)),
         "plain_ms": device_ms(lambda: fa.attention_plain(*qkv, causal=True),
                               iters=10),
@@ -649,6 +783,8 @@ def time_kernels(torch, wc, fa, rw, dev, serve_launches, train_launches,
         "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
             *contig, is_causal=True))})
     out += time_wkv6(torch, rw, dev, launches, wkv_err)
+    out += time_hybrid(torch, fa, rg, dev, rg_launches, flash_err[256],
+                       rglru_err)
     for k in out:
         print(f"kernel {k['name']}: {k['ms']:.4f} ms, plain "
               f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
@@ -707,6 +843,62 @@ def time_wkv6(torch, rw, dev, launches, wkv_err):
     return out
 
 
+def time_hybrid(torch, fa, rg, dev, launches, flash_err, rglru_err):
+    """The RG-LRU scan at recurrentgemma-2b prefill's call ([4, 512, 2560],
+    f32 x and log a, no h0) and flash at its local layers' shape ([4, 10,
+    512, 256] q, one kv head, bf16, causal, window 2048, which does not
+    bite at S = 512).  Scan bound: x and log a read once, h and h_last
+    written once, at 3.35 TB/s, against ~8 f32 operations an element
+    (exp, a*a, 1 - , max, sqrt, two products and a sum)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(10)
+    b, s, r = RG_SHAPE
+    n = b * s * r
+    x = torch.randn(RG_SHAPE, generator=gen, device=dev)
+    la = -0.105 * torch.rand(RG_SHAPE, generator=gen, device=dev)
+    b_ms, b_by = bound(3 * n * 4 + b * r * 4, 8 * n, F32_OPS_S)
+    out = [{
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/rglru.cu",
+        "replaces": "src/repro/kernels/rglru.py:56",
+        "launches": launches.get("rglru_scan", 0), "max_abs_err": rglru_err,
+        "ms": device_ms(lambda: rg.rglru_cuda(x, la)),
+        "plain_ms": device_ms(lambda: rg.rglru_plain(x, la), iters=3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}]
+    xb, lb = x.to(torch.bfloat16), la.to(torch.bfloat16)
+    print(f"rglru at {RG_SHAPE}: f32 "
+          f"{cuda_ms(lambda: rg.rglru_cuda(x, la)):.4f} ms between events; "
+          f"bf16 x and log a "
+          f"{device_ms(lambda: rg.rglru_cuda(xb, lb)):.4f} ms on the device, "
+          f"{cuda_ms(lambda: rg.rglru_cuda(xb, lb)):.4f} ms between events "
+          f"(bound {bound(3 * n * 2 + b * r * 2, 8 * n, F32_OPS_S)[0]:.4f} "
+          f"ms)")
+
+    hq, hkv, dh, window = RG_HEADS
+    mk = lambda h: torch.randn((b, s, h, dh), generator=gen, device=dev).to(
+        torch.bfloat16).transpose(1, 2)
+    q, k, v = mk(hq), mk(hkv), mk(hkv)
+    pairs = b * hq * s * (s + 1) // 2           # causal; the window is wider
+    b_ms, b_by = bound((2 * hq + 2 * hkv) * b * s * dh * 2, 4 * dh * pairs,
+                       BF16_OPS_S)
+    lib = [q.contiguous()] + [t.expand(b, hq, s, dh).contiguous()
+                              for t in (k, v)]
+    out.append({
+        "name": "flash_attention_dh256", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:73",
+        "launches": launches.get("flash_attention", 0),
+        "max_abs_err": flash_err,
+        "ms": device_ms(lambda: fa.flash_attention_cuda(
+            q, k, v, causal=True, window=window)),
+        "plain_ms": device_ms(lambda: fa.attention_plain(
+            q, k, v, causal=True, window=window), iters=10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+            *lib, is_causal=True))})
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
@@ -716,6 +908,12 @@ def main():
     sys.path.insert(0, SRC)
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
+    marks = [t_all]
+
+    def phase(name):
+        """Seconds since the previous phase ended (host clock)."""
+        marks.append(time.perf_counter())
+        print(f"phase {name}: {marks[-1] - marks[-2]:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -727,6 +925,7 @@ def main():
 
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
     from repro_torch.kernels import rwkv6 as rw
     from repro_torch.kernels import wire_codec as wc
     from repro_torch.launch import serve, train
@@ -742,10 +941,13 @@ def main():
 
     check_codec(torch, wc, dev)
     flash_err = check_flash(torch, fa, dev)
-    check_flash_refuses_autograd(torch, ops, dev)
+    rglru_err = check_rglru(torch, rg, dev)
+    check_refuses_autograd(torch, ops, dev)
     wkv_err = check_wkv6(torch, rw, dev)
     check_small_model(torch, dev)
+    check_small_hybrid(torch, dev)
     check_small_training(torch, dev)
+    phase("build and kernel checks")
 
     static, split, launches = run_main_path(torch, ops, serve)
     print(f"main path static: prefill {static['prefill_ms']:.2f} ms, "
@@ -755,8 +957,18 @@ def main():
               f"decode {res['decode_tok_s']:.1f} tok/s, {res['frames']} "
               f"frames, {res['measured_payload_bytes']} B measured == billed")
 
-    profile_serving(torch, dev)
+    profile_serving(torch, dev, ARCH, 4)
     torch.cuda.empty_cache()
+    phase(f"{ARCH} serving and profile")
+
+    hybrid, rg_launches, rg_peak = run_hybrid_serving(torch, ops, serve)
+    print(f"main path {RG_ARCH} static: prefill {hybrid['prefill_ms']:.2f} "
+          f"ms, decode {hybrid['decode_tok_s']:.1f} tok/s, peak "
+          f"{rg_peak:.2f} GB")
+    del hybrid
+    profile_serving(torch, dev, RG_ARCH, 1)
+    torch.cuda.empty_cache()
+    phase(f"{RG_ARCH} serving and profile")
 
     rows, train_launches = run_training_path(
         torch, ops, train, protocol, dev,
@@ -769,9 +981,11 @@ def main():
                   f"{r['peak_gb']:.2f} GB, hop up {r['hop_bytes_up']} B, "
                   f"down {r['hop_bytes_down']} B")
     run_c2p2sl(torch, dev)
+    phase(f"{T_ARCH} training, profile and c2p2sl step")
 
-    kernels = time_kernels(torch, wc, fa, rw, dev, launches, train_launches,
-                           flash_err, wkv_err)
+    kernels = time_kernels(torch, wc, fa, rw, rg, dev, launches, rg_launches,
+                           train_launches, flash_err, wkv_err, rglru_err)
+    phase("kernel timings")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 """Carry parameters between the JAX package's trees and the port's.
 
 Both sides keep one layout (``x @ W`` with ``W`` shaped ``[d_in, d_out]``,
-block weights stacked ``[L, ...]``, the same key names), so the bridge is
-a plain copy with no transposes.  The JAX side is handed over as a tree
+block weights stacked ``[L, ...]`` or, for a heterogeneous stack, a tuple
+of per-layer trees; the same key names; no ``"head"`` leaf where the
+embeddings are tied), so the bridge is a plain copy with no transposes
+that keeps the tree's structure.  The JAX side is handed over as a tree
 of numpy arrays (``jax.tree.map(np.asarray, params)``): the port imports
 nothing of JAX.
 """
@@ -30,11 +32,12 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def params_from_jax(tree, device="cpu"):
-    """JAX parameter tree (nested dicts of numpy arrays) -> port params."""
+    """JAX parameter tree (dicts and tuples of numpy arrays) -> port
+    params."""
     return tree_map(lambda a: _to_torch(a, device), tree)
 
 
 def params_to_jax(params):
-    """Port params -> nested dicts of numpy arrays (bf16 widened to f32),
-    the inverse of ``params_from_jax`` for names and shapes."""
+    """Port params -> dicts and tuples of numpy arrays (bf16 widened to
+    f32), the inverse of ``params_from_jax`` for names and shapes."""
     return tree_map(_to_numpy, params)

@@ -24,6 +24,10 @@
 // would break.  kv tiles wholly above the causal diagonal or wholly left
 // of the window are skipped; q tiles are scheduled heaviest first.
 // mma.sync / wgmma and TMA are the next step for the bf16 path.
+// Head dim 256 (recurrentgemma-2b's local attention: 10 q heads, one kv
+// head, window 2048) is the same kernel: its tiles take 213,760 B of shared
+// memory (the opt-in limit is 232,448 B, one block per SM) and a 4x16 f32
+// PV tile per thread.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -240,6 +244,9 @@ int dispatch_dh(int dh, const void* q, const void* k, const void* v, void* o,
     case 128:
       return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os,
                             scale, causal, window, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os,
+                            scale, causal, window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -251,7 +258,7 @@ extern "C" {
 
 // Strides are in elements, for the [B, H, S, dh] index order.  Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a head
-// dim without an instantiation: 32, 64 and 128 are built).
+// dim without an instantiation: 16, 32, 64, 128 and 256 are built).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int Hq, int Hkv, int Sq, int Skv, int dh,
                         int dtype, long long qsb, long long qsh, long long qss,

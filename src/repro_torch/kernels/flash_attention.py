@@ -22,7 +22,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)           # instantiated in the CUDA source
+HEAD_DIMS = (16, 32, 64, 128, 256)      # instantiated in the CUDA source
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -9,8 +9,9 @@ nowhere else, so a run can show that its path went through the kernels.
 ``wkv6`` is differentiable on both devices: on the CPU autograd runs
 through the plain version, on the card through ``_WKV6``, whose backward
 is the hand-written backward kernel (counted as ``wkv6_bwd``).  The flash
-kernel has no backward yet, so on the card it refuses to run under
-autograd rather than drop the gradients of q, k and v.
+and RG-LRU kernels have no backward yet, so on the card they refuse to
+run under autograd rather than drop the gradients of their inputs; on
+the CPU autograd runs through their plain versions.
 """
 from __future__ import annotations
 
@@ -19,11 +20,12 @@ import collections
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rglru as _rg
 from repro_torch.kernels import rwkv6 as _rw
 from repro_torch.kernels import wire_codec as _wc
 
 KERNELS = ("wire_encode", "wire_decode", "flash_attention", "wkv6",
-           "wkv6_bwd")
+           "wkv6_bwd", "rglru_scan")
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -58,14 +60,19 @@ def wire_decode(q: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+def _refuse_autograd(kernel: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"the {kernel} kernel has no backward yet: it runs on the card "
+            "only without autograd (torch.no_grad / inference_mode)")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q [B,Hq,S,dh], k/v [B,Hkv,S,dh] -> [B,Hq,S,dh]."""
     if not _on_cuda(q):
         return _fa.attention_plain(q, k, v, causal=causal, window=window)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the flash kernel has no backward yet: attention on the card "
-            "runs only without autograd (torch.no_grad / inference_mode)")
+    _refuse_autograd("flash", q, k, v)
     out = _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
     LAUNCHES["flash_attention"] += 1
     return out
@@ -101,3 +108,14 @@ def wkv6(r, k, v, logw, u, s0=None):
     if not _on_cuda(r):
         return _rw.wkv6_plain(r, k, v, logw, u, s0)
     return _WKV6.apply(r, k, v, logw, u, s0)
+
+
+def rglru_scan(x, log_a, h0=None):
+    """RG-LRU scan: x, log_a [B,S,R], h0 [B,R] or None -> (h [B,S,R],
+    h_last [B,R]) in x's dtype, carried in f32."""
+    if not _on_cuda(x):
+        return _rg.rglru_plain(x, log_a, h0)
+    _refuse_autograd("RG-LRU", x, log_a, h0)
+    out = _rg.rglru_cuda(x, log_a, h0)
+    LAUNCHES["rglru_scan"] += 1
+    return out

@@ -10,12 +10,16 @@ without CUDA and without that flag it raises.
 * ``--split-cut L``: the UE half (embed + blocks[:L]) ships coded cut
   activations as INFER frames over a real loopback socket
   (``--wire-dtype`` none/int8/fp8) to the BS half, which replies with the
-  greedy token; prints the measured-vs-billed wire audit.
+  greedy token; prints the measured-vs-billed wire audit.  Homogeneous
+  stacks with an untied head only: a hybrid (recurrentgemma-2b) raises
+  ``ValueError``, as the reference's ``SplitDecode`` does.
 
 PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \
     --size full --batch 4 --prompt-len 512 --gen 32
 PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \
     --size full --split-cut 20 --wire-dtype int8
+PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
+    --size full --batch 4 --prompt-len 512 --gen 32
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_arch
 from repro_torch.models.lm import LM
 from repro_torch.parallel.wire import validate_wire_dtype
+from repro_torch.serving.infer import SplitDecode, run_split_infer
 
 
 def _sync(device: torch.device):
@@ -72,7 +77,6 @@ def _static_serve(model, params, prompts, args, cache_len) -> dict:
 
 def _split_serve(model, params, prompts, args, cache_len) -> dict:
     """Split inference over the loopback socket; prints the wire audit."""
-    from repro_torch.serving.infer import run_split_infer
 
     _sync(model.device)
     t0 = time.perf_counter()
@@ -126,6 +130,8 @@ def main(argv=None) -> dict:
     spec = get_arch(args.arch)
     cfg = spec.smoke if args.size == "smoke" else spec.full
     model = LM(cfg, device)
+    if args.split_cut:              # refuse a cut it cannot make before
+        SplitDecode(model, args.split_cut)  # any weight is drawn
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))
     cache_len = args.cache_len or (args.prompt_len + args.gen)
     rng = np.random.default_rng(args.seed)

@@ -1,10 +1,15 @@
 """Per-layer blocks: init, full-sequence apply, prefill and decode.
 
-Port of two kinds of the JAX package's ``models/blocks.py``: ``"attn"``
-(global causal attention with a dense MLP; apply, prefill and decode) and
-``"rwkv"`` (RWKV6 time-mix + channel-mix; the full-sequence apply that
-training runs).  The other kinds (local, xattn, enc, rglru) and the MoE
-MLP are listed in ROADMAP.md.
+Port of four kinds of the JAX package's ``models/blocks.py``, each with
+a dense MLP:
+  * ``"attn"``  — global causal attention (apply, prefill, decode);
+  * ``"local"`` — sliding-window causal attention, its decode cache a ring
+    buffer of the last ``min(window, cache_len)`` tokens (recurrentgemma);
+  * ``"rglru"`` — the Griffin recurrent block (conv1d + RG-LRU), its
+    decode state ``{"h", "conv"}`` in f32;
+  * ``"rwkv"``  — RWKV6 time-mix + channel-mix (the full-sequence apply
+    that training runs).
+The other kinds (xattn, enc) and the MoE MLP are listed in ROADMAP.md.
 
 Parameters keep the reference's layout (``x @ W`` with ``W`` shaped
 ``[d_in, d_out]``, norm weights in f32) so that ``bridge.py`` is a plain
@@ -12,8 +17,9 @@ copy.  Every use casts a matmul weight to the compute dtype, as the
 reference does.
 
 Decode state is updated IN PLACE: the K/V cache tensors a block is given
-are written at ``position`` (the reference returns new buffers; the port
-saves the copy of the whole cache per token).
+are written at ``position`` (or its ring slot), the recurrent state is
+overwritten (the reference returns new buffers; the port saves the copy
+of the whole cache per token).
 """
 from __future__ import annotations
 
@@ -23,16 +29,23 @@ from repro_torch.models.common import (activation, apply_norm, apply_rope,
                                        chunked_attention, decode_attention,
                                        dense_init, init_norm)
 from repro_torch.models.config import LMConfig
+from repro_torch.models.recurrent import (apply_recurrent,
+                                          apply_recurrent_decode,
+                                          init_recurrent,
+                                          init_recurrent_state)
 from repro_torch.models.rwkv import (apply_rwkv_channel, apply_rwkv_time,
                                      init_rwkv_channel, init_rwkv_time)
+from repro_torch.utils.trees import tree_map
 
-ATTN_KINDS = ("attn",)
+# kinds with a decode state (prefill and decode); "rwkv" has init and the
+# full-sequence apply only
+SERVE_KINDS = ("attn", "local", "rglru")
 
 
-def _require_attn(kind: str):
-    if kind not in ATTN_KINDS:
+def _require(kind: str):
+    if kind not in SERVE_KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (have {ATTN_KINDS})")
+            f"block kind {kind!r} is not ported yet (have {SERVE_KINDS})")
 
 
 # --------------------------------------------------------------------------
@@ -40,10 +53,12 @@ def _require_attn(kind: str):
 # --------------------------------------------------------------------------
 
 def _stacked(fn, layers):
-    """``fn()`` once, or ``layers`` draws stacked on a leading axis."""
+    """``fn()`` once, or ``layers`` draws (tensors or trees) stacked on a
+    leading axis."""
     if layers is None:
         return fn()
-    return torch.stack([fn() for _ in range(layers)])
+    draws = [fn() for _ in range(layers)]
+    return tree_map(lambda *ts: torch.stack(ts), draws[0], *draws[1:])
 
 
 def _zeros(n, layers, device):
@@ -71,7 +86,7 @@ def init_block(generator: torch.Generator, cfg: LMConfig, kind: str, *,
                                        cfg.rwkv_lora, **kw),
                 "ln2": norm(),
                 "channel": init_rwkv_channel(generator, d, f, **kw)}
-    _require_attn(kind)
+    _require(kind)
     if cfg.is_moe:
         raise NotImplementedError("MoE MLP is not ported yet")
 
@@ -80,31 +95,49 @@ def init_block(generator: torch.Generator, cfg: LMConfig, kind: str, *,
                                            device=device, dtype=weight_dtype),
                         layers)
 
-    attn = {"q": dense(d, cfg.n_heads * hd), "k": dense(d, cfg.n_kv * hd),
-            "v": dense(d, cfg.n_kv * hd), "o": dense(cfg.n_heads * hd, d)}
-    if cfg.qkv_bias or cfg.mlp_bias:
-        attn["qb"] = _zeros(cfg.n_heads * hd, layers, device)
-        attn["kb"] = _zeros(cfg.n_kv * hd, layers, device)
-        attn["vb"] = _zeros(cfg.n_kv * hd, layers, device)
-    if cfg.mlp_bias:
-        attn["ob"] = _zeros(d, layers, device)
+    p = {"ln1": norm(), "ln2": norm()}
+    if kind == "rglru":
+        p["rec"] = _stacked(lambda: init_recurrent(
+            generator, d, cfg.r_width, cfg.conv_width, device=device,
+            weight_dtype=weight_dtype), layers)
+    else:
+        attn = {"q": dense(d, cfg.n_heads * hd),
+                "k": dense(d, cfg.n_kv * hd),
+                "v": dense(d, cfg.n_kv * hd),
+                "o": dense(cfg.n_heads * hd, d)}
+        if cfg.qkv_bias or cfg.mlp_bias:
+            attn["qb"] = _zeros(cfg.n_heads * hd, layers, device)
+            attn["kb"] = _zeros(cfg.n_kv * hd, layers, device)
+            attn["vb"] = _zeros(cfg.n_kv * hd, layers, device)
+        if cfg.mlp_bias:
+            attn["ob"] = _zeros(d, layers, device)
+        p["attn"] = attn
     mlp = {"w1": dense(d, f), "w2": dense(f, d)}
     if cfg.mlp_gated:
         mlp["w3"] = dense(d, f)
     if cfg.mlp_bias:
         mlp["b1"] = _zeros(f, layers, device)
         mlp["b2"] = _zeros(d, layers, device)
-    return {"ln1": norm(), "ln2": norm(), "attn": attn, "mlp": mlp}
+    p["mlp"] = mlp
+    return p
 
 
 def init_block_state(cfg: LMConfig, kind: str, batch: int, cache_len: int,
                      dtype=torch.bfloat16, *, device, layers: int | None = None):
-    """Zeroed K/V cache ``[B, cache_len, n_kv, hd]`` (``[L, ...]`` when
-    ``layers`` is given)."""
-    _require_attn(kind)
-    shape = (batch, cache_len, cfg.n_kv, cfg.hd)
-    if layers is not None:
-        shape = (layers,) + shape
+    """Zeroed decode state of one layer (``[L, ...]`` when ``layers`` is
+    given): a K/V cache ``[B, cache_len, n_kv, hd]`` ("attn"), a ring of
+    ``min(window, cache_len)`` slots ("local"), or the recurrent state
+    ``{"h": [B, R], "conv": [B, W-1, R]}`` in f32 ("rglru")."""
+    _require(kind)
+    lead = () if layers is None else (layers,)
+    if kind == "rglru":
+        st = init_recurrent_state(batch, cfg.r_width, cfg.conv_width,
+                                  device=device)
+        return {k: v.expand(lead + v.shape).clone() for k, v in st.items()}
+    slots = cache_len
+    if kind == "local":
+        slots = min(cfg.window, cache_len) or cache_len
+    shape = lead + (batch, slots, cfg.n_kv, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -155,13 +188,22 @@ def _attn_out(p, att, x, cfg: LMConfig, dt):
     return x + out
 
 
-def _kv_into_cache(k, v, state):
+def _kv_into_cache(k, v, state, ring: bool = False):
     """Write full-sequence K/V [B, S, kv, hd] into the layer's decode
-    cache [B, cache_len, kv, hd] (global attention: zero-padded past S),
-    in place, cast to the cache dtype."""
-    s, cache_len = k.shape[1], state["k"].shape[1]
-    if s > cache_len:
-        raise ValueError(f"prompt of {s} tokens exceeds cache_len {cache_len}")
+    cache [B, C, kv, hd] in place, cast to the cache dtype.  Global
+    attention: zero-padded past S.  Local attention (``ring``): the ring
+    buffer of the last ``min(C, S)`` tokens at slots ``t % C``, as
+    ``apply_block_decode`` indexes it."""
+    s, slots = k.shape[1], state["k"].shape[1]
+    if ring:
+        take = min(slots, s)
+        idx = torch.arange(s - take, s, device=k.device) % slots
+        for name, t in (("k", k), ("v", v)):
+            state[name].zero_()
+            state[name][:, idx] = t[:, s - take:].to(state[name].dtype)
+        return state
+    if s > slots:
+        raise ValueError(f"prompt of {s} tokens exceeds cache_len {slots}")
     for name, t in (("k", k), ("v", v)):
         state[name][:, :s].copy_(t)
         state[name][:, s:].zero_()
@@ -175,7 +217,7 @@ def _kv_into_cache(k, v, state):
 def apply_block(p, x, cfg: LMConfig, kind: str, *, positions=None):
     """x: [B, S, D] -> ([B, S, D], aux loss).  The full-sequence forward
     that training runs; positions are 0..S-1 (RWKV uses none).  An
-    attention block is the prefill without a cache to fill."""
+    attention or recurrent block is the prefill without a state to fill."""
     no_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind != "rwkv":
         if positions is None:
@@ -196,18 +238,25 @@ def apply_block(p, x, cfg: LMConfig, kind: str, *, positions=None):
 # --------------------------------------------------------------------------
 
 def apply_block_prefill(p, x, cfg: LMConfig, kind: str, *, positions, state):
-    """x: [B, S, D] -> [B, S, D]; fills ``state`` (this layer's K/V cache)
-    in place, unless it is None.  Dense blocks carry no aux loss, so none
-    is returned."""
-    _require_attn(kind)
+    """x: [B, S, D] -> [B, S, D]; fills ``state`` (this layer's decode
+    state) in place, unless it is None.  Dense blocks carry no aux loss,
+    so none is returned."""
+    _require(kind)
     dt = x.dtype
     h = apply_norm(x, p["ln1"], cfg.norm)
+    if kind == "rglru":
+        out, st = apply_recurrent(p["rec"], h, dt=dt, return_state=True)
+        if state is not None:
+            for name in ("h", "conv"):
+                state[name].copy_(st[name])
+        return _ffn(p, x + out, cfg, dt)
     q, k, v = _proj_qkv(p["attn"], h, cfg, dt)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    att = chunked_attention(q, k, v, causal=True)
+    window = cfg.window if kind == "local" else 0
+    att = chunked_attention(q, k, v, causal=True, window=window)
     if state is not None:
-        _kv_into_cache(k, v, state)
+        _kv_into_cache(k, v, state, ring=kind == "local")
     x = _attn_out(p["attn"], att, x, cfg, dt)
     return _ffn(p, x, cfg, dt)
 
@@ -218,17 +267,28 @@ def apply_block_prefill(p, x, cfg: LMConfig, kind: str, *, positions, state):
 
 def apply_block_decode(p, x, state, cfg: LMConfig, kind: str, *,
                        position: int):
-    """x: [B, 1, D] -> [B, 1, D]; writes this token's K/V into ``state``
-    at ``position`` in place."""
-    _require_attn(kind)
+    """x: [B, 1, D] -> [B, 1, D]; updates ``state`` in place: this token's
+    K/V at ``position`` ("attn") or at its ring slot ``position % C``
+    ("local"), or the recurrent state ("rglru")."""
+    _require(kind)
     dt = x.dtype
     h = apply_norm(x, p["ln1"], cfg.norm)
+    if kind == "rglru":
+        out, st = apply_recurrent_decode(p["rec"], h, state, dt=dt)
+        for name in ("h", "conv"):
+            state[name].copy_(st[name])
+        return _ffn(p, x + out, cfg, dt)
     q, k, v = _proj_qkv(p["attn"], h, cfg, dt)
     pos_arr = torch.full((1,), position, device=x.device)
     q = apply_rope(q, pos_arr, cfg.rope_theta)
     k = apply_rope(k, pos_arr, cfg.rope_theta)
-    state["k"][:, position] = k[:, 0].to(state["k"].dtype)
-    state["v"][:, position] = v[:, 0].to(state["v"].dtype)
-    att = decode_attention(q, state["k"], state["v"], position=position)
+    slots = state["k"].shape[1]
+    # the ring holds every token of the window once warm, so the local
+    # layer masks only the slots not yet written (the reference's rule)
+    idx, last = ((position % slots, min(position, slots - 1))
+                 if kind == "local" else (position, position))
+    state["k"][:, idx] = k[:, 0].to(state["k"].dtype)
+    state["v"][:, idx] = v[:, 0].to(state["v"].dtype)
+    att = decode_attention(q, state["k"], state["v"], position=last)
     x = _attn_out(p["attn"], att, x, cfg, dt)
     return _ffn(p, x, cfg, dt)

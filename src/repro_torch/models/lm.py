@@ -1,18 +1,21 @@
 """Top-level language model: init, training forward, prefill, decode.
 
 Port of the JAX package's ``models/lm.py`` for homogeneous stacks with an
-untied head: ``"attn"`` decoders (training forward, prefill with cache,
-decode) and ``"rwkv"`` stacks (training forward).  Parameters are a tree
-of nested dicts in the reference's layout, block weights stacked
-``[L, ...]``.
+untied head — ``"attn"`` decoders (training forward, prefill with cache,
+decode) and ``"rwkv"`` stacks (training forward) — and for hybrid stacks
+(recurrentgemma: ``"rglru"`` and ``"local"`` layers, tied embeddings;
+forward, prefill with cache, decode).  Parameters are a tree of nested
+dicts in the reference's layout: block weights stacked ``[L, ...]`` for
+a homogeneous stack, a tuple of per-layer trees for a heterogeneous one
+(and the decode cache likewise).
 
 Two storage modes.  Serving (``init()``) stores matmul weights at the
 compute dtype (bf16 on the card): the reference's ``cast_gather_weights``
-shows every use casts them to that dtype anyway.  Training
-(``init(master=True)``) keeps every parameter in f32, the reference's
-master weights; each forward casts the matmul weights to the compute
-dtype once (``cast_gather_weights``).  Norm weights and biases are f32
-in both.
+shows every use casts them to that dtype anyway.  The leaves consumed in
+f32 (``_KEEP_F32``: norms, the RG-LRU gates and lambda, ...) stay f32.
+Training (``init(master=True)``) keeps every parameter in f32, the
+reference's master weights; each forward casts the matmul weights to the
+compute dtype once (``cast_gather_weights``).  Biases are f32 in both.
 
 The training forward keeps one activation checkpoint per block
 (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` on the
@@ -26,12 +29,13 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.blocks import (apply_block, apply_block_decode,
+from repro_torch.models.blocks import (SERVE_KINDS, apply_block,
+                                       apply_block_decode,
                                        apply_block_prefill, init_block,
                                        init_block_state)
 from repro_torch.models.common import apply_norm, init_norm
 from repro_torch.models.config import LMConfig
-from repro_torch.utils.trees import tree_leaves, tree_map
+from repro_torch.utils.trees import tree_leaves, tree_map, tree_unflatten
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -52,24 +56,39 @@ def layer(blocks, i: int):
     return tree_map(lambda a: a[i], blocks)
 
 
+def layers_of(tree) -> list:
+    """The per-layer trees of a block tree or decode cache: a tuple
+    (heterogeneous stack) as it is, a stacked tree ``[L, ...]`` as views."""
+    if isinstance(tree, (tuple, list)):
+        return list(tree)
+    return [layer(tree, i) for i in range(tree_leaves(tree)[0].shape[0])]
+
+
+def _kinds(cfg: LMConfig, blocks) -> tuple:
+    """Each layer's kind: a tuple of layers is the whole heterogeneous
+    stack; a stacked tree (the whole stack or a slice of it) is one kind."""
+    if isinstance(blocks, (tuple, list)):
+        return cfg.layer_kinds
+    return (cfg.layer_kinds[0],) * tree_leaves(blocks)[0].shape[0]
+
+
 def prefill_blocks(cfg: LMConfig, blocks, x, cache):
-    """Run a stacked block tree over x [B, S, D] (positions 0..S-1),
-    filling ``cache`` ({"k","v"}: [L, B, C, kv, hd]) in place."""
-    kind = cfg.layer_kinds[0]
+    """Run a block tree over x [B, S, D] (positions 0..S-1), filling
+    ``cache`` (one decode state per layer, ``init_cache``) in place."""
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cache["k"].shape[0]):
-        x = apply_block_prefill(layer(blocks, i), x, cfg, kind,
-                                positions=positions, state=layer(cache, i))
+    for p, st, kind in zip(layers_of(blocks), layers_of(cache),
+                           _kinds(cfg, blocks), strict=True):
+        x = apply_block_prefill(p, x, cfg, kind, positions=positions,
+                                state=st)
     return x
 
 
 def decode_blocks(cfg: LMConfig, blocks, x, cache, position: int):
-    """One token x [B, 1, D] through a stacked block tree; writes K/V at
-    ``position`` into ``cache`` in place."""
-    kind = cfg.layer_kinds[0]
-    for i in range(cache["k"].shape[0]):
-        x = apply_block_decode(layer(blocks, i), x, layer(cache, i), cfg,
-                               kind, position=position)
+    """One token x [B, 1, D] through a block tree; updates each layer's
+    decode state in ``cache`` in place."""
+    for p, st, kind in zip(layers_of(blocks), layers_of(cache),
+                           _kinds(cfg, blocks), strict=True):
+        x = apply_block_decode(p, x, st, cfg, kind, position=position)
     return x
 
 
@@ -92,6 +111,8 @@ def cast_gather_weights(tree, dt):
         if isinstance(node, dict):
             return {k: walk(v, keep or k in _KEEP_F32)
                     for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(walk(v, keep) for v in node)
         if keep or node.dtype != torch.float32 or node.dim() < 2:
             return node
         return node.to(dt)
@@ -99,27 +120,34 @@ def cast_gather_weights(tree, dt):
 
 
 def unstack(blocks, dt) -> list:
-    """A stacked block tree ``[L, ...]`` -> its L per-layer trees, matmul
-    weights cast to the compute dtype ``dt`` (``cast_gather_weights``).
+    """A block tree -> its per-layer trees, matmul weights cast to the
+    compute dtype ``dt`` (``cast_gather_weights``).  A tuple of layers is
+    already that.
 
-    One ``unbind`` per leaf: its backward stacks the L layer gradients
-    once.  Indexing ``a[i]`` per layer instead would give every layer's
-    backward a zero-filled gradient of the whole stacked leaf (a 2.9 GB
-    f32 tensor for rwkv6-3b's channel-mix weights) to add into."""
-    parts = tree_map(lambda a: a.unbind(0), cast_gather_weights(blocks, dt))
-    n = len(tree_leaves(parts)[0])
-    return [tree_map(lambda t, i=i: t[i], parts) for i in range(n)]
+    A stacked tree ``[L, ...]`` takes one ``unbind`` per leaf: its
+    backward stacks the L layer gradients once.  Indexing ``a[i]`` per
+    layer instead would give every layer's backward a zero-filled gradient
+    of the whole stacked leaf (a 2.9 GB f32 tensor for rwkv6-3b's
+    channel-mix weights) to add into."""
+    cast = cast_gather_weights(blocks, dt)
+    if isinstance(cast, (tuple, list)):
+        return list(cast)
+    parts = [a.unbind(0) for a in tree_leaves(cast)]
+    return [tree_unflatten(cast, [t[i] for t in parts])
+            for i in range(len(parts[0]))]
 
 
-def run_blocks(cfg: LMConfig, layers: list, x):
-    """Per-layer block trees (``unstack``) over x [B, S, D] (positions
-    0..S-1), one activation checkpoint per block when autograd records.
+def run_blocks(cfg: LMConfig, layers: list, x, kinds: tuple | None = None):
+    """Per-layer block trees (``unstack``) of ``kinds`` (default: all of
+    the stack's one kind) over x [B, S, D] (positions 0..S-1), one
+    activation checkpoint per block when autograd records.
     -> (x, summed aux loss)."""
-    kind = cfg.layer_kinds[0]
+    kinds = kinds or (cfg.layer_kinds[0],) * len(layers)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in layers:
-        fn = lambda h, p=p: apply_block(p, h, cfg, kind, positions=positions)
+    for p, kind in zip(layers, kinds, strict=True):
+        fn = lambda h, p=p, kind=kind: apply_block(p, h, cfg, kind,
+                                                   positions=positions)
         if torch.is_grad_enabled():
             x, a = checkpoint(fn, x, use_reentrant=False)
         else:
@@ -130,14 +158,21 @@ def run_blocks(cfg: LMConfig, layers: list, x):
 
 class LM:
     """Decoder-only LM over a homogeneous stack of attention or RWKV
-    blocks with an untied head."""
+    blocks with an untied head, or a hybrid stack of recurrent and local
+    attention blocks (tied or untied)."""
 
     def __init__(self, cfg: LMConfig, device):
-        if not cfg.homogeneous or cfg.tie_embeddings or cfg.enc_layers \
+        if cfg.family == "hybrid":
+            bad = sorted(set(cfg.layer_kinds) - set(SERVE_KINDS))
+            if bad or cfg.is_moe or cfg.enc_layers:
+                raise NotImplementedError(
+                    f"{cfg.name}: hybrid stacks of {SERVE_KINDS} with a "
+                    f"dense MLP are ported; not {bad or 'MoE / encoders'}")
+        elif not cfg.homogeneous or cfg.tie_embeddings or cfg.enc_layers \
                 or cfg.family not in ("dense", "ssm"):
             raise NotImplementedError(
                 f"{cfg.name}: only homogeneous dense or RWKV stacks with "
-                "an untied head are ported yet")
+                "an untied head, and hybrid stacks, are ported yet")
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = torch_dtype(cfg.dtype)
@@ -147,7 +182,9 @@ class LM:
     def init(self, generator: torch.Generator, *, master: bool = False):
         """Random parameters drawn from ``generator`` (on ``self.device``):
         matmul weights at the compute dtype, or every tensor in f32 with
-        ``master=True`` (training's master weights)."""
+        ``master=True`` (training's master weights).  A heterogeneous
+        stack's blocks are a tuple of per-layer trees; a tied head has no
+        leaf of its own."""
         cfg, dev = self.cfg, self.device
         dt = torch.float32 if master else self.dtype
 
@@ -156,14 +193,19 @@ class LM:
                             dtype=torch.float32) * std
             return w.to(dt)
 
-        return {
+        kw = dict(device=dev, weight_dtype=dt)
+        params = {
             "embed": normal((cfg.padded_vocab, cfg.d_model), 0.02),
             "final_norm": init_norm(cfg.d_model, cfg.norm, device=dev),
-            "blocks": init_block(generator, cfg, cfg.layer_kinds[0],
-                                 device=dev, weight_dtype=dt,
-                                 layers=cfg.num_layers),
-            "head": normal((cfg.d_model, cfg.padded_vocab), 0.02),
+            "blocks": (init_block(generator, cfg, cfg.layer_kinds[0],
+                                  layers=cfg.num_layers, **kw)
+                       if cfg.homogeneous else
+                       tuple(init_block(generator, cfg, kind, **kw)
+                             for kind in cfg.layer_kinds)),
         }
+        if not cfg.tie_embeddings:
+            params["head"] = normal((cfg.d_model, cfg.padded_vocab), 0.02)
+        return params
 
     # ---------------- pieces ----------------
 
@@ -174,10 +216,13 @@ class LM:
         return x
 
     def _head_w(self, params, dt):
+        if self.cfg.tie_embeddings:
+            return params["embed"].to(dt).t()
         return params["head"].to(dt)
 
     def _run_blocks(self, params, x):
-        return run_blocks(self.cfg, unstack(params["blocks"], x.dtype), x)
+        return run_blocks(self.cfg, unstack(params["blocks"], x.dtype), x,
+                          _kinds(self.cfg, params["blocks"]))
 
     # ---------------- training ----------------
 
@@ -243,7 +288,14 @@ class LM:
 
     def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
                    layers: int | None = None):
+        """Zeroed decode state: stacked ``[L, ...]`` for a homogeneous
+        stack (``layers`` of them), a tuple of per-layer states for a
+        heterogeneous one."""
         cfg = self.cfg
+        if not cfg.homogeneous:
+            return tuple(init_block_state(cfg, kind, batch, cache_len, dtype,
+                                          device=self.device)
+                         for kind in cfg.layer_kinds)
         return init_block_state(cfg, cfg.layer_kinds[0], batch, cache_len,
                                 dtype, device=self.device,
                                 layers=cfg.num_layers if layers is None

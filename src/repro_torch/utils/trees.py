@@ -1,4 +1,6 @@
-"""Nested-dict parameter trees: the port's counterpart of JAX pytrees."""
+"""Parameter trees of nested dicts, tuples and lists: the port's
+counterpart of JAX pytrees.  A heterogeneous block stack (and its decode
+cache) is a tuple of per-layer dicts, as in the reference."""
 from __future__ import annotations
 
 
@@ -7,13 +9,18 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
     return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
-    """The leaves of a tree of nested dicts, in insertion order."""
+    """The leaves of a tree, in insertion (and index) order."""
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 

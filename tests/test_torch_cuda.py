@@ -12,6 +12,7 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import rglru as rg
 from repro_torch.kernels import rwkv6 as rw
 from repro_torch.kernels import wire_codec as wc
 from repro_torch.models.lm import LM
@@ -30,6 +31,8 @@ FLASH_CASES = [  # (b, hq, hkv, s, dh, causal, window)
     (1, 2, 1, 150, 128, True, 8),    # sliding window
     (1, 2, 2, 70, 32, False, 0),
     (4, 20, 20, 512, 128, True, 0),  # the main path's shape
+    (4, 10, 1, 512, 256, True, 2048),   # recurrentgemma-2b's local layers
+    (1, 10, 1, 3072, 256, True, 2048),  # ... where the window bites
 ]
 
 
@@ -237,3 +240,86 @@ def test_small_rwkv_training_step_on_card_matches_cpu(wire_dtype):
     assert launches["wkv6"] > 0 and launches["wkv6_bwd"] > 0
     if wire_dtype == "int8":
         assert launches["wire_encode"] == launches["wire_decode"] == 4
+
+
+RGLRU_CASES = [  # (b, s, r, h0)
+    (4, 512, 2560, False),    # recurrentgemma-2b prefill's call
+    (4, 512, 2560, True),
+    (3, 300, 200, True),      # ragged S and R
+    (2, 7, 33, False),
+]
+
+
+def _rglru_inputs(dev, b, s, r, with_h0, dt, seed=0):
+    """x and the model's log a range (-8 softplus(lambda) r in (-0.105, 0))
+    at dtype ``dt``; h0 f32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, s, r), generator=g, device=dev).to(dt)
+    la = (-0.105 * torch.rand((b, s, r), generator=g, device=dev)).to(dt)
+    h0 = torch.randn((b, r), generator=g, device=dev) if with_h0 else None
+    return x, la, h0
+
+
+@pytest.mark.parametrize("case", RGLRU_CASES, ids=str)
+@pytest.mark.parametrize("dt,tol", [("float32", 2e-4), ("bfloat16", 1e-2)])
+def test_rglru_kernel_matches_plain(case, dt, tol):
+    """Tolerance relative to the largest value: 2e-4 in f32 (the
+    reference's own kernel bound), 1e-2 in bf16 (outputs rounded to bf16)."""
+    dev = cuda_device()
+    x, la, h0 = _rglru_inputs(dev, *case, TORCH_DT[dt])
+    h, last = rg.rglru_cuda(x, la, h0)
+    hp, lastp = rg.rglru_plain(x, la, h0)
+    assert h.dtype == last.dtype == x.dtype
+    assert _rel(h, hp) <= tol and _rel(last, lastp) <= tol
+
+
+def test_rglru_kernel_takes_strided_inputs_and_raises_on_the_rest():
+    dev = cuda_device()
+    x, la, h0 = _rglru_inputs(dev, 2, 40, 64, True, torch.float32)
+    xs = torch.randn((40, 2, 64), device=dev).transpose(0, 1)  # [B,S,R] view
+    h, last = rg.rglru_cuda(xs, la.to(torch.bfloat16), h0.half())
+    hp, lastp = rg.rglru_plain(xs, la.to(torch.bfloat16), h0.half())
+    assert _rel(h, hp) <= 2e-4 and _rel(last, lastp) <= 2e-4
+    with pytest.raises(ValueError):
+        rg.rglru_cuda(x.transpose(1, 2), la.transpose(1, 2))
+    with pytest.raises(TypeError):
+        rg.rglru_cuda(x.half(), la)
+    with pytest.raises(ValueError):
+        rg.rglru_cuda(x, la[:, :5])
+
+
+def test_rglru_counts_launches_and_refuses_autograd():
+    dev = cuda_device()
+    x, la, _ = _rglru_inputs(dev, 1, 16, 32, False, torch.float32)
+    ops.reset_launches()
+    ops.rglru_scan(x, la)
+    assert dict(ops.LAUNCHES) == {"rglru_scan": 1}
+    with pytest.raises(NotImplementedError):
+        ops.rglru_scan(x.requires_grad_(True), la)
+    assert dict(ops.LAUNCHES) == {"rglru_scan": 1}
+
+
+def test_small_recurrentgemma_on_card_matches_cpu():
+    """The f32 SMOKE model: prefill of a 12-token prompt (longer than the
+    window of 8, so the ring wraps) and 8 greedy decode steps, at 1e-3."""
+    dev = cuda_device()
+    cfg = get_arch("recurrentgemma-2b").smoke
+    cpu, card = LM(cfg, "cpu"), LM(cfg, dev)
+    params = cpu.init(torch.Generator().manual_seed(0))
+    pcard = tree_map(lambda t: t.to(dev), params)
+    toks = torch.randint(0, cfg.vocab, (2, 12),
+                         generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        lc, sc = cpu.prefill_with_cache(params, {"tokens": toks}, 20,
+                                        torch.float32)
+        ops.reset_launches()
+        lg, sg = card.prefill_with_cache(pcard, {"tokens": toks.to(dev)}, 20,
+                                         torch.float32)
+        assert dict(ops.LAUNCHES) == {"rglru_scan": 2, "flash_attention": 1}
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-3, rtol=1e-3)
+        tok = torch.argmax(lc, -1, keepdim=True)
+        for pos in range(12, 20):
+            lc, _ = cpu.decode_step(params, tok, sc["cache"], pos)
+            lg, _ = card.decode_step(pcard, tok.to(dev), sg["cache"], pos)
+            torch.testing.assert_close(lg.cpu(), lc, atol=1e-3, rtol=1e-3)
+            tok = torch.argmax(lc, -1, keepdim=True)

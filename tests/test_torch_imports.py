@@ -15,10 +15,12 @@ import sys
 import pytest
 
 from repro.configs import qwen15_4b as ref_qwen
+from repro.configs import recurrentgemma_2b as ref_rg
 from repro.configs import rwkv6_3b as ref_rwkv
 from repro.models.config import LMConfig as RefLMConfig
 from repro_torch.configs import get_arch
 from repro_torch.configs import qwen15_4b as port_qwen
+from repro_torch.configs import recurrentgemma_2b as port_rg
 from repro_torch.configs import rwkv6_3b as port_rwkv
 from repro_torch.models.config import LMConfig as PortLMConfig
 
@@ -61,6 +63,15 @@ def test_importing_every_module_pulls_in_no_jax():
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert len(mods) >= 20
+    assert {"repro_torch.models.recurrent", "repro_torch.kernels.rglru",
+            "repro_torch.configs.recurrentgemma_2b"} <= set(mods)
+
+
+def test_source_scan_covers_every_module():
+    names = {os.path.relpath(p, PKG) for p in _port_files()
+             if p.startswith(PKG)}
+    assert {os.path.join("models", "recurrent.py"),
+            os.path.join("kernels", "rglru.py")} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -106,6 +117,16 @@ def test_rwkv_configs_match_reference(size):
     assert port.param_count() == ref.param_count()
 
 
+@pytest.mark.parametrize("size", ["FULL", "SMOKE"])
+def test_recurrentgemma_configs_match_reference(size):
+    ref, port = getattr(ref_rg, size), getattr(port_rg, size)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    for prop in ("padded_vocab", "hd", "layer_kinds", "homogeneous",
+                 "is_moe", "r_width"):
+        assert getattr(port, prop) == getattr(ref, prop), prop
+    assert port.param_count() == ref.param_count()
+
+
 def test_arch_registry():
     spec = get_arch("qwen1.5-4b")
     assert spec.full is port_qwen.FULL and spec.smoke is port_qwen.SMOKE
@@ -114,5 +135,9 @@ def test_arch_registry():
     spec = get_arch("rwkv6-3b")
     assert spec.full is port_rwkv.FULL and spec.smoke is port_rwkv.SMOKE
     assert spec.full.param_count() == 3_282_042_880
+    spec = get_arch("recurrentgemma-2b")
+    assert spec.full is port_rg.FULL and spec.smoke is port_rg.SMOKE
+    assert (spec.full.num_layers, spec.full.hd, spec.full.n_kv,
+            spec.full.layer_kinds.count("rglru")) == (26, 256, 1, 18)
     with pytest.raises(KeyError):
         get_arch("no-such-arch")

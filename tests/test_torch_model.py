@@ -150,7 +150,8 @@ def test_norms_rope_and_activations_match_reference():
 
 
 def test_unported_kinds_raise():
-    with pytest.raises(NotImplementedError):
-        LM(dataclasses.replace(PORT_CFG, pattern=("attn", "rglru")), "cpu")
+    with pytest.raises(NotImplementedError, match="xattn"):
+        LM(dataclasses.replace(PORT_CFG, family="hybrid",
+                               pattern=("local", "xattn")), "cpu")
     with pytest.raises(NotImplementedError):
         LM(dataclasses.replace(PORT_CFG, tie_embeddings=True), "cpu")
