@@ -18,10 +18,19 @@ Phases (any failure exits non-zero; nothing is caught):
      without h0, and ragged [3, 300, 200]); the WKV6 forward and backward
      kernels against the plain version's forward and autograd (the
      training shape in bf16 and f32, S = 96, strong decay, a given initial
-     state).  Small f32 models on the card are held to the same models on
-     the CPU: a qwen prefill, a recurrentgemma prefill of a 12-token prompt
-     (window 8: the ring wraps) and 8 decode steps, and one training step
-     of an RWKV model (loss and updated parameters);
+     state); the grouped expert matmul (moe_gmm) within 2e-4 (f32) / 1e-2
+     (bf16) of its plain version relative to the largest value, at
+     granite-moe-3b-a800m's prefill shapes ([40, 512, 1536] @ [40, 1536,
+     512] and [40, 512, 512] @ [40, 512, 1536]), its decode shape
+     (capacity 8) and a ragged [5, 37, 200] @ [5, 200, 72]; flash at
+     granite's heads (24 q on 8 kv heads of 64); flash, RG-LRU and moe_gmm
+     refusing autograd.  Small f32 models on the card are held to the same
+     models on the CPU: a qwen prefill, a recurrentgemma prefill of a
+     12-token prompt (window 8: the ring wraps) and 8 decode steps, a
+     granite-moe prefill and 8 decode steps (the router's top-k expert ids
+     compared first), qwen3-moe split at cut 1 ('none' tokens equal the
+     static tokens, measured bytes equal billed bytes), and one training
+     step of an RWKV model (loss and updated parameters);
   4. the main paths at full width, random weights from seed 0, bf16 compute:
      a. serving qwen1.5-4b (40 layers, batch 4, prompt 512, 32 greedy
         tokens) through the serving CLI's entry point: the static path, then
@@ -40,14 +49,22 @@ Phases (any failure exits non-zero; nothing is caught):
         2-stage, 4-micro-batch pipeline cut at 16, for wire none and int8.
         Every loss finite, every parameter tensor changed, the hop's bytes
         per step equal to the billed bytes up and down, and the WKV6 and
-        (int8) codec kernels launched.  Then one make_c2p2sl_step with 2 UEs
-        and a ragged shard_batch (b = [5, 3], k = 4), its loss printed
-        beside the pipelined loss on the same weights and batch;
+        (int8) codec kernels launched;
+     d. one make_c2p2sl_step with 2 UEs and a ragged shard_batch (b = [5,
+        3], k = 4), its loss printed beside the pipelined loss on the same
+        weights and batch;
+     e. serving granite-moe-3b-a800m (32 MoE layers, 40 experts top-8, 24
+        heads on 8 kv heads of 64, tied embeddings; batch 4, prompt 512, 32
+        greedy tokens) through the serving CLI's entry point: tokens in
+        range, exactly 96 moe_gmm and 32 flash_attention launches in the
+        prefill and 96 x 33 = 3168 moe_gmm in the run, and --split-cut
+        refused with ValueError; prefill ms, decode tok/s and peak GB;
   5. timings: torch.profiler traces of one prefill and four decode steps
-     of qwen, one prefill and one decode step of recurrentgemma, and one
-     training step (device busy time and idle share, top kernels); per
-     kernel its device time, its plain version's, its bound and the library
-     yardstick where one PyTorch call computes the same function.
+     of qwen, one prefill and one decode step each of recurrentgemma and
+     granite-moe, and one training step (device busy time and idle share,
+     top kernels); per kernel its device time, its plain version's, its
+     bound and the library yardstick where one PyTorch call computes the
+     same function (torch.bmm for moe_gmm).
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -80,6 +97,16 @@ RG_HEADS = (10, 1, 256, 2048)                   # q heads, kv heads, dh, window
 T_ARCH, T_BATCH, T_SEQ, T_K, T_STEPS = "rwkv6-3b", 8, 512, 4, 3
 WKV_SHAPE = (T_BATCH // T_K, T_SEQ, 40, 64)     # one micro-batch's call
 
+
+# the MoE serving path: granite-moe-3b-a800m, the same batch and lengths;
+# capacity _capacity(4 * 512, 8, 40, 1.25) = 512 in prefill, 8 in decode
+GR_ARCH, GR_LAYERS = "granite-moe-3b-a800m", 32
+GR_PREFILL = {"moe_gmm": 3 * GR_LAYERS, "flash_attention": GR_LAYERS}
+GR_RUN = {"moe_gmm": 3 * GR_LAYERS * (GEN + 1), "flash_attention": GR_LAYERS}
+GR_GMM = (40, 512, 1536, 512)                   # E, C, D, F of w1 and w3
+GR_GMM_DECODE = (40, 8, 1536, 512)
+GR_HEADS = (24, 8, 64)                          # q heads, kv heads, dh
+QM_ARCH = "qwen3-moe-30b-a3b"                   # its SMOKE config splits
 
 SERVING_KERNELS = ("wire_encode", "wire_decode", "flash_attention")
 TRAINING_KERNELS = ("wkv6", "wkv6_bwd", "wire_encode", "wire_decode")
@@ -190,6 +217,10 @@ def check_flash(torch, fa, dev):
              (BATCH, hq, hkv, PROMPT, dh, True, w, torch.float32, True),
              (1, hq, hkv, 3072, dh, True, w, torch.float32, False),
              (1, hq, hkv, 3072, dh, True, w, torch.bfloat16, False),
+             (BATCH, GR_HEADS[0], GR_HEADS[1], PROMPT, GR_HEADS[2], True, 0,
+              torch.bfloat16, True),
+             (BATCH, GR_HEADS[0], GR_HEADS[1], PROMPT, GR_HEADS[2], True, 0,
+              torch.float32, True),
              (2, 8, 4, 200, 64, True, 0, torch.float32, False),
              (2, 8, 4, 200, 64, True, 0, torch.bfloat16, False),
              (2, 4, 4, 300, 128, True, 64, torch.float32, False),
@@ -286,6 +317,143 @@ def check_small_hybrid(torch, dev):
           f"(tol 1e-3)")
 
 
+GMM_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
+
+
+def check_moe_gmm(torch, mg, dev):
+    """The grouped expert matmul kernel against its plain version,
+    relative to the largest value: 2e-4 in f32 (sums over D in another
+    order), 1e-2 in bf16 (the output rounded once; one bf16 step is
+    2^-8).  Returns the max abs errors at the prefill (w1) and decode
+    shapes in bf16."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    e, c, d, f = GR_GMM
+    shapes = [GR_GMM, (e, c, f, d), GR_GMM_DECODE, (5, 37, 200, 72)]
+    main = {}
+    for shape in shapes:
+        for dt in (torch.bfloat16, torch.float32):
+            e_, c_, d_, f_ = shape
+            h = torch.randn((e_, c_, d_), generator=gen, device=dev).to(dt)
+            w = (torch.randn((e_, d_, f_), generator=gen, device=dev)
+                 / math.sqrt(d_)).to(dt)
+            out = mg.moe_gmm_cuda(h, w)
+            plain = mg.moe_gmm_plain(h, w)
+            torch.cuda.synchronize()
+            tol = GMM_TOL[str(dt).split(".")[-1]]
+            err = _rel_err(out, plain)
+            name = f"moe_gmm [{e_},{c_},{d_}] @ [{e_},{d_},{f_}] {dt}"
+            if not (err <= tol and out.dtype == dt
+                    and tuple(out.shape) == (e_, c_, f_)):
+                fail(f"{name}: max rel err {err} > {tol} (or dtype "
+                     f"{out.dtype}, shape {tuple(out.shape)})")
+            print(f"{name}: max rel err {err:.3e} (tol {tol})")
+            if dt == torch.bfloat16 and shape in (GR_GMM, GR_GMM_DECODE):
+                main[shape] = float((out.float() - plain.float()).abs().max())
+    return main
+
+
+def _routes_of(orig, where, routes):
+    """The router ``orig`` (``moe._route``), also recording each call's
+    (probs, expert ids) on the CPU under ``routes[where]``."""
+    def route(x, router, topk):
+        out = orig(x, router, topk)
+        routes[where].append((out[0].detach().cpu(), out[2].detach().cpu()))
+        return out
+    return route
+
+
+def check_small_moe(torch, dev):
+    """The f32 SMOKE granite-moe (2 layers, top 2 of 5 experts, tied
+    head) on the card against the same model on the CPU: a 12-token
+    prefill and 8 decode steps fed the CPU's greedy tokens.  The router's
+    top-k expert ids of every MoE call are compared first: a flip at a
+    near-tie fails as such, with its probability gap.  Then the logits,
+    within 1e-3."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    from repro_torch.models.lm import LM
+    from repro_torch.utils.trees import tree_map
+    cfg = get_arch(GR_ARCH).smoke
+    cpu, card = LM(cfg, "cpu"), LM(cfg, dev)
+    params = cpu.init(torch.Generator().manual_seed(SEED))
+    pcard = tree_map(lambda t: t.to(dev), params)
+    toks = torch.randint(0, cfg.vocab, (2, 12),
+                         generator=torch.Generator().manual_seed(3))
+    routes, logits, feed = {"cpu": [], "card": []}, {}, []
+    orig = moe._route
+    try:
+        with torch.inference_mode():
+            moe._route = _routes_of(orig, "cpu", routes)
+            lc, sc = cpu.prefill_with_cache(params, {"tokens": toks}, 20,
+                                            torch.float32)
+            logits["cpu"] = [lc]
+            for pos in range(12, 20):
+                feed.append(torch.argmax(lc, -1, keepdim=True))
+                lc, _ = cpu.decode_step(params, feed[-1], sc["cache"], pos)
+                logits["cpu"].append(lc)
+            moe._route = _routes_of(orig, "card", routes)
+            lg, sg = card.prefill_with_cache(pcard, {"tokens": toks.to(dev)},
+                                             20, torch.float32)
+            logits["card"] = [lg.cpu()]
+            for pos, tok in zip(range(12, 20), feed):
+                lg, _ = card.decode_step(pcard, tok.to(dev), sg["cache"], pos)
+                logits["card"].append(lg.cpu())
+    finally:
+        moe._route = orig
+    if len(routes["cpu"]) != len(routes["card"]) or not routes["cpu"]:
+        fail(f"small granite-moe: {len(routes['cpu'])} router calls on the "
+             f"CPU, {len(routes['card'])} on the card")
+    for i, ((pc, ic), (_, ig)) in enumerate(zip(routes["cpu"],
+                                                routes["card"])):
+        if not torch.equal(ic, ig):
+            t = int((ic != ig).any(-1).nonzero()[0, 0])
+            top = torch.sort(pc[t], descending=True).values
+            k = ic.shape[-1]
+            fail(f"small granite-moe: router top-k differs at call {i} "
+                 f"(layer {i % cfg.num_layers}), token {t}: ids "
+                 f"{ic[t].tolist()} on the CPU, {ig[t].tolist()} on the "
+                 f"card; CPU probabilities at ranks k, k+1: "
+                 f"{top[k - 1]:.9f}, {top[k]:.9f} (a near-tie flip)")
+    errs = [float((g - c).abs().max())
+            for g, c in zip(logits["card"], logits["cpu"])]
+    if not (logits["card"][0].shape == (2, cfg.vocab)
+            and all(math.isfinite(e) and e <= 1e-3 for e in errs)):
+        fail(f"small granite-moe on the card vs CPU: logit errs {errs}")
+    print(f"small f32 granite-moe, card vs CPU: router top-k ids equal in "
+          f"all {len(routes['cpu'])} MoE calls; prefill logits max err "
+          f"{errs[0]:.3e}, 8 decode steps max err {max(errs[1:]):.3e} "
+          f"(tol 1e-3)")
+
+
+def check_small_moe_split(torch, ops, serve):
+    """qwen3-moe SMOKE (f32, untied head) through the serving CLI on the
+    card: static, then split at cut 1 with wire none and int8 over the
+    loopback socket.  'none' tokens must equal the static tokens, and the
+    measured payload bytes the billed bytes."""
+    argv = ["--arch", QM_ARCH, "--size", "smoke", "--batch", "2",
+            "--prompt-len", "12", "--gen", "8", "--seed", str(SEED)]
+    ops.reset_launches()
+    static = serve.main(argv)
+    for wire in ("none", "int8"):
+        res = serve.main(argv + ["--split-cut", "1", "--wire-dtype", wire])
+        if res["measured_payload_bytes"] != res["billed_payload_bytes"]:
+            fail(f"{QM_ARCH} smoke split {wire}: measured "
+                 f"{res['measured_payload_bytes']} B != billed "
+                 f"{res['billed_payload_bytes']} B")
+        if wire == "none" and not torch.equal(res["tokens"],
+                                              static["tokens"]):
+            fail(f"{QM_ARCH} smoke split 'none' tokens differ from the "
+                 "static tokens")
+        print(f"{QM_ARCH} smoke split cut 1 {wire} on the card: "
+              f"{res['frames']} frames, {res['measured_payload_bytes']} B "
+              f"measured == billed"
+              + (", tokens == static tokens" if wire == "none" else ""))
+    launches = dict(ops.LAUNCHES)
+    for name in ("moe_gmm", "flash_attention", "wire_encode", "wire_decode"):
+        if launches.get(name, 0) <= 0:
+            fail(f"{QM_ARCH} smoke split: kernel {name} was not launched")
+
+
 def check_small_model(torch, dev):
     """A small f32 model on the card against the same model on the CPU."""
     from repro_torch.configs import get_arch
@@ -309,11 +477,13 @@ def check_small_model(torch, dev):
 
 
 def check_refuses_autograd(torch, ops, dev):
-    """The flash and RG-LRU kernels have no backward: under autograd they
-    must raise instead of returning a tensor that drops the gradients."""
+    """The flash, RG-LRU and grouped-matmul kernels have no backward: under
+    autograd they must raise instead of returning a tensor that drops the
+    gradients."""
     t = torch.randn(1, 2, 16, 64, device=dev, requires_grad=True)
     for name, call in (("flash_attention", lambda: ops.flash_attention(
-            t, t, t)), ("rglru_scan", lambda: ops.rglru_scan(t[0], t[0]))):
+            t, t, t)), ("rglru_scan", lambda: ops.rglru_scan(t[0], t[0])),
+            ("moe_gmm", lambda: ops.moe_gmm(t[0], t[0]))):
         try:
             call()
         except NotImplementedError:
@@ -502,6 +672,46 @@ def run_hybrid_serving(torch, ops, serve):
         print(f"{RG_ARCH} --split-cut 13: ValueError ({e})")
     else:
         fail(f"{RG_ARCH} --split-cut ran on a heterogeneous stack")
+    torch.cuda.empty_cache()
+    return res, launches, peak_gb
+
+
+def run_moe_serving(torch, ops, serve):
+    """granite-moe-3b-a800m static serving at full width through the
+    serving CLI's entry point; the launch counts are read around that one
+    run (the prefill's from the CLI's own count).  Then --split-cut on it
+    must raise ValueError (tied embeddings, as the reference's
+    SplitDecode refuses)."""
+    from repro_torch.configs import get_arch
+    argv = ["--arch", GR_ARCH, "--size", "full", "--batch", str(BATCH),
+            "--prompt-len", str(PROMPT), "--gen", str(GEN), "--seed",
+            str(SEED)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    toks = res["tokens"]
+    vocab = get_arch(GR_ARCH).full.vocab
+    if tuple(toks.shape) != (BATCH, GEN) or int(toks.min()) < 0 \
+            or int(toks.max()) >= vocab:
+        fail(f"{GR_ARCH} tokens {tuple(toks.shape)} out of range")
+    if res["prefill_launches"] != GR_PREFILL:
+        fail(f"{GR_ARCH} prefill launches {res['prefill_launches']} != "
+             f"{GR_PREFILL}")
+    if launches != GR_RUN:
+        fail(f"{GR_ARCH} serving launches {launches} != {GR_RUN}")
+    print(f"{GR_ARCH} prefill launches: "
+          f"{json.dumps(res['prefill_launches'], sort_keys=True)}; whole "
+          f"run: {json.dumps(launches, sort_keys=True)}")
+    try:
+        serve.main(argv + ["--split-cut", "16"])
+    except ValueError as e:
+        print(f"{GR_ARCH} --split-cut 16: ValueError ({e})")
+    else:
+        fail(f"{GR_ARCH} --split-cut ran with tied embeddings")
     torch.cuda.empty_cache()
     return res, launches, peak_gb
 
@@ -785,11 +995,6 @@ def time_kernels(torch, wc, fa, rw, rg, dev, serve_launches, rg_launches,
     out += time_wkv6(torch, rw, dev, launches, wkv_err)
     out += time_hybrid(torch, fa, rg, dev, rg_launches, flash_err[256],
                        rglru_err)
-    for k in out:
-        print(f"kernel {k['name']}: {k['ms']:.4f} ms, plain "
-              f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
-              f"({k['bound_by']}), library {k['library_ms']}, "
-              f"launches {k['launches']}")
     return out
 
 
@@ -899,6 +1104,78 @@ def time_hybrid(torch, fa, rg, dev, launches, flash_err, rglru_err):
     return out
 
 
+def _gmm_row(torch, mg, dev, name, shape, launches, err, gen):
+    """One moe_gmm row at [E, C, D] @ [E, D, F] in bf16.  Bound: h and w
+    read once and the output written once at 3.35 TB/s, against 2 E C D F
+    operations on the bf16 tensor cores."""
+    e, c, d, f = shape
+    h = torch.randn((e, c, d), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((e, d, f), generator=gen, device=dev)
+         / math.sqrt(d)).to(torch.bfloat16)
+    b_ms, b_by = bound((e * c * d + e * d * f + e * c * f) * 2,
+                       2 * e * c * d * f, BF16_OPS_S)
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm.py:41",
+        "launches": launches, "max_abs_err": err,
+        "ms": device_ms(lambda: mg.moe_gmm_cuda(h, w)),
+        "plain_ms": device_ms(lambda: mg.moe_gmm_plain(h, w), iters=5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(lambda: torch.bmm(h, w))}
+
+
+def time_moe(torch, mg, fa, dev, prefill_launches, run_launches, gmm_err,
+             flash_err):
+    """moe_gmm at granite-moe-3b-a800m prefill's w1 shape ([40, 512, 1536]
+    @ [40, 1536, 512], bf16; launches: the prefill's) and at a decode
+    step's ([40, 8, 1536] @ [40, 1536, 512]; launches: the decode steps'),
+    with torch.bmm as the library yardstick; the w2 shape's time printed.
+    Flash at granite's heads: [4, 24, 512, 64] q on 8 kv heads, bf16,
+    causal (SDPA on the kv heads expanded to 24)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n_pre = prefill_launches.get("moe_gmm", 0)
+    out = [_gmm_row(torch, mg, dev, "moe_gmm", GR_GMM, n_pre,
+                    gmm_err[GR_GMM], gen),
+           _gmm_row(torch, mg, dev, "moe_gmm_decode", GR_GMM_DECODE,
+                    run_launches.get("moe_gmm", 0) - n_pre,
+                    gmm_err[GR_GMM_DECODE], gen)]
+    e, c, d, f = GR_GMM
+    h = torch.randn((e, c, f), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((e, f, d), generator=gen, device=dev).to(torch.bfloat16)
+    print(f"moe_gmm at the w2 shape [{e},{c},{f}] @ [{e},{f},{d}] bf16: "
+          f"{device_ms(lambda: mg.moe_gmm_cuda(h, w)):.4f} ms on the device, "
+          f"{cuda_ms(lambda: mg.moe_gmm_cuda(h, w)):.4f} ms between events; "
+          f"torch.bmm {device_ms(lambda: torch.bmm(h, w)):.4f} ms")
+
+    hq, hkv, dh = GR_HEADS
+    b, s = BATCH, PROMPT
+    mk = lambda h_: torch.randn((b, s, h_, dh), generator=gen,
+                                device=dev).to(torch.bfloat16).transpose(1, 2)
+    q, k, v = mk(hq), mk(hkv), mk(hkv)
+    pairs = b * hq * s * (s + 1) // 2
+    b_ms, b_by = bound((2 * hq + 2 * hkv) * b * s * dh * 2, 4 * dh * pairs,
+                       BF16_OPS_S)
+    lib = [q.contiguous()] + [t.repeat_interleave(hq // hkv, dim=1)
+                              .contiguous() for t in (k, v)]
+    out.append({
+        "name": "flash_attention_dh64", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:73",
+        "launches": run_launches.get("flash_attention", 0),
+        "max_abs_err": flash_err,
+        "ms": device_ms(lambda: fa.flash_attention_cuda(q, k, v,
+                                                        causal=True)),
+        "plain_ms": device_ms(lambda: fa.attention_plain(q, k, v,
+                                                         causal=True),
+                              iters=10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+            *lib, is_causal=True))})
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
@@ -925,6 +1202,7 @@ def main():
 
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as mg
     from repro_torch.kernels import rglru as rg
     from repro_torch.kernels import rwkv6 as rw
     from repro_torch.kernels import wire_codec as wc
@@ -944,8 +1222,11 @@ def main():
     rglru_err = check_rglru(torch, rg, dev)
     check_refuses_autograd(torch, ops, dev)
     wkv_err = check_wkv6(torch, rw, dev)
+    gmm_err = check_moe_gmm(torch, mg, dev)
     check_small_model(torch, dev)
     check_small_hybrid(torch, dev)
+    check_small_moe(torch, dev)
+    check_small_moe_split(torch, ops, serve)
     check_small_training(torch, dev)
     phase("build and kernel checks")
 
@@ -970,6 +1251,16 @@ def main():
     torch.cuda.empty_cache()
     phase(f"{RG_ARCH} serving and profile")
 
+    moe_res, gr_launches, gr_peak = run_moe_serving(torch, ops, serve)
+    gr_prefill = moe_res["prefill_launches"]
+    print(f"main path {GR_ARCH} static: prefill {moe_res['prefill_ms']:.2f} "
+          f"ms, decode {moe_res['decode_tok_s']:.1f} tok/s, peak "
+          f"{gr_peak:.2f} GB")
+    del moe_res
+    profile_serving(torch, dev, GR_ARCH, 1)
+    torch.cuda.empty_cache()
+    phase(f"{GR_ARCH} serving and profile")
+
     rows, train_launches = run_training_path(
         torch, ops, train, protocol, dev,
         lambda res: profile_training_step(torch, res))
@@ -985,6 +1276,13 @@ def main():
 
     kernels = time_kernels(torch, wc, fa, rw, rg, dev, launches, rg_launches,
                            train_launches, flash_err, wkv_err, rglru_err)
+    kernels += time_moe(torch, mg, fa, dev, gr_prefill, gr_launches, gmm_err,
+                        flash_err[GR_HEADS[2]])
+    for k in kernels:
+        print(f"kernel {k['name']}: {k['ms']:.4f} ms, plain "
+              f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+              f"({k['bound_by']}), library {k['library_ms']}, "
+              f"launches {k['launches']}")
     phase("kernel timings")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -5,11 +5,14 @@ rest of the JAX package's zoo is listed in ROADMAP.md.
 """
 from __future__ import annotations
 
-from repro_torch.configs import qwen15_4b, recurrentgemma_2b, rwkv6_3b
+from repro_torch.configs import (granite_moe_3b, qwen3_moe_30b, qwen15_4b,
+                                 recurrentgemma_2b, rwkv6_3b)
 from repro_torch.configs.base import ArchSpec
 
 ARCHS = {spec.name: spec for spec in (qwen15_4b.SPEC, rwkv6_3b.SPEC,
-                                      recurrentgemma_2b.SPEC)}
+                                      recurrentgemma_2b.SPEC,
+                                      granite_moe_3b.SPEC,
+                                      qwen3_moe_30b.SPEC)}
 
 
 def get_arch(name: str) -> ArchSpec:

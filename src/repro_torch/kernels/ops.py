@@ -8,10 +8,10 @@ nowhere else, so a run can show that its path went through the kernels.
 
 ``wkv6`` is differentiable on both devices: on the CPU autograd runs
 through the plain version, on the card through ``_WKV6``, whose backward
-is the hand-written backward kernel (counted as ``wkv6_bwd``).  The flash
-and RG-LRU kernels have no backward yet, so on the card they refuse to
-run under autograd rather than drop the gradients of their inputs; on
-the CPU autograd runs through their plain versions.
+is the hand-written backward kernel (counted as ``wkv6_bwd``).  The flash,
+RG-LRU and grouped-matmul kernels have no backward yet, so on the card
+they refuse to run under autograd rather than drop the gradients of
+their inputs; on the CPU autograd runs through their plain versions.
 """
 from __future__ import annotations
 
@@ -20,12 +20,13 @@ import collections
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_gmm as _mg
 from repro_torch.kernels import rglru as _rg
 from repro_torch.kernels import rwkv6 as _rw
 from repro_torch.kernels import wire_codec as _wc
 
 KERNELS = ("wire_encode", "wire_decode", "flash_attention", "wkv6",
-           "wkv6_bwd", "rglru_scan")
+           "wkv6_bwd", "rglru_scan", "moe_gmm")
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -118,4 +119,15 @@ def rglru_scan(x, log_a, h0=None):
     _refuse_autograd("RG-LRU", x, log_a, h0)
     out = _rg.rglru_cuda(x, log_a, h0)
     LAUNCHES["rglru_scan"] += 1
+    return out
+
+
+def moe_gmm(h, w):
+    """Grouped expert matmul: h [E,C,D] @ w [E,D,F] -> [E,C,F] in h's
+    dtype, summed in f32."""
+    if not _on_cuda(h):
+        return _mg.moe_gmm_plain(h, w)
+    _refuse_autograd("grouped expert matmul", h, w)
+    out = _mg.moe_gmm_cuda(h, w)
+    LAUNCHES["moe_gmm"] += 1
     return out

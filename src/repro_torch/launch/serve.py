@@ -11,8 +11,9 @@ without CUDA and without that flag it raises.
   activations as INFER frames over a real loopback socket
   (``--wire-dtype`` none/int8/fp8) to the BS half, which replies with the
   greedy token; prints the measured-vs-billed wire audit.  Homogeneous
-  stacks with an untied head only: a hybrid (recurrentgemma-2b) raises
-  ``ValueError``, as the reference's ``SplitDecode`` does.
+  stacks with an untied head only: a hybrid (recurrentgemma-2b) or tied
+  embeddings (granite-moe-3b-a800m) raise ``ValueError``, as the
+  reference's ``SplitDecode`` does.
 
 PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \
     --size full --batch 4 --prompt-len 512 --gen 32
@@ -20,6 +21,10 @@ PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \
     --size full --split-cut 20 --wire-dtype int8
 PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
     --size full --batch 4 --prompt-len 512 --gen 32
+PYTHONPATH=src python -m repro_torch.launch.serve \
+    --arch granite-moe-3b-a800m --size full --batch 4 --prompt-len 512 --gen 32
+PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
+    --size smoke --split-cut 1 --wire-dtype int8
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_arch
+from repro_torch.kernels import ops
 from repro_torch.models.lm import LM
 from repro_torch.parallel.wire import validate_wire_dtype
 from repro_torch.serving.infer import SplitDecode, run_split_infer
@@ -47,6 +53,7 @@ def _static_serve(model, params, prompts, args, cache_len) -> dict:
     decode, and each decode's argmax is emitted after it runs."""
     dev = model.device
     _sync(dev)
+    before = dict(ops.LAUNCHES)
     t0 = time.perf_counter()
     logits, state = model.prefill_with_cache(
         params, {"tokens": prompts}, cache_len=cache_len,
@@ -54,6 +61,9 @@ def _static_serve(model, params, prompts, args, cache_len) -> dict:
     tok = torch.argmax(logits, dim=-1, keepdim=True)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
+    prefill_launches = {k: n - before.get(k, 0)
+                        for k, n in ops.LAUNCHES.items()
+                        if n > before.get(k, 0)}
     cache, position = state["cache"], state["position"]
     out = []
     t0 = time.perf_counter()
@@ -71,6 +81,7 @@ def _static_serve(model, params, prompts, args, cache_len) -> dict:
           f"({args.gen * args.batch / max(t_decode, 1e-9):.1f} tok/s)")
     print("sample:", toks[0, :16].tolist())
     return {"mode": "static", "tokens": toks,
+            "prefill_launches": prefill_launches,
             "prefill_ms": t_prefill * 1e3,
             "decode_tok_s": args.gen * args.batch / max(t_decode, 1e-9)}
 

@@ -1,7 +1,6 @@
 """Per-layer blocks: init, full-sequence apply, prefill and decode.
 
-Port of four kinds of the JAX package's ``models/blocks.py``, each with
-a dense MLP:
+Port of four kinds of the JAX package's ``models/blocks.py``:
   * ``"attn"``  — global causal attention (apply, prefill, decode);
   * ``"local"`` — sliding-window causal attention, its decode cache a ring
     buffer of the last ``min(window, cache_len)`` tokens (recurrentgemma);
@@ -9,7 +8,9 @@ a dense MLP:
     decode state ``{"h", "conv"}`` in f32;
   * ``"rwkv"``  — RWKV6 time-mix + channel-mix (the full-sequence apply
     that training runs).
-The other kinds (xattn, enc) and the MoE MLP are listed in ROADMAP.md.
+The second half of an ``"attn"`` or ``"local"`` block of an MoE config is
+the mixture of experts (``models/moe.py``), of the others a dense MLP.
+The other kinds (xattn, enc) are listed in ROADMAP.md.
 
 Parameters keep the reference's layout (``x @ W`` with ``W`` shaped
 ``[d_in, d_out]``, norm weights in f32) so that ``bridge.py`` is a plain
@@ -29,6 +30,7 @@ from repro_torch.models.common import (activation, apply_norm, apply_rope,
                                        chunked_attention, decode_attention,
                                        dense_init, init_norm)
 from repro_torch.models.config import LMConfig
+from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.recurrent import (apply_recurrent,
                                           apply_recurrent_decode,
                                           init_recurrent,
@@ -87,8 +89,6 @@ def init_block(generator: torch.Generator, cfg: LMConfig, kind: str, *,
                 "ln2": norm(),
                 "channel": init_rwkv_channel(generator, d, f, **kw)}
     _require(kind)
-    if cfg.is_moe:
-        raise NotImplementedError("MoE MLP is not ported yet")
 
     def dense(d_in, d_out):
         return _stacked(lambda: dense_init(generator, d_in, d_out,
@@ -112,6 +112,11 @@ def init_block(generator: torch.Generator, cfg: LMConfig, kind: str, *,
         if cfg.mlp_bias:
             attn["ob"] = _zeros(d, layers, device)
         p["attn"] = attn
+    if cfg.is_moe and kind in ("attn", "local"):
+        p["moe"] = _stacked(lambda: init_moe(
+            generator, d, f, cfg.moe_experts, device=device,
+            weight_dtype=weight_dtype), layers)
+        return p
     mlp = {"w1": dense(d, f), "w2": dense(f, d)}
     if cfg.mlp_gated:
         mlp["w3"] = dense(d, f)
@@ -175,9 +180,14 @@ def _mlp(p, h, cfg: LMConfig, dt):
 
 
 def _ffn(p, x, cfg: LMConfig, dt):
-    """Second half-block: norm + MLP with residual."""
+    """Second half-block: norm + (MoE | MLP) with residual.  -> (x, the
+    MoE's aux loss, or None for a dense MLP)."""
     h = apply_norm(x, p["ln2"], cfg.norm)
-    return x + _mlp(p["mlp"], h, cfg, dt)
+    if "moe" in p:
+        out, aux = apply_moe(p["moe"], h, topk=cfg.moe_topk,
+                             cap_factor=cfg.moe_capacity, act=cfg.act)
+        return x + out, aux
+    return x + _mlp(p["mlp"], h, cfg, dt), None
 
 
 def _attn_out(p, att, x, cfg: LMConfig, dt):
@@ -217,13 +227,15 @@ def _kv_into_cache(k, v, state, ring: bool = False):
 def apply_block(p, x, cfg: LMConfig, kind: str, *, positions=None):
     """x: [B, S, D] -> ([B, S, D], aux loss).  The full-sequence forward
     that training runs; positions are 0..S-1 (RWKV uses none).  An
-    attention or recurrent block is the prefill without a state to fill."""
+    attention or recurrent block is the prefill without a state to fill;
+    its aux loss is the MoE's, or 0."""
     no_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind != "rwkv":
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)
-        return apply_block_prefill(p, x, cfg, kind, positions=positions,
-                                   state=None), no_aux
+        x, aux = apply_block_prefill(p, x, cfg, kind, positions=positions,
+                                     state=None)
+        return x, no_aux if aux is None else aux
     dt = x.dtype
     h = apply_norm(x, p["ln1"], cfg.norm)
     t_out, _ = apply_rwkv_time(p["time"], h, cfg.rwkv_head_dim, dt=dt)
@@ -238,9 +250,8 @@ def apply_block(p, x, cfg: LMConfig, kind: str, *, positions=None):
 # --------------------------------------------------------------------------
 
 def apply_block_prefill(p, x, cfg: LMConfig, kind: str, *, positions, state):
-    """x: [B, S, D] -> [B, S, D]; fills ``state`` (this layer's decode
-    state) in place, unless it is None.  Dense blocks carry no aux loss,
-    so none is returned."""
+    """x: [B, S, D] -> ([B, S, D], the MoE's aux loss or None); fills
+    ``state`` (this layer's decode state) in place, unless it is None."""
     _require(kind)
     dt = x.dtype
     h = apply_norm(x, p["ln1"], cfg.norm)
@@ -277,7 +288,7 @@ def apply_block_decode(p, x, state, cfg: LMConfig, kind: str, *,
         out, st = apply_recurrent_decode(p["rec"], h, state, dt=dt)
         for name in ("h", "conv"):
             state[name].copy_(st[name])
-        return _ffn(p, x + out, cfg, dt)
+        return _ffn(p, x + out, cfg, dt)[0]
     q, k, v = _proj_qkv(p["attn"], h, cfg, dt)
     pos_arr = torch.full((1,), position, device=x.device)
     q = apply_rope(q, pos_arr, cfg.rope_theta)
@@ -291,4 +302,4 @@ def apply_block_decode(p, x, state, cfg: LMConfig, kind: str, *,
     state["v"][:, idx] = v[:, 0].to(state["v"].dtype)
     att = decode_attention(q, state["k"], state["v"], position=last)
     x = _attn_out(p["attn"], att, x, cfg, dt)
-    return _ffn(p, x, cfg, dt)
+    return _ffn(p, x, cfg, dt)[0]

@@ -1,13 +1,16 @@
 """Top-level language model: init, training forward, prefill, decode.
 
-Port of the JAX package's ``models/lm.py`` for homogeneous stacks with an
-untied head — ``"attn"`` decoders (training forward, prefill with cache,
-decode) and ``"rwkv"`` stacks (training forward) — and for hybrid stacks
-(recurrentgemma: ``"rglru"`` and ``"local"`` layers, tied embeddings;
-forward, prefill with cache, decode).  Parameters are a tree of nested
-dicts in the reference's layout: block weights stacked ``[L, ...]`` for
-a homogeneous stack, a tuple of per-layer trees for a heterogeneous one
-(and the decode cache likewise).
+Port of the JAX package's ``models/lm.py`` for
+  * homogeneous stacks with an untied head: ``"attn"`` decoders (training
+    forward, prefill with cache, decode) and ``"rwkv"`` stacks (training
+    forward);
+  * MoE stacks of ``"attn"`` layers, tied or untied (granite-moe,
+    qwen3-moe: forward with the aux loss, prefill with cache, decode);
+  * hybrid stacks (recurrentgemma: ``"rglru"`` and ``"local"`` layers,
+    tied embeddings; forward, prefill with cache, decode).
+Parameters are a tree of nested dicts in the reference's layout: block
+weights stacked ``[L, ...]`` for a homogeneous stack, a tuple of
+per-layer trees for a heterogeneous one (and the decode cache likewise).
 
 Two storage modes.  Serving (``init()``) stores matmul weights at the
 compute dtype (bf16 on the card): the reference's ``cast_gather_weights``
@@ -78,8 +81,8 @@ def prefill_blocks(cfg: LMConfig, blocks, x, cache):
     positions = torch.arange(x.shape[1], device=x.device)
     for p, st, kind in zip(layers_of(blocks), layers_of(cache),
                            _kinds(cfg, blocks), strict=True):
-        x = apply_block_prefill(p, x, cfg, kind, positions=positions,
-                                state=st)
+        x, _ = apply_block_prefill(p, x, cfg, kind, positions=positions,
+                                   state=st)        # serving drops the aux
     return x
 
 
@@ -158,8 +161,9 @@ def run_blocks(cfg: LMConfig, layers: list, x, kinds: tuple | None = None):
 
 class LM:
     """Decoder-only LM over a homogeneous stack of attention or RWKV
-    blocks with an untied head, or a hybrid stack of recurrent and local
-    attention blocks (tied or untied)."""
+    blocks with an untied head, a stack of MoE attention blocks, or a
+    hybrid stack of recurrent and local attention blocks (MoE and hybrid
+    stacks tied or untied)."""
 
     def __init__(self, cfg: LMConfig, device):
         if cfg.family == "hybrid":
@@ -168,11 +172,13 @@ class LM:
                 raise NotImplementedError(
                     f"{cfg.name}: hybrid stacks of {SERVE_KINDS} with a "
                     f"dense MLP are ported; not {bad or 'MoE / encoders'}")
-        elif not cfg.homogeneous or cfg.tie_embeddings or cfg.enc_layers \
-                or cfg.family not in ("dense", "ssm"):
+        elif not cfg.homogeneous or cfg.enc_layers \
+                or cfg.family not in ("dense", "ssm", "moe") \
+                or (cfg.tie_embeddings and cfg.family != "moe"):
             raise NotImplementedError(
                 f"{cfg.name}: only homogeneous dense or RWKV stacks with "
-                "an untied head, and hybrid stacks, are ported yet")
+                "an untied head, MoE stacks (tied or untied) and hybrid "
+                "stacks are ported yet")
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = torch_dtype(cfg.dtype)

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe_gmm as mg
 from repro_torch.kernels import ops
 from repro_torch.kernels import rglru as rg
 from repro_torch.kernels import rwkv6 as rw
@@ -33,6 +34,7 @@ FLASH_CASES = [  # (b, hq, hkv, s, dh, causal, window)
     (4, 20, 20, 512, 128, True, 0),  # the main path's shape
     (4, 10, 1, 512, 256, True, 2048),   # recurrentgemma-2b's local layers
     (1, 10, 1, 3072, 256, True, 2048),  # ... where the window bites
+    (4, 24, 8, 512, 64, True, 0),    # granite-moe-3b-a800m, GQA rep 3
 ]
 
 
@@ -323,3 +325,87 @@ def test_small_recurrentgemma_on_card_matches_cpu():
             lg, _ = card.decode_step(pcard, tok.to(dev), sg["cache"], pos)
             torch.testing.assert_close(lg.cpu(), lc, atol=1e-3, rtol=1e-3)
             tok = torch.argmax(lc, -1, keepdim=True)
+
+
+GMM_CASES = [  # (E, C, D, F)
+    (40, 512, 1536, 512),     # granite-moe-3b-a800m prefill: w1, w3
+    (40, 512, 512, 1536),     # ... w2
+    (40, 8, 1536, 512),       # a decode step (capacity 8)
+    (5, 37, 200, 72),         # ragged C, D and F
+    (1, 1, 1, 1),
+]
+
+
+def _gmm_inputs(dev, e, c, d, f, dt, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn((e, c, d), generator=g, device=dev).to(dt)
+    w = (torch.randn((e, d, f), generator=g, device=dev) / d ** 0.5).to(dt)
+    return h, w
+
+
+@pytest.mark.parametrize("case", GMM_CASES, ids=str)
+@pytest.mark.parametrize("dt,tol", [("float32", 2e-4), ("bfloat16", 1e-2)])
+def test_moe_gmm_kernel_matches_plain(case, dt, tol):
+    """Tolerance relative to the largest value: 2e-4 in f32 (sums over D
+    in another order), 1e-2 in bf16 (the output rounded to bf16 once)."""
+    dev = cuda_device()
+    h, w = _gmm_inputs(dev, *case, TORCH_DT[dt])
+    out = mg.moe_gmm_cuda(h, w)
+    assert out.dtype == h.dtype and out.is_contiguous()
+    assert _rel(out, mg.moe_gmm_plain(h, w)) <= tol
+
+
+def test_moe_gmm_kernel_takes_strided_inputs_and_raises_on_the_rest():
+    dev = cuda_device()
+    h, w = _gmm_inputs(dev, 3, 20, 48, 40, torch.float32)
+    hs = torch.randn((20, 3, 48), device=dev).transpose(0, 1)  # [E,C,D] view
+    ws = w[:, :, :33]                                  # row stride 40
+    assert _rel(mg.moe_gmm_cuda(hs, ws), mg.moe_gmm_plain(hs, ws)) <= 2e-4
+    with pytest.raises(ValueError):
+        mg.moe_gmm_cuda(h.transpose(1, 2), w)
+    with pytest.raises(ValueError):
+        mg.moe_gmm_cuda(h, w[:, :40])
+    with pytest.raises(TypeError):
+        mg.moe_gmm_cuda(h, w.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        mg.moe_gmm_cuda(h.half(), w.half())
+
+
+def test_moe_gmm_counts_launches_and_refuses_autograd():
+    dev = cuda_device()
+    h, w = _gmm_inputs(dev, 2, 16, 32, 8, torch.float32)
+    ops.reset_launches()
+    ops.moe_gmm(h, w)
+    assert dict(ops.LAUNCHES) == {"moe_gmm": 1}
+    with pytest.raises(NotImplementedError):
+        ops.moe_gmm(h, w.requires_grad_(True))
+    assert dict(ops.LAUNCHES) == {"moe_gmm": 1}
+
+
+def test_small_granite_on_card_matches_cpu():
+    """The f32 SMOKE granite-moe (2 layers, top 2 of 5 experts, tied
+    head): prefill launches three grouped matmuls and one flash a layer;
+    prefill and 8 greedy decode steps within 1e-3 of the CPU."""
+    dev = cuda_device()
+    cfg = get_arch("granite-moe-3b-a800m").smoke
+    cpu, card = LM(cfg, "cpu"), LM(cfg, dev)
+    params = cpu.init(torch.Generator().manual_seed(0))
+    pcard = tree_map(lambda t: t.to(dev), params)
+    toks = torch.randint(0, cfg.vocab, (2, 12),
+                         generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        lc, sc = cpu.prefill_with_cache(params, {"tokens": toks}, 20,
+                                        torch.float32)
+        ops.reset_launches()
+        lg, sg = card.prefill_with_cache(pcard, {"tokens": toks.to(dev)}, 20,
+                                         torch.float32)
+        assert dict(ops.LAUNCHES) == {"moe_gmm": 3 * cfg.num_layers,
+                                      "flash_attention": cfg.num_layers}
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-3, rtol=1e-3)
+        tok = torch.argmax(lc, -1, keepdim=True)
+        for pos in range(12, 20):
+            lc, _ = cpu.decode_step(params, tok, sc["cache"], pos)
+            lg, _ = card.decode_step(pcard, tok.to(dev), sg["cache"], pos)
+            torch.testing.assert_close(lg.cpu(), lc, atol=1e-3, rtol=1e-3)
+            tok = torch.argmax(lc, -1, keepdim=True)
+        assert ops.LAUNCHES["moe_gmm"] == 3 * cfg.num_layers * 9

@@ -14,11 +14,15 @@ import sys
 
 import pytest
 
+from repro.configs import granite_moe_3b as ref_granite
+from repro.configs import qwen3_moe_30b as ref_qwen3_moe
 from repro.configs import qwen15_4b as ref_qwen
 from repro.configs import recurrentgemma_2b as ref_rg
 from repro.configs import rwkv6_3b as ref_rwkv
 from repro.models.config import LMConfig as RefLMConfig
 from repro_torch.configs import get_arch
+from repro_torch.configs import granite_moe_3b as port_granite
+from repro_torch.configs import qwen3_moe_30b as port_qwen3_moe
 from repro_torch.configs import qwen15_4b as port_qwen
 from repro_torch.configs import recurrentgemma_2b as port_rg
 from repro_torch.configs import rwkv6_3b as port_rwkv
@@ -64,14 +68,18 @@ def test_importing_every_module_pulls_in_no_jax():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert len(mods) >= 20
     assert {"repro_torch.models.recurrent", "repro_torch.kernels.rglru",
-            "repro_torch.configs.recurrentgemma_2b"} <= set(mods)
+            "repro_torch.configs.recurrentgemma_2b", "repro_torch.models.moe",
+            "repro_torch.kernels.moe_gmm", "repro_torch.configs.granite_moe_3b",
+            "repro_torch.configs.qwen3_moe_30b"} <= set(mods)
 
 
 def test_source_scan_covers_every_module():
     names = {os.path.relpath(p, PKG) for p in _port_files()
              if p.startswith(PKG)}
     assert {os.path.join("models", "recurrent.py"),
-            os.path.join("kernels", "rglru.py")} <= names
+            os.path.join("kernels", "rglru.py"),
+            os.path.join("models", "moe.py"),
+            os.path.join("kernels", "moe_gmm.py")} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -127,6 +135,20 @@ def test_recurrentgemma_configs_match_reference(size):
     assert port.param_count() == ref.param_count()
 
 
+@pytest.mark.parametrize("size", ["FULL", "SMOKE"])
+@pytest.mark.parametrize("ref_mod,port_mod",
+                         [(ref_granite, port_granite),
+                          (ref_qwen3_moe, port_qwen3_moe)],
+                         ids=["granite-moe", "qwen3-moe"])
+def test_moe_configs_match_reference(ref_mod, port_mod, size):
+    ref, port = getattr(ref_mod, size), getattr(port_mod, size)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    for prop in ("padded_vocab", "hd", "layer_kinds", "homogeneous",
+                 "is_moe", "r_width"):
+        assert getattr(port, prop) == getattr(ref, prop), prop
+    assert port.param_count() == ref.param_count()
+
+
 def test_arch_registry():
     spec = get_arch("qwen1.5-4b")
     assert spec.full is port_qwen.FULL and spec.smoke is port_qwen.SMOKE
@@ -139,5 +161,13 @@ def test_arch_registry():
     assert spec.full is port_rg.FULL and spec.smoke is port_rg.SMOKE
     assert (spec.full.num_layers, spec.full.hd, spec.full.n_kv,
             spec.full.layer_kinds.count("rglru")) == (26, 256, 1, 18)
+    spec = get_arch("granite-moe-3b-a800m")
+    assert spec.full is port_granite.FULL and spec.smoke is port_granite.SMOKE
+    assert (spec.full.num_layers, spec.full.d_model, spec.full.hd,
+            spec.full.moe_experts, spec.full.moe_topk,
+            spec.full.tie_embeddings) == (32, 1536, 64, 40, 8, True)
+    spec = get_arch("qwen3-moe-30b-a3b")
+    assert spec.full is port_qwen3_moe.FULL \
+        and spec.smoke is port_qwen3_moe.SMOKE
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
