@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi) and torch's CUDA version;
   2. build every CUDA kernel from src/repro_torch/csrc (one nvcc per source,
-     all at once) and print the build time and ptxas' register report;
+     all at once) and print the build time and, for each compiled kernel,
+     ptxas' registers, shared memory and spills;
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes: the wire codec bit for bit (int8 and fp8, bf16 and
      f32 inputs, d = 2560 and 96 and 200), flash attention within 2e-4 (f32)
@@ -22,9 +23,12 @@ Phases (any failure exits non-zero; nothing is caught):
      (bf16) of its plain version relative to the largest value, at
      granite-moe-3b-a800m's prefill shapes ([40, 512, 1536] @ [40, 1536,
      512] and [40, 512, 512] @ [40, 512, 1536]), its decode shape
-     (capacity 8) and a ragged [5, 37, 200] @ [5, 200, 72]; flash at
-     granite's heads (24 q on 8 kv heads of 64); flash, RG-LRU and moe_gmm
-     refusing autograd.  Small f32 models on the card are held to the same
+     (capacity 8), a ragged [5, 37, 200] @ [5, 200, 72], C past one tile
+     (130) and the small-C variant's C = 1, 8, 12, 16, each on the route
+     moe_gmm.route names (bf16: "wgmma" or "wgmma_small_c"; f32: "simt");
+     flash at granite's heads (24 q on 8 kv heads of 64), every bf16 case
+     on the tensor-core route "mma"; flash, RG-LRU and moe_gmm refusing
+     autograd.  Small f32 models on the card are held to the same
      models on the CPU: a qwen prefill, a recurrentgemma prefill of a
      12-token prompt (window 8: the ring wraps) and 8 decode steps, a
      granite-moe prefill and 8 decode steps (the router's top-k expert ids
@@ -42,8 +46,8 @@ Phases (any failure exits non-zero; nothing is caught):
         with window 2048; tied embeddings; batch 4, prompt 512, 32 greedy
         tokens) through the same entry point: tokens in range, exactly 18
         rglru_scan and 8 flash_attention launches (the prefill's layers),
-        and --split-cut refused with ValueError; prefill ms, decode tok/s
-        and peak GB printed;
+        every flash launch on the "mma" route, and --split-cut refused with
+        ValueError; prefill ms, decode tok/s and peak GB printed;
      c. C2P2SL training of rwkv6-3b (32 layers, f32 master weights, batch 8,
         seq 512) through the training CLI's entry point: 3 steps of the
         2-stage, 4-micro-batch pipeline cut at 16, for wire none and int8.
@@ -57,14 +61,17 @@ Phases (any failure exits non-zero; nothing is caught):
         heads on 8 kv heads of 64, tied embeddings; batch 4, prompt 512, 32
         greedy tokens) through the serving CLI's entry point: tokens in
         range, exactly 96 moe_gmm and 32 flash_attention launches in the
-        prefill and 96 x 33 = 3168 moe_gmm in the run, and --split-cut
-        refused with ValueError; prefill ms, decode tok/s and peak GB;
+        prefill and 96 x 33 = 3168 moe_gmm in the run, every prefill
+        moe_gmm on the "wgmma" route and every decode one on
+        "wgmma_small_c", every flash on "mma", and --split-cut refused
+        with ValueError; prefill ms, decode tok/s and peak GB;
   5. timings: torch.profiler traces of one prefill and four decode steps
      of qwen, one prefill and one decode step each of recurrentgemma and
      granite-moe, and one training step (device busy time and idle share,
      top kernels); per kernel its device time, its plain version's, its
      bound and the library yardstick where one PyTorch call computes the
-     same function (torch.bmm for moe_gmm).
+     same function (torch.bmm for moe_gmm, SDPA for flash); for moe_gmm and
+     flash also the achieved TFLOP/s and the share of the bound.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -74,6 +81,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -164,6 +172,41 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return total_us / iters / 1e3
 
 
+def ptxas_report(log: str):
+    """One (kernel, resources, spills) triple per function in a ``ptxas
+    -v`` log: registers, barriers and shared memory from its "Used" line,
+    stack and spill bytes from the line before it."""
+    rows, name, spill = [], "?", ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            rows.append((name, line.split("Used", 1)[1].strip(), spill))
+    names = [r[0] for r in rows]
+    filt = shutil.which("c++filt")
+    if filt and names:
+        out = subprocess.run([filt], input="\n".join(names), text=True,
+                             capture_output=True, timeout=60).stdout
+        if len(out.splitlines()) == len(names):
+            names = [n.replace("(anonymous namespace)::", "").split("(")[0]
+                     for n in out.splitlines()]
+    return [(n, used, spill) for n, (_, used, spill) in zip(names, rows)]
+
+
+def rate_line(row, ops: float) -> str:
+    """A kernel row's time beside its achieved rate, the share of its
+    bound and its library call's time."""
+    lib = row["library_ms"]
+    return (f"kernel {row['name']}: {row['ms']:.4f} ms, "
+            f"{ops / row['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{row['bound_ms'] / row['ms']:.3f} of its bound "
+            f"({row['bound_ms']:.4f} ms, {row['bound_by']}), library "
+            f"{lib:.4f} ms ({row['ms'] / lib:.2f}x), max abs err "
+            f"{row['max_abs_err']:.3e}")
+
+
 def bound(nbytes: float, ops: float, ops_rate: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / ops_rate
     return (max(t_bytes, t_ops) * 1e3,
@@ -224,7 +267,10 @@ def check_flash(torch, fa, dev):
              (2, 8, 4, 200, 64, True, 0, torch.float32, False),
              (2, 8, 4, 200, 64, True, 0, torch.bfloat16, False),
              (2, 4, 4, 300, 128, True, 64, torch.float32, False),
-             (1, 4, 2, 130, 32, False, 0, torch.float32, False)]
+             (2, 4, 4, 300, 128, True, 64, torch.bfloat16, False),
+             (1, 4, 2, 130, 32, False, 0, torch.float32, False),
+             (1, 4, 2, 130, 32, False, 0, torch.bfloat16, False),
+             (2, 3, 3, 33, 16, False, 0, torch.bfloat16, True)]
     main_err = {}
     for b, hq, hkv, s, dh, causal, window, dt, bshd in cases:
         def mk(h):
@@ -234,15 +280,19 @@ def check_flash(torch, fa, dev):
             return torch.randn((b, h, s, dh), generator=gen,
                                device=dev).to(dt)
         q, k, v = mk(hq), mk(hkv), mk(hkv)
+        want = "mma" if dt == torch.bfloat16 else "simt"
+        fa.ROUTES.clear()
         o = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
         op = fa.attention_plain(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         err = float((o.float() - op.float()).abs().max())
         name = (f"flash B{b} H{hq}/{hkv} S{s} dh{dh} causal={causal} "
                 f"window={window} {dt}{' [B,S,H,dh] view' if bshd else ''}")
+        if dict(fa.ROUTES) != {want: 1}:
+            fail(f"{name}: routes {dict(fa.ROUTES)}, expected {want}")
         if not err <= tol[dt]:
             fail(f"{name}: max abs err {err} > {tol[dt]}")
-        print(f"{name}: max abs err {err:.3e} (tol {tol[dt]})")
+        print(f"{name} [{want}]: max abs err {err:.3e} (tol {tol[dt]})")
         if bshd and dt == torch.bfloat16:
             main_err[dh] = err
     return main_err
@@ -323,12 +373,15 @@ GMM_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
 def check_moe_gmm(torch, mg, dev):
     """The grouped expert matmul kernel against its plain version,
     relative to the largest value: 2e-4 in f32 (sums over D in another
-    order), 1e-2 in bf16 (the output rounded once; one bf16 step is
-    2^-8).  Returns the max abs errors at the prefill (w1) and decode
-    shapes in bf16."""
+    order), 1e-2 in bf16 (the output rounded once, one bf16 step is 2^-8;
+    the tensor cores sum in another order).  Each call must take the
+    route its dtype and C imply.  Returns the max abs errors at the
+    prefill (w1) and decode shapes in bf16."""
     gen = torch.Generator(device=dev).manual_seed(11)
     e, c, d, f = GR_GMM
-    shapes = [GR_GMM, (e, c, f, d), GR_GMM_DECODE, (5, 37, 200, 72)]
+    shapes = [GR_GMM, (e, c, f, d), GR_GMM_DECODE, (5, 37, 200, 72),
+              (3, 130, 200, 72), (2, 1, 200, 72), (3, 8, 200, 72),
+              (2, 12, 200, 72), (2, 16, 200, 72)]
     main = {}
     for shape in shapes:
         for dt in (torch.bfloat16, torch.float32):
@@ -336,17 +389,22 @@ def check_moe_gmm(torch, mg, dev):
             h = torch.randn((e_, c_, d_), generator=gen, device=dev).to(dt)
             w = (torch.randn((e_, d_, f_), generator=gen, device=dev)
                  / math.sqrt(d_)).to(dt)
+            want = "simt" if dt == torch.float32 else (
+                "wgmma_small_c" if c_ <= mg.SMALL_C else "wgmma")
+            mg.ROUTES.clear()
             out = mg.moe_gmm_cuda(h, w)
             plain = mg.moe_gmm_plain(h, w)
             torch.cuda.synchronize()
             tol = GMM_TOL[str(dt).split(".")[-1]]
             err = _rel_err(out, plain)
             name = f"moe_gmm [{e_},{c_},{d_}] @ [{e_},{d_},{f_}] {dt}"
+            if dict(mg.ROUTES) != {want: 1}:
+                fail(f"{name}: routes {dict(mg.ROUTES)}, expected {want}")
             if not (err <= tol and out.dtype == dt
                     and tuple(out.shape) == (e_, c_, f_)):
                 fail(f"{name}: max rel err {err} > {tol} (or dtype "
                      f"{out.dtype}, shape {tuple(out.shape)})")
-            print(f"{name}: max rel err {err:.3e} (tol {tol})")
+            print(f"{name} [{want}]: max rel err {err:.3e} (tol {tol})")
             if dt == torch.bfloat16 and shape in (GR_GMM, GR_GMM_DECODE):
                 main[shape] = float((out.float() - plain.float()).abs().max())
     return main
@@ -613,7 +671,9 @@ def run_main_path(torch, ops, serve):
     base = ["--arch", ARCH, "--size", "full", "--batch", str(BATCH),
             "--prompt-len", str(PROMPT), "--gen", str(GEN),
             "--seed", str(SEED)]
+    from repro_torch.kernels import flash_attention as fa
     ops.reset_launches()
+    fa.ROUTES.clear()
     static = serve.main(base)
     split = {w: serve.main(base + ["--split-cut", str(CUT),
                                    "--wire-dtype", w])
@@ -637,7 +697,10 @@ def run_main_path(torch, ops, serve):
     for name in SERVING_KERNELS:
         if launches.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the serving path")
-    print(f"serving-path launches: {json.dumps(launches, sort_keys=True)}")
+    if dict(fa.ROUTES) != {"mma": launches["flash_attention"]}:
+        fail(f"serving flash routes {dict(fa.ROUTES)}: not all on mma")
+    print(f"serving-path launches: {json.dumps(launches, sort_keys=True)}; "
+          f"flash routes {dict(fa.ROUTES)}")
     return static, split, launches
 
 
@@ -647,12 +710,14 @@ def run_hybrid_serving(torch, ops, serve):
     Then --split-cut on it must raise ValueError (as the reference's
     SplitDecode does for a heterogeneous stack)."""
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
     argv = ["--arch", RG_ARCH, "--size", "full", "--batch", str(BATCH),
             "--prompt-len", str(PROMPT), "--gen", str(GEN), "--seed",
             str(SEED)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
+    fa.ROUTES.clear()
     res = serve.main(argv)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
@@ -664,6 +729,8 @@ def run_hybrid_serving(torch, ops, serve):
         fail(f"{RG_ARCH} tokens {tuple(toks.shape)} out of range")
     if launches != RG_LAUNCHES:
         fail(f"{RG_ARCH} serving launches {launches} != {RG_LAUNCHES}")
+    if dict(fa.ROUTES) != {"mma": RG_LAUNCHES["flash_attention"]}:
+        fail(f"{RG_ARCH} flash routes {dict(fa.ROUTES)}: not all on mma")
     print(f"{RG_ARCH} serving-path launches: "
           f"{json.dumps(launches, sort_keys=True)}")
     try:
@@ -683,12 +750,16 @@ def run_moe_serving(torch, ops, serve):
     must raise ValueError (tied embeddings, as the reference's
     SplitDecode refuses)."""
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as mg
     argv = ["--arch", GR_ARCH, "--size", "full", "--batch", str(BATCH),
             "--prompt-len", str(PROMPT), "--gen", str(GEN), "--seed",
             str(SEED)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
+    fa.ROUTES.clear()
+    mg.ROUTES.clear()
     res = serve.main(argv)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
@@ -703,9 +774,19 @@ def run_moe_serving(torch, ops, serve):
              f"{GR_PREFILL}")
     if launches != GR_RUN:
         fail(f"{GR_ARCH} serving launches {launches} != {GR_RUN}")
+    # prefill (capacity 512) on the 128-row tiles, decode (capacity 8) on
+    # the small-C variant, flash on the tensor cores
+    routes = {"wgmma": GR_PREFILL["moe_gmm"],
+              "wgmma_small_c": GR_RUN["moe_gmm"] - GR_PREFILL["moe_gmm"]}
+    if dict(mg.ROUTES) != routes:
+        fail(f"{GR_ARCH} moe_gmm routes {dict(mg.ROUTES)} != {routes}")
+    if dict(fa.ROUTES) != {"mma": GR_RUN["flash_attention"]}:
+        fail(f"{GR_ARCH} flash routes {dict(fa.ROUTES)}: not all on mma")
     print(f"{GR_ARCH} prefill launches: "
           f"{json.dumps(res['prefill_launches'], sort_keys=True)}; whole "
-          f"run: {json.dumps(launches, sort_keys=True)}")
+          f"run: {json.dumps(launches, sort_keys=True)}; moe_gmm routes "
+          f"{json.dumps(dict(mg.ROUTES), sort_keys=True)}, flash routes "
+          f"{json.dumps(dict(fa.ROUTES))}")
     try:
         serve.main(argv + ["--split-cut", "16"])
     except ValueError as e:
@@ -992,6 +1073,7 @@ def time_kernels(torch, wc, fa, rw, rg, dev, serve_launches, rg_launches,
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
             *contig, is_causal=True))})
+    print(rate_line(out[-1], 4 * dh * pairs))
     out += time_wkv6(torch, rw, dev, launches, wkv_err)
     out += time_hybrid(torch, fa, rg, dev, rg_launches, flash_err[256],
                        rglru_err)
@@ -1101,6 +1183,7 @@ def time_hybrid(torch, fa, rg, dev, launches, flash_err, rglru_err):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
             *lib, is_causal=True))})
+    print(rate_line(out[-1], 4 * dh * pairs))
     return out
 
 
@@ -1114,7 +1197,7 @@ def _gmm_row(torch, mg, dev, name, shape, launches, err, gen):
          / math.sqrt(d)).to(torch.bfloat16)
     b_ms, b_by = bound((e * c * d + e * d * f + e * c * f) * 2,
                        2 * e * c * d * f, BF16_OPS_S)
-    return {
+    row = {
         "name": name, "route": "cuda",
         "source": "src/repro_torch/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm.py:41",
@@ -1123,6 +1206,8 @@ def _gmm_row(torch, mg, dev, name, shape, launches, err, gen):
         "plain_ms": device_ms(lambda: mg.moe_gmm_plain(h, w), iters=5),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": device_ms(lambda: torch.bmm(h, w))}
+    print(rate_line(row, 2 * e * c * d * f))
+    return row
 
 
 def time_moe(torch, mg, fa, dev, prefill_launches, run_launches, gmm_err,
@@ -1144,8 +1229,10 @@ def time_moe(torch, mg, fa, dev, prefill_launches, run_launches, gmm_err,
     e, c, d, f = GR_GMM
     h = torch.randn((e, c, f), generator=gen, device=dev).to(torch.bfloat16)
     w = torch.randn((e, f, d), generator=gen, device=dev).to(torch.bfloat16)
+    w2_ms = device_ms(lambda: mg.moe_gmm_cuda(h, w))
     print(f"moe_gmm at the w2 shape [{e},{c},{f}] @ [{e},{f},{d}] bf16: "
-          f"{device_ms(lambda: mg.moe_gmm_cuda(h, w)):.4f} ms on the device, "
+          f"{w2_ms:.4f} ms on the device "
+          f"({2 * e * c * d * f / w2_ms / 1e9:.1f} TFLOP/s), "
           f"{cuda_ms(lambda: mg.moe_gmm_cuda(h, w)):.4f} ms between events; "
           f"torch.bmm {device_ms(lambda: torch.bmm(h, w)):.4f} ms")
 
@@ -1173,6 +1260,7 @@ def time_moe(torch, mg, fa, dev, prefill_launches, run_launches, gmm_err,
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
             *lib, is_causal=True))})
+    print(rate_line(out[-1], 4 * dh * pairs))
     return out
 
 
@@ -1213,9 +1301,8 @@ def main():
     built = build.build_all()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     for name, info in built.items():
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for kernel, used, spill in ptxas_report(info["log"]):
+            print(f"  ptxas {name}: {kernel}: {used}; {spill}")
 
     check_codec(torch, wc, dev)
     flash_err = check_flash(torch, fa, dev)

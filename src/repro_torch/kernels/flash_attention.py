@@ -10,10 +10,14 @@ Masks are positional from 0 on both sides (causal ``k <= q``, window
 ``flash_attention_cuda`` launches ``csrc/flash_attention.cu`` on tensors
 of any strides with a unit stride along ``dh`` — a ``[B, S, H, dh]``
 activation passes as its ``transpose(1, 2)`` view, with no copy — and
-writes its output with q's strides.
+writes its output with q's strides.  ``route`` picks the kernel before
+the launch: ``"mma"`` (bf16 on the tensor cores, K/V loaded 16 bytes at a
+time by ``cp.async``) or ``"simt"`` (f32, and bf16 whose addresses or
+strides are not 16-byte aligned); ``ROUTES`` counts the launches of each.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -24,6 +28,21 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)      # instantiated in the CUDA source
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTE_IDS = {"simt": 0, "mma": 1}
+ROUTES: collections.Counter = collections.Counter()
+
+
+def route(dtype, strides, data_ptrs) -> str:
+    """The kernel route for q, k, v and out of ``dtype``: ``strides`` are
+    their batch, head and sequence strides in elements, ``data_ptrs`` their
+    base addresses.  The tensor-core kernel takes bf16 whose bases are
+    16-byte aligned and whose strides are multiples of 8 elements.  A pure
+    function of its arguments: it launches nothing."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if any(s % 8 for s in strides) or any(p % 16 for p in data_ptrs):
+        return "simt"
+    return "mma"
 
 
 def attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
@@ -51,12 +70,13 @@ _L, _I, _P = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
 _SIGNATURES = {
     "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                            ctypes.c_float, _I, _I, _I, _P],
+                            ctypes.c_float, _I, _I, _I, _I, _P],
 }
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
-    """Launch the flash kernel on CUDA tensors (bf16 | f32)."""
+    """Launch the flash kernel on CUDA tensors (bf16 | f32), on the route
+    ``route`` picks (counted in ``ROUTES``)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -78,12 +98,14 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     out = torch.empty_like(q)       # keeps q's strides (dense layouts)
     if out.stride(-1) != 1:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    tensors = (q, k, v, out)
+    strides = [s for t in tensors for s in t.stride()[:3]]
+    how = route(q.dtype, strides, [t.data_ptr() for t in tensors])
     lib = build.load("flash_attention", _SIGNATURES)
     code = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, hq, hkv, sq, skv, dh, _DTYPES[q.dtype],
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        1.0 / math.sqrt(dh), int(bool(causal)), int(window),
-        q.device.index, build.stream_of(q))
-    build.check("flash_attention", code, "flash_attention launch")
+        *(t.data_ptr() for t in tensors), b, hq, hkv, sq, skv, dh,
+        _DTYPES[q.dtype], *strides, 1.0 / math.sqrt(dh), int(bool(causal)),
+        int(window), _ROUTE_IDS[how], q.device.index, build.stream_of(q))
+    build.check("flash_attention", code, f"flash_attention launch ({how})")
+    ROUTES[how] += 1
     return out

@@ -5,11 +5,17 @@ Port of the JAX package's ``kernels/moe_gmm.py`` (``moe_gmm``) with
 
     h [E, C, D] @ w [E, D, F] -> [E, C, F], summed in f32, in h's dtype.
 
-``moe_gmm_cuda`` launches ``csrc/moe_gmm.cu`` on any E, C, D and F;
+``moe_gmm_cuda`` launches ``csrc/moe_gmm.cu`` on any E, C, D and F, on
+one of three routes that ``route`` picks from the inputs' dtype, shape,
+strides and addresses before the launch: ``"wgmma"`` (bf16 on the tensor
+cores, fed by TMA), ``"wgmma_small_c"`` (the same with the operands
+swapped, for C <= ``SMALL_C``: a decode step) and ``"simt"`` (f32, and
+bf16 that TMA cannot address).  ``ROUTES`` counts the launches of each.
 ``kernels/ops.py`` dispatches by device.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -17,6 +23,23 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTE_IDS = {"simt": 0, "wgmma": 1, "wgmma_small_c": 2}
+SMALL_C = 16            # the largest C of the swapped (small-C) variant
+ROUTES: collections.Counter = collections.Counter()
+
+
+def route(dtype, c: int, d: int, strides, data_ptrs) -> str:
+    """The kernel route for h [E, C, D] and w [E, D, F] of ``dtype``:
+    ``strides`` are h's and w's E and row strides in elements (hse, hsc,
+    wse, wsd), ``data_ptrs`` their base addresses.  The tensor-core routes
+    take bf16 that TMA can address: bases 16-byte aligned, every stride a
+    multiple of 8 elements (16 bytes), D >= 1.  A pure function of its
+    arguments: it launches nothing."""
+    if dtype != torch.bfloat16 or d < 1:
+        return "simt"
+    if any(s % 8 for s in strides) or any(p % 16 for p in data_ptrs):
+        return "simt"
+    return "wgmma_small_c" if c <= SMALL_C else "wgmma"
 
 
 def moe_gmm_plain(h, w):
@@ -28,14 +51,16 @@ def moe_gmm_plain(h, w):
 
 _L, _I, _P = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
 _SIGNATURES = {
-    "moe_gmm_fwd": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I, _P],
+    "moe_gmm_fwd": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I,
+                    _P],
 }
 
 
 def moe_gmm_cuda(h, w):
     """Launch the grouped matmul kernel on CUDA tensors: h [E, C, D] and
     w [E, D, F] of one dtype (f32 | bf16), each with a unit stride on its
-    last axis -> a contiguous [E, C, F] in that dtype."""
+    last axis -> a contiguous [E, C, F] in that dtype.  The route is
+    chosen by ``route`` and counted in ``ROUTES``."""
     for name, t in (("h", h), ("w", w)):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -56,11 +81,14 @@ def moe_gmm_cuda(h, w):
     f = w.shape[2]
     if e > 65535 or -(-c // 64) > 65535:
         raise ValueError(f"[E, C] = {(e, c)} exceeds the kernel's grid")
+    strides = (h.stride(0), h.stride(1), w.stride(0), w.stride(1))
+    how = route(h.dtype, c, d, strides, (h.data_ptr(), w.data_ptr()))
     out = torch.empty((e, c, f), dtype=h.dtype, device=h.device)
     lib = build.load("moe_gmm", _SIGNATURES)
     code = lib.moe_gmm_fwd(
-        h.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f,
-        h.stride(0), h.stride(1), w.stride(0), w.stride(1),
-        _DTYPES[h.dtype], h.device.index, build.stream_of(h))
-    build.check("moe_gmm", code, "moe_gmm launch")
+        h.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f, *strides,
+        _DTYPES[h.dtype], _ROUTE_IDS[how], h.device.index,
+        build.stream_of(h))
+    build.check("moe_gmm", code, f"moe_gmm launch ({how})")
+    ROUTES[how] += 1
     return out

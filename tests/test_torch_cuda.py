@@ -333,6 +333,12 @@ GMM_CASES = [  # (E, C, D, F)
     (40, 8, 1536, 512),       # a decode step (capacity 8)
     (5, 37, 200, 72),         # ragged C, D and F
     (1, 1, 1, 1),
+    (3, 130, 200, 72),        # C past one 128-row tile, ragged D and F
+    (2, 17, 64, 136),         # the smallest C of the 128-row tiles
+    (2, 1, 200, 72),          # small-C variant, N = 8
+    (3, 8, 200, 72),
+    (2, 12, 200, 72),         # small-C variant, N = 16, ragged
+    (2, 16, 200, 72),
 ]
 
 
@@ -409,3 +415,79 @@ def test_small_granite_on_card_matches_cpu():
             torch.testing.assert_close(lg.cpu(), lc, atol=1e-3, rtol=1e-3)
             tok = torch.argmax(lc, -1, keepdim=True)
         assert ops.LAUNCHES["moe_gmm"] == 3 * cfg.num_layers * 9
+
+
+def test_moe_gmm_routes_by_shape_and_layout():
+    """bf16 at granite's prefill shape takes the wgmma route, its decode
+    shape the small-C variant; (1, 1, 1, 1), a w whose row stride TMA
+    cannot take, and f32 take the SIMT kernel; each within its tolerance."""
+    dev = cuda_device()
+    cases = [((40, 512, 1536, 512), torch.bfloat16, "wgmma"),
+             ((40, 8, 1536, 512), torch.bfloat16, "wgmma_small_c"),
+             ((1, 1, 1, 1), torch.bfloat16, "simt"),
+             ((3, 20, 48, 40), torch.float32, "simt")]
+    for shape, dt, want in cases:
+        h, w = _gmm_inputs(dev, *shape, dt)
+        mg.ROUTES.clear()
+        out = mg.moe_gmm_cuda(h, w)
+        assert dict(mg.ROUTES) == {want: 1}, (shape, dt, dict(mg.ROUTES))
+        tol = 1e-2 if dt == torch.bfloat16 else 2e-4
+        assert _rel(out, mg.moe_gmm_plain(h, w)) <= tol
+    h, w = _gmm_inputs(dev, 3, 20, 48, 44, torch.bfloat16)
+    wa = w[:, :, :40].contiguous()                     # row stride 40: 80 B
+    ws = w[:, :, :33]                                  # row stride 44: 88 B
+    mg.ROUTES.clear()
+    assert _rel(mg.moe_gmm_cuda(h, wa), mg.moe_gmm_plain(h, wa)) <= 1e-2
+    assert _rel(mg.moe_gmm_cuda(h, ws), mg.moe_gmm_plain(h, ws)) <= 1e-2
+    assert dict(mg.ROUTES) == {"wgmma": 1, "simt": 1}
+
+
+FLASH_BF16_CASES = [  # (b, hq, hkv, sq, skv, dh, causal, window, [B,S,H,dh])
+    (4, 20, 20, 512, 512, 128, True, 0, True),     # qwen1.5-4b's prefill
+    (4, 24, 8, 512, 512, 64, True, 0, True),       # granite-moe's
+    (4, 10, 1, 512, 512, 256, True, 2048, True),   # recurrentgemma's
+    (2, 4, 2, 64, 200, 64, False, 0, False),       # Sq < Skv
+    (1, 4, 4, 100, 37, 128, True, 0, False),       # Sq > Skv, causal
+    (1, 2, 1, 70, 300, 256, True, 32, False),      # Sq < Skv, window
+    (2, 3, 3, 33, 33, 16, False, 0, True),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_BF16_CASES, ids=str)
+def test_flash_bf16_takes_the_tensor_cores(case):
+    """bf16 on the mma route: model-layout views and Sq != Skv, within
+    5e-2 of the plain version; the output keeps q's layout."""
+    dev = cuda_device()
+    b, hq, hkv, sq, skv, dh, causal, window, bshd = case
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def mk(h, s):
+        if bshd:
+            return torch.randn((b, s, h, dh), generator=g, device=dev).to(
+                torch.bfloat16).transpose(1, 2)
+        return torch.randn((b, h, s, dh), generator=g,
+                           device=dev).to(torch.bfloat16)
+    q, k, v = mk(hq, sq), mk(hkv, skv), mk(hkv, skv)
+    fa.ROUTES.clear()
+    o = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    assert dict(fa.ROUTES) == {"mma": 1}
+    assert o.stride() == q.stride()
+    op = fa.attention_plain(q, k, v, causal=causal, window=window)
+    assert float((o.float() - op.float()).abs().max()) <= 5e-2
+
+
+def test_flash_misaligned_bf16_takes_simt():
+    """A bf16 q whose base is not 16-byte aligned goes to the SIMT kernel
+    (cp.async moves 16 aligned bytes), within the same 5e-2."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(4)
+    n = 2 * 4 * 40 * 64
+    buf = torch.randn(n + 1, generator=g, device=dev).to(torch.bfloat16)
+    q = buf[1:].view(2, 4, 40, 64)
+    k, v = (torch.randn((2, 4, 40, 64), generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    fa.ROUTES.clear()
+    o = fa.flash_attention_cuda(q, k, v, causal=True)
+    assert dict(fa.ROUTES) == {"simt": 1}
+    op = fa.attention_plain(q, k, v, causal=True)
+    assert float((o.float() - op.float()).abs().max()) <= 5e-2

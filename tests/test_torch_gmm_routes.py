@@ -1,0 +1,103 @@
+"""Which kernel route the grouped matmul and flash wrappers pick.
+
+``moe_gmm.route`` and ``flash_attention.route`` are pure functions of a
+dtype, shapes, strides and base addresses: they launch nothing, so they
+run here on the CPU.  The tensor-core routes need what TMA and cp.async
+need (16-byte aligned bases, strides that are multiples of 16 bytes);
+everything else goes to the SIMT kernels, which take any layout.
+Imports torch only.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe_gmm as mg
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+def _gmm_route(h, w):
+    return mg.route(h.dtype, h.shape[1], h.shape[2],
+                    (h.stride(0), h.stride(1), w.stride(0), w.stride(1)),
+                    (h.data_ptr(), w.data_ptr()))
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    ((40, 512, 1536, 512), BF16, "wgmma"),        # granite prefill: w1, w3
+    ((40, 512, 512, 1536), BF16, "wgmma"),        # ... w2
+    ((40, 8, 1536, 512), BF16, "wgmma_small_c"),  # a decode step
+    ((2, 1, 200, 72), BF16, "wgmma_small_c"),
+    ((2, 16, 200, 72), BF16, "wgmma_small_c"),    # the largest small C
+    ((2, 17, 200, 72), BF16, "wgmma"),
+    ((5, 37, 200, 72), BF16, "wgmma"),
+    ((1, 1, 1, 1), BF16, "simt"),                 # 2-byte strides
+    ((5, 37, 200, 71), BF16, "simt"),             # w's rows 142 B apart
+    ((5, 37, 203, 72), BF16, "simt"),             # h's rows 406 B apart
+    ((40, 512, 1536, 512), F32, "simt"),          # f32 holds 2e-4: no TF32
+    ((40, 8, 1536, 512), F32, "simt"),
+])
+def test_gmm_route_of_contiguous_inputs(shape, dtype, want):
+    e, c, d, f = shape
+    h = torch.empty((e, c, d), dtype=dtype)
+    w = torch.empty((e, d, f), dtype=dtype)
+    assert _gmm_route(h, w) == want
+
+
+def test_gmm_route_reads_strides_not_shapes():
+    """A w sliced along F keeps its parent's row stride: 40 elements (80 B)
+    is TMA's, 44 (88 B) is not; a transposed-view h of legal strides is."""
+    w = torch.empty((3, 48, 44), dtype=BF16)
+    h = torch.empty((20, 3, 48), dtype=BF16).transpose(0, 1)  # [E, C, D]
+    assert _gmm_route(h, w[:, :, :33]) == "simt"
+    assert _gmm_route(h, w[:, :, :40].contiguous()[:, :, :33]) == "wgmma"
+
+
+@pytest.mark.parametrize("ptrs,want", [((0, 0), "wgmma"),
+                                       ((256, 4096), "wgmma"),
+                                       ((2, 0), "simt"),
+                                       ((0, 8), "simt")])
+def test_gmm_route_needs_16_byte_aligned_bases(ptrs, want):
+    strides = (512 * 1536, 1536, 1536 * 512, 512)
+    assert mg.route(BF16, 512, 1536, strides, ptrs) == want
+
+
+def test_gmm_route_without_a_reduction_axis_is_simt():
+    assert mg.route(BF16, 8, 0, (0, 0, 0, 512), (0, 0)) == "simt"
+
+
+def test_gmm_route_ids_cover_every_route():
+    names = {mg.route(BF16, c, 64, (8, 8, 8, 8), (0, 0)) for c in (8, 64)}
+    names.add(mg.route(F32, 8, 64, (8, 8, 8, 8), (0, 0)))
+    assert names == set(mg._ROUTE_IDS)
+
+
+def _flash_route(*tensors):
+    return fa.route(tensors[0].dtype,
+                    [s for t in tensors for s in t.stride()[:3]],
+                    [t.data_ptr() for t in tensors])
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,dh", [(4, 20, 20, 512, 128),
+                                           (4, 24, 8, 512, 64),
+                                           (4, 10, 1, 512, 256),
+                                           (2, 3, 3, 33, 16)])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_flash_route_bf16_takes_the_tensor_cores(b, hq, hkv, s, dh, layout):
+    def mk(h, dtype):
+        if layout == "bshd":       # the model's [B, S, H, dh] as a view
+            return torch.empty((b, s, h, dh), dtype=dtype).transpose(1, 2)
+        return torch.empty((b, h, s, dh), dtype=dtype)
+    q, k, v = mk(hq, BF16), mk(hkv, BF16), mk(hkv, BF16)
+    assert _flash_route(q, k, v, torch.empty_like(q)) == "mma"
+    q, k, v = mk(hq, F32), mk(hkv, F32), mk(hkv, F32)
+    assert _flash_route(q, k, v, torch.empty_like(q)) == "simt"
+
+
+def test_flash_route_misaligned_bf16_is_simt():
+    buf = torch.empty(2 * 4 * 40 * 64 + 1, dtype=BF16)
+    q = buf[1:].view(2, 4, 40, 64)                 # base 2 bytes off
+    k = torch.empty((2, 4, 40, 64), dtype=BF16)
+    assert _flash_route(q, k, k, k) == "simt"
+    wide = torch.empty((2, 4, 40, 68), dtype=BF16)[..., :64]   # 136 B rows
+    assert _flash_route(wide, k, k, k) == "simt"
+    assert _flash_route(k, k, k, k) == "mma"
