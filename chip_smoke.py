@@ -13,13 +13,19 @@ Phases (any failure exits non-zero; nothing is caught):
      f32 inputs, d = 2560 and 96 and 200), flash attention within 2e-4 (f32)
      and 5e-2 (bf16), causal, GQA and sliding-window, head dims 128 and 256
      (recurrentgemma's 10 q heads on one kv head, window 2048, at S = 512
-     and at S = 3072 where the window bites), flash and RG-LRU refusing
-     autograd; the RG-LRU scan within 2e-4 (f32) / 1e-2 (bf16) of its
-     plain version relative to the largest value ([4, 512, 2560] with and
-     without h0, and ragged [3, 300, 200]); the WKV6 forward and backward
-     kernels against the plain version's forward and autograd (the
-     training shape in bf16 and f32, S = 96, strong decay, a given initial
-     state); the grouped expert matmul (moe_gmm) within 2e-4 (f32) / 1e-2
+     and at S = 3072 where the window bites), query rows without any key
+     (Sq 256 against Skv 128 under window 16: the mean of V) on both
+     routes, flash and RG-LRU refusing autograd; the RG-LRU scan within
+     2e-4 (f32) / 1e-2 (bf16) of its plain version relative to the largest
+     value ([4, 512, 2560] with and without h0, and ragged [3, 300, 200]);
+     the WKV6 forward and backward kernels against the plain version's
+     forward and autograd (the training shape in bf16 and f32, S = 96,
+     strong decay, a given initial state, ragged S = 130; bf16 at head dim
+     64 on the chunked tensor-core route, the rest, with bf16 at head dim
+     32 and bf16 whose r is based 2 bytes off 16, on SIMT) and, at
+     constant log w = -5 and -20 where the plain version overflows,
+     against wkv6_scan and its autograd; the grouped expert matmul
+     (moe_gmm) within 2e-4 (f32) / 1e-2
      (bf16) of its plain version relative to the largest value, at
      granite-moe-3b-a800m's prefill shapes ([40, 512, 1536] @ [40, 1536,
      512] and [40, 512, 512] @ [40, 512, 1536]), its decode shape
@@ -53,7 +59,8 @@ Phases (any failure exits non-zero; nothing is caught):
         2-stage, 4-micro-batch pipeline cut at 16, for wire none and int8.
         Every loss finite, every parameter tensor changed, the hop's bytes
         per step equal to the billed bytes up and down, and the WKV6 and
-        (int8) codec kernels launched;
+        (int8) codec kernels launched, every WKV6 launch on the chunked
+        route;
      d. one make_c2p2sl_step with 2 UEs and a ragged shard_batch (b = [5,
         3], k = 4), its loss printed beside the pipelined loss on the same
         weights and batch;
@@ -68,10 +75,12 @@ Phases (any failure exits non-zero; nothing is caught):
   5. timings: torch.profiler traces of one prefill and four decode steps
      of qwen, one prefill and one decode step each of recurrentgemma and
      granite-moe, and one training step (device busy time and idle share,
-     top kernels); per kernel its device time, its plain version's, its
-     bound and the library yardstick where one PyTorch call computes the
-     same function (torch.bmm for moe_gmm, SDPA for flash); for moe_gmm and
-     flash also the achieved TFLOP/s and the share of the bound.
+     top kernels, the WKV6 kernels' total); per kernel its device time, its
+     plain version's, its bound and the library yardstick where one
+     PyTorch call computes the same function (torch.bmm for moe_gmm, SDPA
+     for flash); for moe_gmm and flash also the achieved TFLOP/s and the
+     share of the bound; for WKV6 the route, ptxas' registers and spills
+     of the chunked kernels, and the f32 call's (SIMT) time in the same run.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -295,7 +304,39 @@ def check_flash(torch, fa, dev):
         print(f"{name} [{want}]: max abs err {err:.3e} (tol {tol[dt]})")
         if bshd and dt == torch.bfloat16:
             main_err[dh] = err
+    check_flash_rows_without_keys(torch, fa, dev, gen, tol)
     return main_err
+
+
+def check_flash_rows_without_keys(torch, fa, dev, gen, tol):
+    """Sq >= Skv + window (ROADMAP Queue 3, fault 5): q [1, 1, 256, 64]
+    against k/v [1, 1, 128, 64] under window 16, causal and not; rows
+    143-255 have no key, so the plain version gives each the mean of V
+    over all 128 keys.  f32 and bf16 on their routes, and bf16 forced onto
+    SIMT by a q whose base is 2 bytes off."""
+    n = 256 * 64
+    for dt, misaligned in ((torch.float32, False), (torch.bfloat16, False),
+                           (torch.bfloat16, True)):
+        for causal in (True, False):
+            buf = torch.randn(n + 1, generator=gen, device=dev).to(dt)
+            q = (buf[1:] if misaligned else buf[:n]).view(1, 1, 256, 64)
+            k, v = (torch.randn((1, 1, 128, 64), generator=gen,
+                                device=dev).to(dt) for _ in range(2))
+            want = "mma" if dt == torch.bfloat16 and not misaligned \
+                else "simt"
+            fa.ROUTES.clear()
+            o = fa.flash_attention_cuda(q, k, v, causal=causal, window=16)
+            op = fa.attention_plain(q, k, v, causal=causal, window=16)
+            torch.cuda.synchronize()
+            err = float((o.float() - op.float()).abs().max())
+            name = (f"flash rows without keys Sq 256 Skv 128 window 16 "
+                    f"causal={causal} {dt}"
+                    f"{' misaligned q' if misaligned else ''}")
+            if dict(fa.ROUTES) != {want: 1}:
+                fail(f"{name}: routes {dict(fa.ROUTES)}, expected {want}")
+            if not err <= tol[dt]:
+                fail(f"{name}: max abs err {err} > {tol[dt]}")
+            print(f"{name} [{want}]: max abs err {err:.3e} (tol {tol[dt]})")
 
 
 RGLRU_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
@@ -570,29 +611,46 @@ def check_wkv6(torch, rw, dev):
     Returns the max abs errors of out and of the gradients at the
     training shape in bf16."""
     gen = torch.Generator(device=dev).manual_seed(6)
-    # (shape [B, S, H, dh], dtype, strong decay, initial state)
-    cases = [(WKV_SHAPE, torch.bfloat16, False, False),
-             (WKV_SHAPE, torch.float32, False, False),
-             ((2, 96, 4, 64), torch.float32, False, False),
-             ((2, 96, 4, 64), torch.bfloat16, False, False),
-             ((2, 128, 3, 32), torch.float32, True, False),
-             ((1, 70, 2, 16), torch.float32, False, True),
-             ((2, 64, 3, 64), torch.float32, True, True)]
+    # (shape [B, S, H, dh], dtype, strong decay, initial state, r based 2
+    # bytes off 16); bf16 at dh 64 with aligned bases takes the chunked
+    # route, the rest (bf16 at dh 32 or misaligned too) the SIMT kernels
+    cases = [(WKV_SHAPE, torch.bfloat16, False, False, False),
+             (WKV_SHAPE, torch.float32, False, False, False),
+             ((2, 96, 4, 64), torch.float32, False, False, False),
+             ((2, 96, 4, 64), torch.bfloat16, False, False, False),
+             ((2, 96, 4, 64), torch.bfloat16, False, False, True),
+             ((2, 128, 3, 32), torch.float32, True, False, False),
+             ((2, 128, 3, 32), torch.bfloat16, True, False, False),
+             ((1, 70, 2, 16), torch.float32, False, True, False),
+             ((2, 64, 3, 64), torch.float32, True, True, False),
+             ((2, 64, 3, 64), torch.bfloat16, True, True, False),
+             ((1, 130, 3, 64), torch.bfloat16, False, True, False)]
     main = None
-    for shape, dt, strong, with_s0 in cases:
+    for shape, dt, strong, with_s0, misaligned in cases:
         b, s, h, dh = shape
         rnd = lambda *sh: torch.randn(sh, generator=gen, device=dev)
         r, k, v = (rnd(*shape).to(dt) for _ in range(3))
+        if misaligned:
+            buf = torch.empty(r.numel() + 1, dtype=dt, device=dev)
+            r = buf[1:].view(shape).copy_(r)
         # the reference's decay draws: w = exp(-exp(U(lo, 0.5)))
         lo = -3.0 if strong else -6.0
         logw = -torch.exp(torch.rand(shape, generator=gen, device=dev)
                           * (0.5 - lo) + lo)
         u = rnd(h, dh) * 0.2
         s0 = rnd(b, h, dh, dh) * 0.1 if with_s0 else None
+        rw.ROUTES.clear()
         out, s_t = rw.wkv6_fwd_cuda(r, k, v, logw, u, s0)
         dout = rnd(*shape).to(dt)
         ds_t = rnd(b, h, dh, dh) if with_s0 else None
         grads = rw.wkv6_bwd_cuda(r, k, v, logw, u, s0, dout, ds_t)
+        how = "chunked" if dt == torch.bfloat16 and dh == 64 \
+            and not misaligned else "simt"
+        if rw.route(dt, dh, [r.data_ptr()]) != how:
+            fail(f"wkv6 {shape} {dt}: rwkv6.route disagrees with {how}")
+        if dict(rw.ROUTES) != {f"wkv6:{how}": 1, f"wkv6_bwd:{how}": 1}:
+            fail(f"wkv6 {shape} {dt}: routes {dict(rw.ROUTES)}, expected "
+                 f"{how}")
         ins = [t.detach().clone().requires_grad_(True)
                for t in (r, k, v, logw, u)]
         s0p = s0.detach().clone().requires_grad_(True) if with_s0 else None
@@ -607,19 +665,63 @@ def check_wkv6(torch, rw, dev):
         for name, g, gp in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"),
                                grads, plain):
             errs[name] = _rel_err(g, gp)
-        name = (f"wkv6 {shape} {dt}{' strong decay' if strong else ''}"
-                f"{' s0 given' if with_s0 else ''}")
+        name = (f"wkv6 [{how}] {shape} {dt}"
+                f"{' strong decay' if strong else ''}"
+                f"{' s0 given' if with_s0 else ''}"
+                f"{' r misaligned' if misaligned else ''}")
         bad = {n: e for n, e in errs.items() if not e <= tol}
         if bad:
             fail(f"{name}: relative errors {bad} > {tol}")
         print(f"{name}: forward and backward within {tol} of plain "
               f"(max rel {max(errs.values()):.2e}: "
               + ", ".join(f"{n} {e:.1e}" for n, e in errs.items()) + ")")
-        if shape == WKV_SHAPE and dt == torch.bfloat16:
+        if shape == WKV_SHAPE and dt == torch.bfloat16 and not misaligned:
             main = (float((out.float() - op.detach().float()).abs().max()),
                     max(float((g.float() - gp.float()).abs().max())
                         for g, gp in zip(grads, plain)))
+    check_wkv6_strong_decay(torch, rw, dev, gen)
     return main
+
+
+def check_wkv6_strong_decay(torch, rw, dev, gen):
+    """The chunked route at constant log w = -5 and -20, where the
+    reference's single-level chunked form (and so ``wkv6_plain``) overflows
+    (ROADMAP Queue 3, fault 7): [2, 130, 3, 64] bf16 with s0 and ds_T,
+    against ``wkv6_scan`` and its autograd; every output finite and within
+    1e-2 of the largest value."""
+    shape, tol = (2, 130, 3, 64), WKV_TOL["bfloat16"]
+    b, s, h, dh = shape
+    for log_w in (-5.0, -20.0):
+        rnd = lambda *sh: torch.randn(sh, generator=gen, device=dev)
+        r, k, v = (rnd(*shape).to(torch.bfloat16) for _ in range(3))
+        logw = torch.full(shape, log_w, device=dev)
+        u, s0 = rnd(h, dh) * 0.2, rnd(b, h, dh, dh) * 0.1
+        dout, ds_t = rnd(*shape).to(torch.bfloat16), rnd(b, h, dh, dh)
+        rw.ROUTES.clear()
+        out, s_t = rw.wkv6_fwd_cuda(r, k, v, logw, u, s0)
+        grads = rw.wkv6_bwd_cuda(r, k, v, logw, u, s0, dout, ds_t)
+        if dict(rw.ROUTES) != {"wkv6:chunked": 1, "wkv6_bwd:chunked": 1}:
+            fail(f"wkv6 log w {log_w}: routes {dict(rw.ROUTES)}")
+        ins = [t.detach().clone().requires_grad_(True)
+               for t in (r, k, v, logw, u, s0)]
+        op, sp = rw.wkv6_scan(*ins[:3], ins[3].exp(), ins[4], ins[5])
+        loss = (op.float() * dout.float()).sum() + (sp * ds_t).sum()
+        plain = torch.autograd.grad(loss, ins)
+        torch.cuda.synchronize()
+        got = [out, s_t, *grads]
+        if not all(bool(torch.isfinite(t).all()) for t in got):
+            fail(f"wkv6 log w {log_w}: a non-finite output")
+        errs = {"out": _rel_err(out, op), "state": _rel_err(s_t, sp)}
+        for name, g, gp in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"),
+                               grads, plain):
+            errs[name] = _rel_err(g, gp)
+        bad = {n: e for n, e in errs.items() if not e <= tol}
+        if bad:
+            fail(f"wkv6 log w {log_w}: relative errors {bad} > {tol}")
+        print(f"wkv6 [chunked] {shape} bf16 constant log w {log_w} s0 "
+              f"given: finite, within {tol} of wkv6_scan (max rel "
+              f"{max(errs.values()):.2e}: "
+              + ", ".join(f"{n} {e:.1e}" for n, e in errs.items()) + ")")
 
 
 def check_small_training(torch, dev):
@@ -818,11 +920,14 @@ def run_training_path(torch, ops, train, protocol, dev, profile_int8):
     """C2P2SL training of rwkv6-3b at full width through the training
     CLI, wire none then int8.  Returns (rows per wire, launches); the
     int8 run's final state goes to ``profile_int8(result)`` after the
-    launch counts are read."""
+    launch counts are read.  Every WKV6 launch must take the chunked
+    route."""
+    from repro_torch.kernels import rwkv6 as rw
     from repro_torch.models.lm import LM
     from repro_torch.utils.trees import tree_leaves
     rows, launches, keep = {}, None, None
     ops.reset_launches()
+    rw.ROUTES.clear()
     for wire in ("none", "int8"):
         res = train.main(_train_argv(wire))
         torch.cuda.synchronize()
@@ -847,13 +952,19 @@ def run_training_path(torch, ops, train, protocol, dev, profile_int8):
               f"billed {billed:.0f}")
         if wire == "int8":
             launches = dict(ops.LAUNCHES)
+            routes = dict(rw.ROUTES)
             keep = res
         del res
         torch.cuda.empty_cache()
     for name in TRAINING_KERNELS:
         if launches.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the training path")
-    print(f"training-path launches: {json.dumps(launches, sort_keys=True)}")
+    want = {"wkv6:chunked": launches["wkv6"],
+            "wkv6_bwd:chunked": launches["wkv6_bwd"]}
+    if routes != want:
+        fail(f"training-path WKV6 routes {routes}, expected {want}")
+    print(f"training-path launches: {json.dumps(launches, sort_keys=True)}; "
+          f"WKV6 routes {json.dumps(routes, sort_keys=True)}")
     profile_int8(keep)
     del keep
     torch.cuda.empty_cache()
@@ -939,11 +1050,14 @@ def profile_training_step(torch, res):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     busy_us, rows, us = _kernel_us(prof.key_averages())
+    wkv = [e for e in rows if "wkv6" in e.key]
     print(f"profile training step (int8, traced): wall {wall:.3f} ms, "
           f"device busy {busy_us / 1e3:.3f} ms, idle share "
           f"{1 - busy_us / 1e3 / wall:.3f}, "
-          f"{sum(e.count for e in rows)} device operations")
-    for e in rows[:8]:
+          f"{sum(e.count for e in rows)} device operations; WKV6 kernels "
+          f"{sum(us(e) for e in wkv) / 1e3:.3f} ms in "
+          f"{sum(e.count for e in wkv)} launches")
+    for e in rows[:8] + [e for e in wkv if e not in rows[:8]]:
         print(f"  {us(e) / 1e3:9.3f} ms/step  {e.count:6d} calls/step  "
               f"{e.key[:70]}")
 
@@ -1006,7 +1120,7 @@ def profile_serving(torch, dev, arch, decode_steps):
 
 
 def time_kernels(torch, wc, fa, rw, rg, dev, serve_launches, rg_launches,
-                 train_launches, flash_err, wkv_err, rglru_err):
+                 train_launches, flash_err, wkv_err, rglru_err, ptxas):
     """Device time of every kernel at its main path's shape beside its
     plain version's, its bound and a library call where one exists.
     ``launches`` sums each kernel's count over the qwen serving and the
@@ -1074,22 +1188,45 @@ def time_kernels(torch, wc, fa, rw, rg, dev, serve_launches, rg_launches,
         "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
             *contig, is_causal=True))})
     print(rate_line(out[-1], 4 * dh * pairs))
-    out += time_wkv6(torch, rw, dev, launches, wkv_err)
+    out += time_wkv6(torch, rw, dev, launches, wkv_err, ptxas.get("wkv6", []))
     out += time_hybrid(torch, fa, rg, dev, rg_launches, flash_err[256],
                        rglru_err)
     return out
 
 
-def time_wkv6(torch, rw, dev, launches, wkv_err):
+def wkv6_products(b, s, h, dh=64, chunk=64, sub=16):
+    """bf16 tensor-core operations of the chunked route per call, from its
+    tiling (csrc/wkv6.cu, namespace chunked): (forward, backward).  Per
+    chunk of one (b, h), with dense [64, 64] x [64, 64] products counted at
+    2 * 64^3 and the triangular ones by their blocks:
+    forward: the state update, A's blocks left of the diagonal, A v, and
+    the state term; backward: both state updates, A's blocks and DV's, dr
+    (the state term twice: S_in as hi + lo) and its blocks, dk likewise,
+    and dv (A^T do and k_hat dS_out).  The pairwise diagonal blocks run on
+    the f32 pipes and are not counted here."""
+    n_sub = chunk // sub
+    dense = 2 * chunk * dh * dh
+    left = sum(2 * sub * sub * a * dh for a in range(n_sub))       # j < s_a
+    upto = sum(2 * sub * sub * (a + 1) * dh for a in range(n_sub))  # j < e_a
+    fwd = dense + left + upto + dense
+    bwd = 2 * dense + left + upto + (2 * dense + left) \
+        + (2 * dense + left) + (upto + dense)
+    chunks = b * h * -(-s // chunk)
+    return fwd * chunks, bwd * chunks
+
+
+def time_wkv6(torch, rw, dev, launches, wkv_err, ptxas):
     """WKV6 forward and backward at one micro-batch's call of the training
     path: [2, 512, 40, 64], bf16 r/k/v, f32 log-decay from the model's
-    init range.  Bounds: bytes read and written once at 3.35 TB/s against
-    the recurrence's f32 operations at 67 TFLOP/s — forward 5 per state
-    element per step (the r.S product and the w.S + k v update), backward
-    12 (state and adjoint recurrences, and the dr, dk, dv products)."""
+    init range, on the chunked route.  Bounds, for the chunked form: bytes
+    read and written once at 3.35 TB/s (forward 32.8 MB, backward 57.7 MB)
+    against its bf16 tensor-core products at 989 TFLOP/s
+    (``wkv6_products``); both are bound by the bytes.  Also printed, in the
+    same run and between CUDA events: the bf16 call and the f32 call,
+    which takes the SIMT kernels."""
     gen = torch.Generator(device=dev).manual_seed(8)
     b, s, h, dh = WKV_SHAPE
-    n, cells = b * s * h * dh, b * s * h * dh * dh
+    n = b * s * h * dh
     r, k, v = (torch.randn(WKV_SHAPE, generator=gen, device=dev)
                .to(torch.bfloat16) for _ in range(3))
     logw = -torch.exp(torch.rand(WKV_SHAPE, generator=gen, device=dev)
@@ -1101,32 +1238,58 @@ def time_wkv6(torch, rw, dev, launches, wkv_err):
     fwd_bytes = 3 * n * 2 + n * 4 + u_bytes + n * 2 + state_bytes
     bwd_bytes = 3 * n * 2 + n * 4 + u_bytes + n * 2 + 3 * n * 2 + n * 4 \
         + u_bytes
+    fwd_ops, bwd_ops = wkv6_products(b, s, h, dh)
     ins = [t.detach().clone().requires_grad_(True)
            for t in (r, k, v, logw, u)]
     op, _ = rw.wkv6_plain(*ins)
+    if rw.route(r.dtype, dh) != "chunked":
+        fail("the training call's WKV6 does not take the chunked route")
+    ptx = {kern: f"{used}; {spill}" for kern, used, spill in ptxas
+           if "chunked" in kern}
     out = []
-    b_ms, b_by = bound(fwd_bytes, 5 * cells, F32_OPS_S)
+    b_ms, b_by = bound(fwd_bytes, fwd_ops, BF16_OPS_S)
     out.append({
-        "name": "wkv6", "route": "cuda",
+        "name": "wkv6", "route": "cuda", "kernel_route": "chunked",
         "source": "src/repro_torch/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/rwkv6.py:64",
         "launches": launches.get("wkv6", 0), "max_abs_err": wkv_err[0],
         "ms": device_ms(lambda: rw.wkv6_fwd_cuda(r, k, v, logw, u)),
         "plain_ms": device_ms(lambda: rw.wkv6_plain(r, k, v, logw, u),
                               iters=5),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    b_ms, b_by = bound(bwd_bytes, 12 * cells, F32_OPS_S)
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "ptxas": {n_: v_ for n_, v_ in ptx.items()
+                  if "state" in n_ or "out_kernel" in n_}})
+    b_ms, b_by = bound(bwd_bytes, bwd_ops, BF16_OPS_S)
     out.append({
-        "name": "wkv6_bwd", "route": "cuda",
+        "name": "wkv6_bwd", "route": "cuda", "kernel_route": "chunked",
         "source": "src/repro_torch/csrc/wkv6.cu",
         "replaces": "src/repro/models/rwkv.py:95",   # no Pallas backward
-
         "launches": launches.get("wkv6_bwd", 0), "max_abs_err": wkv_err[1],
         "ms": device_ms(lambda: rw.wkv6_bwd_cuda(r, k, v, logw, u, None,
                                                  dout)),
         "plain_ms": device_ms(lambda: torch.autograd.grad(
             op, ins, dout, retain_graph=True), iters=5),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "ptxas": {n_: v_ for n_, v_ in ptx.items()
+                  if "state" in n_ or "grad_kernel" in n_}})
+    for row, ops_ in zip(out, (fwd_ops, bwd_ops)):
+        print(f"kernel {row['name']} [chunked]: {row['ms']:.4f} ms, "
+              f"{row['bound_ms'] / row['ms']:.3f} of its bound "
+              f"({row['bound_ms']:.4f} ms, {row['bound_by']}; "
+              f"{ops_ / 1e9:.3f} GFLOP of bf16 products), max abs err "
+              f"{row['max_abs_err']:.3e}")
+    # the f32 call (the SIMT kernels) in the same run, between CUDA events
+    # (its calls are long enough to hide the host's launch time), beside
+    # the bf16 call timed the same way
+    rf, kf, vf, df = (t.float() for t in (r, k, v, dout))
+    fwd = lambda *x: rw.wkv6_fwd_cuda(*x, logw, u)
+    bwd = lambda *x: rw.wkv6_bwd_cuda(*x[:3], logw, u, None, x[3])
+    both = lambda x: (cuda_ms(lambda: fwd(*x[:3])), cuda_ms(lambda: bwd(*x)))
+    chunked = both((r, k, v, dout))
+    f32 = both((rf, kf, vf, df))
+    print(f"wkv6 at {WKV_SHAPE} between events: bf16 chunked forward "
+          f"{chunked[0]:.4f} ms, backward {chunked[1]:.4f} ms; f32 (SIMT) "
+          f"{f32[0]:.4f} / {f32[1]:.4f} ms")
     return out
 
 
@@ -1300,8 +1463,9 @@ def main():
     t0 = time.perf_counter()
     built = build.build_all()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
-    for name, info in built.items():
-        for kernel, used, spill in ptxas_report(info["log"]):
+    ptxas = {name: ptxas_report(info["log"]) for name, info in built.items()}
+    for name, rows in ptxas.items():
+        for kernel, used, spill in rows:
             print(f"  ptxas {name}: {kernel}: {used}; {spill}")
 
     check_codec(torch, wc, dev)
@@ -1362,7 +1526,8 @@ def main():
     phase(f"{T_ARCH} training, profile and c2p2sl step")
 
     kernels = time_kernels(torch, wc, fa, rw, rg, dev, launches, rg_launches,
-                           train_launches, flash_err, wkv_err, rglru_err)
+                           train_launches, flash_err, wkv_err, rglru_err,
+                           ptxas)
     kernels += time_moe(torch, mg, fa, dev, gr_prefill, gr_launches, gmm_err,
                         flash_err[GR_HEADS[2]])
     for k in kernels:

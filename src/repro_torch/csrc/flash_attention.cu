@@ -30,11 +30,14 @@
 //   pre-scaled by 1/sqrt(dh) in f32.  At head dim 256 its tiles take
 //   213,760 B of shared memory (the opt-in limit is 232,448 B).
 // Both skip kv tiles wholly above the causal diagonal or wholly left of the
-// window, and schedule q tiles heaviest first.
+// window (unless a row of the block has no key: `first_tile`), and
+// schedule q tiles heaviest first.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_ptx.cuh"
 
 namespace {
 
@@ -71,6 +74,20 @@ __device__ __forceinline__ float row_sum(float v) {
 struct Strides {
   long long b, h, s;
 };
+
+// The first kv tile of a block of query rows q_first .. q_last: the tile
+// of the first row's window start, or tile 0 when some row of the block
+// has no key at all (q - window + 1 >= Skv).  Such a row scores every key
+// kMasked, so its softmax is the mean of V over all Skv keys, as in the
+// plain version, and the block must visit every tile; the rows of the
+// block that do have keys drop those tiles' weights when their first
+// unmasked score arrives (the running max rescales them by
+// exp(-1e30 - m) = 0).
+__device__ __forceinline__ int first_tile(int q_first, int q_last, int Skv,
+                                          int window, int tile) {
+  if (window <= 0 || q_last - window + 1 >= Skv) return 0;
+  return max(q_first - window + 1, 0) / tile;
+}
 
 template <int DH>
 constexpr size_t smem_bytes() {
@@ -124,8 +141,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   int kt_end = (Skv + kBK - 1) / kBK;
   if (causal) kt_end = min(kt_end, (min(q0 + kBQ, Sq) - 1) / kBK + 1);
-  int kt_begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / kBK;
+  const int kt_begin =
+      first_tile(q0, min(q0 + kBQ, Sq) - 1, Skv, window, kBK);
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBK;
@@ -250,6 +267,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // does: the bf16 contract is 5e-2 absolute against the plain version.
 namespace mma {
 
+using namespace ptx;
+
 constexpr int kWarps = 4;
 constexpr int kRows = 16 * kWarps;  // query rows per block
 constexpr int kThreadsMma = 32 * kWarps;
@@ -263,55 +282,14 @@ struct Cfg {
   static constexpr int SMEM = (kRows + 4 * BK) * DH * 2;  // Q + 2 x (K, V)
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // Element offset of 16-byte chunk c of row r in a [rows][DH] tile.
 template <int DH>
 __device__ __forceinline__ int swz(int r, int c) {
   return r * DH + ((c ^ (r & Cfg<DH>::MASK)) << 3);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a (16 x 16, row) b (16 x 8, col), bf16 in, f32 sums.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  const __nv_bfloat162 v = pack2(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
@@ -366,8 +344,8 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
 
   int kt_end = (Skv + BK - 1) / BK;
   if (causal) kt_end = min(kt_end, (min(q0 + kRows, Sq) - 1) / BK + 1);
-  int kt_begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+  const int kt_begin =
+      first_tile(q0, min(q0 + kRows, Sq) - 1, Skv, window, BK);
 
   load_tile<DH, kRows>(Qs, qp, qs.s, q0, Sq);
   cp_commit();

@@ -4,9 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds).  Builds happen at first use, go to
 ``build/repro_torch/`` at the root of the checkout, and are cached by a
-hash of the source and the flags; ``build_all`` starts one ``nvcc`` per
-source at once.  Every C entry point returns ``cudaGetLastError()``;
-``check`` raises when it is not 0.
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags;
+``build_all`` starts one ``nvcc`` per source at once.  Every C entry
+point returns ``cudaGetLastError()``; ``check`` raises when it is not 0.
 """
 from __future__ import annotations
 
@@ -39,7 +39,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The cached library of ``csrc/<name>.cu``, keyed by the source, the
+    headers of ``csrc`` (which a source may include) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

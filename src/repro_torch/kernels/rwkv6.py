@@ -16,11 +16,18 @@ final state [B, H, dh, dh] f32).
 The kernels (``csrc/wkv6.cu``) take the decay as ``logw = log w``, so the
 backward kernel returns d log w, which stays finite where w underflows.
 ``wkv6_fwd_cuda`` / ``wkv6_bwd_cuda`` launch them; ``kernels/ops.py`` wires
-them into autograd.  ``wkv6_plain`` is what a CPU tensor takes: the
+them into autograd.  ``route`` picks the kernels before the launch:
+``"chunked"`` (bf16 at head dim 64 with 16-byte aligned bases: the
+chunked form on the tensor cores, two launches forward, and two backward
+plus the sum of du's per-chunk partials) or ``"simt"`` (f32, which keeps
+the 1e-4 contract, and the other bf16 calls: the step-by-step scan);
+``ROUTES`` counts the launches of each, as ``"wkv6:<route>"`` and
+``"wkv6_bwd:<route>"``.  ``wkv6_plain`` is what a CPU tensor takes: the
 reference's dispatch, ``wkv6_scan`` for S <= 64 and ``wkv6_chunked`` above.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -30,6 +37,20 @@ from repro_torch.kernels import build
 WKV_CHUNK = 64
 HEAD_DIMS = (16, 32, 64)                # instantiated in the CUDA source
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTE_IDS = {"simt": 0, "chunked": 1}
+ROUTES: collections.Counter = collections.Counter()
+
+
+def route(dtype, dh, data_ptrs=()) -> str:
+    """The kernel route for r, k, v (and dout) of ``dtype`` at head dim
+    ``dh``: the tensor-core kernels take bf16 at dh 64 whose bases (in
+    ``data_ptrs``) are 16-byte aligned, as ``cp.async`` loads them.  A
+    pure function of its arguments: it launches nothing."""
+    if dtype != torch.bfloat16 or dh != 64:
+        return "simt"
+    if any(p % 16 for p in data_ptrs):
+        return "simt"
+    return "chunked"
 
 
 # ---------------------------------------------------------------- plain
@@ -108,8 +129,8 @@ def wkv6_plain(r, k, v, logw, u, s0=None):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "wkv6_fwd": [_P] * 8 + [_I] * 6 + [_P],
-    "wkv6_bwd": [_P] * 17 + [_I] * 6 + [_P],
+    "wkv6_fwd": [_P] * 9 + [_I] * 7 + [_P],
+    "wkv6_bwd": [_P] * 19 + [_I] * 7 + [_P],
 }
 
 
@@ -147,40 +168,64 @@ def _check_inputs(r, k, v, logw, u, s0):
     return b, s, h, dh
 
 
+def _route_of(*tensors):
+    return route(tensors[0].dtype, tensors[0].shape[-1],
+                 [t.data_ptr() for t in tensors])
+
+
+def _states(b, s, h, dh, device):
+    """Scratch of the chunked route: the state at every chunk boundary."""
+    return torch.empty((b, h, -(-s // WKV_CHUNK) + 1, dh, dh),
+                       dtype=torch.float32, device=device)
+
+
 def wkv6_fwd_cuda(r, k, v, logw, u, s0=None):
-    """Launch the forward kernel.  -> (out like r, final state f32)."""
+    """Launch the forward kernels on the route ``route`` picks (counted in
+    ``ROUTES``).  -> (out like r, final state f32)."""
     b, s, h, dh = _check_inputs(r, k, v, logw, u, s0)
+    how = _route_of(r, k, v, logw)
     out = torch.empty_like(r)
     s_t = torch.empty((b, h, dh, dh), dtype=torch.float32, device=r.device)
+    states = _states(b, s, h, dh, r.device) if how == "chunked" else None
     code = _lib().wkv6_fwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
         u.data_ptr(), _ptr(s0), out.data_ptr(), s_t.data_ptr(),
-        b, s, h, dh, _DTYPES[r.dtype], r.device.index, build.stream_of(r))
-    build.check("wkv6", code, "wkv6_fwd launch")
+        _ptr(states), b, s, h, dh, _DTYPES[r.dtype], _ROUTE_IDS[how],
+        r.device.index, build.stream_of(r))
+    build.check("wkv6", code, f"wkv6_fwd launch ({how})")
+    ROUTES[f"wkv6:{how}"] += 1
     return out, s_t
 
 
 def wkv6_bwd_cuda(r, k, v, logw, u, s0, dout, ds_t=None):
-    """Launch the backward kernels.  ``dout`` is the gradient of ``out``
-    (cast to r's dtype), ``ds_t`` that of the final state or None.
+    """Launch the backward kernels on the route ``route`` picks (counted
+    in ``ROUTES``).  ``dout`` is the gradient of ``out`` (cast to r's
+    dtype), ``ds_t`` that of the final state or None.
     -> (dr, dk, dv like r, dlogw f32, du [H, dh] f32, ds0 f32 or None)."""
     b, s, h, dh = _check_inputs(r, k, v, logw, u, s0)
     dout = dout.to(r.dtype).contiguous()
     if ds_t is not None:
         ds_t = ds_t.to(torch.float32).contiguous()
+    how = _route_of(r, k, v, logw, dout)
     f32 = dict(dtype=torch.float32, device=r.device)
     dr, dk, dv = torch.empty_like(r), torch.empty_like(r), torch.empty_like(r)
     dlogw = torch.empty_like(logw)
-    du_part = torch.empty((b, h, dh), **f32)
     ds0 = None if s0 is None else torch.empty((b, h, dh, dh), **f32)
-    p, q = torch.empty((b, s, h, dh), **f32), torch.empty((b, s, h, dh), **f32)
-    f = torch.empty((b, h, dh), **f32)
+    p = q = f = states = dstates = None
+    if how == "chunked":               # du per (b, chunk)
+        du_part = torch.empty((b * -(-s // WKV_CHUNK), h, dh), **f32)
+        states, dstates = (_states(b, s, h, dh, r.device) for _ in range(2))
+    else:                              # du per batch; P, Q, F of the scan
+        du_part = torch.empty((b, h, dh), **f32)
+        p, q = (torch.empty((b, s, h, dh), **f32) for _ in range(2))
+        f = torch.empty((b, h, dh), **f32)
     code = _lib().wkv6_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
         u.data_ptr(), _ptr(s0), dout.data_ptr(), _ptr(ds_t),
         dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(),
-        du_part.data_ptr(), _ptr(ds0), p.data_ptr(), q.data_ptr(),
-        f.data_ptr(), b, s, h, dh, _DTYPES[r.dtype], r.device.index,
-        build.stream_of(r))
-    build.check("wkv6", code, "wkv6_bwd launch")
+        du_part.data_ptr(), _ptr(ds0), _ptr(p), _ptr(q), _ptr(f),
+        _ptr(states), _ptr(dstates), b, s, h, dh, _DTYPES[r.dtype],
+        _ROUTE_IDS[how], r.device.index, build.stream_of(r))
+    build.check("wkv6", code, f"wkv6_bwd launch ({how})")
+    ROUTES[f"wkv6_bwd:{how}"] += 1
     return dr, dk, dv, dlogw, du_part.sum(dim=0), ds0

@@ -140,6 +140,8 @@ WKV_CASES = [  # (b, s, h, dh, strong decay, initial state)
     (2, 128, 3, 32, True, False),
     (1, 70, 2, 16, False, True),
     (2, 64, 3, 64, True, True),
+    (1, 130, 3, 64, False, True),    # ragged third chunk, an initial state
+    (2, 200, 2, 64, True, False),
 ]
 
 
@@ -169,12 +171,15 @@ def test_wkv6_kernels_match_plain(case, dt, tol):
     *shape, strong, with_s0 = case
     r, k, v, logw, u, s0 = _wkv_inputs(dev, *shape, strong, with_s0,
                                        TORCH_DT[dt])
+    rw.ROUTES.clear()
     out, s_t = rw.wkv6_fwd_cuda(r, k, v, logw, u, s0)
     g = torch.Generator(device=dev).manual_seed(1)
     dout = torch.randn(out.shape, generator=g, device=dev).to(out.dtype)
     ds_t = torch.randn(s_t.shape, generator=g, device=dev) \
         if with_s0 else None
     grads = rw.wkv6_bwd_cuda(r, k, v, logw, u, s0, dout, ds_t)
+    how = rw.route(r.dtype, shape[-1])
+    assert dict(rw.ROUTES) == {f"wkv6:{how}": 1, f"wkv6_bwd:{how}": 1}
     ins = [t.clone().requires_grad_(True) for t in (r, k, v, logw, u)]
     s0p = s0.clone().requires_grad_(True) if with_s0 else None
     op, sp = rw.wkv6_plain(*ins, s0p)
@@ -185,6 +190,83 @@ def test_wkv6_kernels_match_plain(case, dt, tol):
     assert _rel(out, op) <= tol and _rel(s_t, sp) <= tol
     for got, want in zip(grads, plain):
         assert _rel(got, want) <= tol
+
+
+@pytest.mark.parametrize("log_w", [-5.0, -20.0])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_wkv6_chunked_takes_strong_decay(log_w, with_s0):
+    """Constant log w of -5 and -20, where the reference's single-level
+    chunked form (and so ``wkv6_plain``) overflows: the chunked kernels
+    against ``wkv6_scan`` and its autograd, finite and within 1e-2 of the
+    largest value."""
+    dev = cuda_device()
+    b, s, h, dh = 2, 130, 3, 64
+    r, k, v, _, u, s0 = _wkv_inputs(dev, b, s, h, dh, False, with_s0,
+                                    torch.bfloat16, seed=2)
+    logw = torch.full((b, s, h, dh), log_w, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    dout = torch.randn((b, s, h, dh), generator=g, device=dev).to(
+        torch.bfloat16)
+    ds_t = torch.randn((b, h, dh, dh), generator=g, device=dev) \
+        if with_s0 else None
+    rw.ROUTES.clear()
+    out, s_t = rw.wkv6_fwd_cuda(r, k, v, logw, u, s0)
+    grads = rw.wkv6_bwd_cuda(r, k, v, logw, u, s0, dout, ds_t)
+    assert dict(rw.ROUTES) == {"wkv6:chunked": 1, "wkv6_bwd:chunked": 1}
+    ins = [t.clone().requires_grad_(True) for t in (r, k, v, logw, u)]
+    s0p = s0.clone().requires_grad_(True) if with_s0 else None
+    op, sp = rw.wkv6_scan(*ins[:3], ins[3].exp(), ins[4], s0p)
+    loss = (op.float() * dout.float()).sum()
+    if with_s0:
+        loss = loss + (sp * ds_t).sum()
+    plain = torch.autograd.grad(loss, ins + ([s0p] if with_s0 else []))
+    got = [out, s_t] + [t for t in grads if t is not None]
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert _rel(out, op) <= 1e-2 and _rel(s_t, sp) <= 1e-2
+    for x, want in zip(grads, plain):
+        assert _rel(x, want) <= 1e-2
+
+
+def test_wkv6_misaligned_bf16_takes_simt():
+    """bf16 r at head dim 64 whose base is 2 bytes off 16 (cp.async moves
+    16 aligned bytes): the SIMT kernels, forward and backward, within the
+    same 1e-2 of the plain version."""
+    dev = cuda_device()
+    r, k, v, logw, u, s0 = _wkv_inputs(dev, 2, 96, 4, 64, False, True,
+                                       torch.bfloat16, seed=4)
+    buf = torch.empty(r.numel() + 1, dtype=r.dtype, device=dev)
+    r = buf[1:].view(r.shape).copy_(r)
+    g = torch.Generator(device=dev).manual_seed(5)
+    dout = torch.randn(r.shape, generator=g, device=dev).to(torch.bfloat16)
+    ds_t = torch.randn(s0.shape, generator=g, device=dev)
+    rw.ROUTES.clear()
+    out, s_t = rw.wkv6_fwd_cuda(r, k, v, logw, u, s0)
+    grads = rw.wkv6_bwd_cuda(r, k, v, logw, u, s0, dout, ds_t)
+    assert dict(rw.ROUTES) == {"wkv6:simt": 1, "wkv6_bwd:simt": 1}
+    ins = [t.clone().requires_grad_(True) for t in (r, k, v, logw, u, s0)]
+    op, sp = rw.wkv6_plain(*ins)
+    loss = (op.float() * dout.float()).sum() + (sp * ds_t).sum()
+    plain = torch.autograd.grad(loss, ins)
+    assert _rel(out, op) <= 1e-2 and _rel(s_t, sp) <= 1e-2
+    for x, want in zip(grads, plain):
+        assert _rel(x, want) <= 1e-2
+
+
+def test_wkv6_chunked_backward_is_reproducible():
+    """du is summed from per-(batch, chunk) partials in a fixed order, so
+    two backward calls on the same inputs give the same bits."""
+    dev = cuda_device()
+    r, k, v, logw, u, s0 = _wkv_inputs(dev, 2, 200, 3, 64, False, True,
+                                       torch.bfloat16, seed=6)
+    g = torch.Generator(device=dev).manual_seed(7)
+    dout = torch.randn(r.shape, generator=g, device=dev).to(torch.bfloat16)
+    ds_t = torch.randn(s0.shape, generator=g, device=dev)
+    rw.ROUTES.clear()
+    first = rw.wkv6_bwd_cuda(r, k, v, logw, u, s0, dout, ds_t)
+    second = rw.wkv6_bwd_cuda(r, k, v, logw, u, s0, dout, ds_t)
+    assert dict(rw.ROUTES) == {"wkv6_bwd:chunked": 2}
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 def test_wkv6_autograd_counts_forward_and_backward_launches():
@@ -491,3 +573,32 @@ def test_flash_misaligned_bf16_takes_simt():
     assert dict(fa.ROUTES) == {"simt": 1}
     op = fa.attention_plain(q, k, v, causal=True)
     assert float((o.float() - op.float()).abs().max()) <= 5e-2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dt,misaligned", [("float32", False),
+                                           ("bfloat16", False),
+                                           ("bfloat16", True)])
+def test_flash_rows_without_keys_take_the_mean_of_v(causal, dt, misaligned):
+    """Sq >= Skv + window: query rows 143-255 of q [1, 1, 256, 64] against
+    k/v [1, 1, 128, 64] under window 16 have no key, so the plain version
+    gives each the mean of V over all 128 keys; the rows that do have keys
+    share their blocks.  Both routes (bf16 forced onto SIMT by a q whose
+    base is 2 bytes off) within 2e-4 (f32) / 5e-2 (bf16)."""
+    dev = cuda_device()
+    dtype = TORCH_DT[dt]
+    g = torch.Generator(device=dev).manual_seed(5)
+    n = 256 * 64
+    buf = torch.randn(n + 1, generator=g, device=dev).to(dtype)
+    q = (buf[1:] if misaligned else buf[:n]).view(1, 1, 256, 64)
+    k, v = (torch.randn((1, 1, 128, 64), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    fa.ROUTES.clear()
+    o = fa.flash_attention_cuda(q, k, v, causal=causal, window=16)
+    want = "mma" if dt == "bfloat16" and not misaligned else "simt"
+    assert dict(fa.ROUTES) == {want: 1}
+    op = fa.attention_plain(q, k, v, causal=causal, window=16)
+    tol = 2e-4 if dt == "float32" else 5e-2
+    assert float((o.float() - op.float()).abs().max()) <= tol
+    mean = v.float().mean(dim=2)[0, 0]
+    assert float((o[0, 0, 200].float() - mean).abs().max()) <= tol

@@ -232,3 +232,15 @@ def test_build_cache_key_tracks_source():
     assert p.parent == build.BUILD_DIR and p.suffix == ".so"
     assert p.name.startswith("wire_codec-")
     assert p != build.library_path("flash_attention")
+
+
+def test_build_cache_key_tracks_shared_headers(monkeypatch, tmp_path):
+    """A source that includes a header of csrc rebuilds when the header
+    changes."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = build.library_path("k")
+    assert build.library_path("k") == before
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert build.library_path("k") != before

@@ -205,6 +205,31 @@ def test_kernel_backward_decomposition_matches_autograd(strong):
         torch.testing.assert_close(g, wnt, rtol=1e-9, atol=1e-9)
 
 
+@pytest.mark.parametrize("log_w,finite", [(-1.3, True), (-1.4, False)])
+def test_single_level_chunked_form_overflows_past_88(log_w, finite):
+    """ROADMAP Queue 3, fault 7: the reference's chunked form splits the
+    intra-chunk decay around m = L_C / 2, so once a chunk's cumulative
+    log-decay |L_C| passes ~88 (64 steps of log w = -1.4: 89.6) the masked
+    j > t entries are inf * 0 = NaN.  Pinned at [1, 65, 1, 16], the
+    smallest input that takes the chunked path (S > 64): the JAX
+    ``wkv6_chunked`` and the port's ``wkv6_plain`` agree on it, and the
+    step-by-step scans of both stay finite.  The port's chunked CUDA route
+    (two-level factors, no positive exponent) is held to the scan at
+    log w = -5 and -20 in tests/test_torch_cuda.py."""
+    r, k, v, _, u, _ = _inputs(1, 65, 1, 16, seed=0)
+    logw = np.full(r.shape, log_w, np.float32)
+    w = np.exp(logw)
+    ro, rst = _ref_run(ref_rwkv.wkv6_chunked, *map(_j, (r, k, v, w, u)))
+    po, pst = rw.wkv6_plain(*map(_t, (r, k, v, logw, u)))
+    assert bool(np.isfinite(np.asarray(ro)).all()) is finite
+    assert bool(torch.isfinite(po).all()) is finite
+    assert bool(np.isfinite(np.asarray(rst)).all())
+    for out, st_ in (rw.wkv6_scan(*map(_t, (r, k, v, w, u))),
+                     _ref_run(ref_rwkv.wkv6_scan, *map(_j, (r, k, v, w, u)))):
+        assert bool(np.isfinite(np.asarray(out)).all())
+        assert bool(np.isfinite(np.asarray(st_)).all())
+
+
 def test_cpu_dispatch_takes_the_plain_version_and_counts_nothing():
     args = [_t(a) for a in _inputs(1, 20, 2, 16)]
     args[3] = args[3].log()
