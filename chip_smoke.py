@@ -10,14 +10,19 @@ Phases (any failure exits non-zero; nothing is caught):
      ptxas' registers, shared memory and spills;
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes: the wire codec bit for bit (int8 and fp8, bf16 and
-     f32 inputs, d = 2560 and 96 and 200), flash attention within 2e-4 (f32)
+     f32 inputs, d = 2560 and 96 and 200; each decode on the route
+     wire_codec.decode_route names, "warp256" at b = 256 and "strided"
+     for the rest and for a payload based 1 byte off), flash attention within 2e-4 (f32)
      and 5e-2 (bf16), causal, GQA and sliding-window, head dims 128 and 256
      (recurrentgemma's 10 q heads on one kv head, window 2048, at S = 512
      and at S = 3072 where the window bites), query rows without any key
      (Sq 256 against Skv 128 under window 16: the mean of V) on both
      routes, flash and RG-LRU refusing autograd; the RG-LRU scan within
      2e-4 (f32) / 1e-2 (bf16) of its plain version relative to the largest
-     value ([4, 512, 2560] with and without h0, and ragged [3, 300, 200]);
+     value ([4, 512, 2560] with and without h0, ragged [3, 300, 200], S =
+     1, 63, 64, 65 and 0, [1, 4096, 2560] (64 chunks chained by
+     look-back), log a in (-20, 0), two calls in a row on different
+     inputs; two calls on the same inputs bit for bit);
      the WKV6 forward and backward kernels against the plain version's
      forward and autograd (the training shape in bf16 and f32, S = 96,
      strong decay, a given initial state, ragged S = 130; bf16 at head dim
@@ -47,7 +52,9 @@ Phases (any failure exits non-zero; nothing is caught):
         split inference at cut 20 over a loopback socket for none, int8 and
         fp8.  Measured payload bytes must equal billed bytes, there must be
         gen + 1 uplink frames, 'none' split tokens must equal the static
-        tokens bit for bit, and every serving kernel must have launched;
+        tokens bit for bit, and every serving kernel must have launched,
+        every decode on route "warp256" (the codec's calls are counted by
+        shape: prefill hop and decode steps);
      b. serving recurrentgemma-2b (26 layers: 18 RG-LRU, 8 local attention
         with window 2048; tied embeddings; batch 4, prompt 512, 32 greedy
         tokens) through the same entry point: tokens in range, exactly 18
@@ -78,15 +85,20 @@ Phases (any failure exits non-zero; nothing is caught):
      top kernels, the WKV6 kernels' total); per kernel its device time, its
      plain version's, its bound and the library yardstick where one
      PyTorch call computes the same function (torch.bmm for moe_gmm, SDPA
-     for flash); for moe_gmm and flash also the achieved TFLOP/s and the
-     share of the bound; for WKV6 the route, ptxas' registers and spills
-     of the chunked kernels, and the f32 call's (SIMT) time in the same run.
+     for flash, torch.mul for the int8 decode); the codec at each shape
+     the main paths coded (qwen's prefill hop and decode steps, the
+     training hop), each row with the launches at its shape; for moe_gmm
+     and flash also the achieved TFLOP/s and the share of the bound; for
+     WKV6 and the RG-LRU scan the route, ptxas' registers and spills, and
+     for WKV6 the f32 call's (SIMT) time in the same run.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import math
 import os
@@ -181,6 +193,29 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return total_us / iters / 1e3
 
 
+L2_BYTES = 50e6                                  # H100's L2 cache
+
+
+def cold_ms(fn, args, nbytes: int, iters: int = 20) -> float:
+    """``device_ms`` of ``fn(*args)`` as a caller whose data is not in L2
+    would see it: the call runs on copies of ``args`` in turn (enough that
+    they pass twice the L2's 50 MB at ``nbytes`` a call, at most 64) and
+    keeps every result until the window ends, so no call reads what an
+    earlier one left in L2 or writes into lines it left dirty there."""
+    import torch
+    n = min(64, max(2, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
+    copies = [args] + [tuple(a.clone() if torch.is_tensor(a) else a
+                             for a in args) for _ in range(n - 1)]
+    keep, turn = [], [0]
+
+    def call():
+        keep.append(fn(*copies[turn[0] % n]))
+        turn[0] += 1
+    ms = device_ms(call, iters=iters)
+    del keep, copies
+    return ms
+
+
 def ptxas_report(log: str):
     """One (kernel, resources, spills) triple per function in a ``ptxas
     -v`` log: registers, barriers and shared memory from its "Used" line,
@@ -226,14 +261,19 @@ def bound(nbytes: float, ops: float, ops_rate: float):
 
 
 def check_codec(torch, wc, dev):
-    """Encode/decode kernels against their plain versions, bit for bit."""
+    """Encode/decode kernels against their plain versions, bit for bit;
+    each decode on the route ``wire_codec.decode_route`` names (b = 256
+    on "warp256", the rest and a payload view 1 byte off on "strided")."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    cases = [((BATCH * PROMPT, 2560), torch.bfloat16),
-             ((BATCH, 2560), torch.bfloat16),
-             ((37, 96), torch.bfloat16),
-             ((3, 11, 96), torch.float32),
-             ((33, 200), torch.float32)]
-    for shape, dt in cases:
+    # (shape, dtype, payload based 1 byte off)
+    cases = [((BATCH * PROMPT, 2560), torch.bfloat16, False),
+             ((BATCH, 2560), torch.bfloat16, False),
+             ((BATCH * PROMPT, 2560), torch.float32, True),
+             ((BATCH, 2560), torch.bfloat16, True),
+             ((37, 96), torch.bfloat16, False),
+             ((3, 11, 96), torch.float32, False),
+             ((33, 200), torch.float32, False)]
+    for shape, dt, misaligned in cases:
         x = (torch.randn(shape, generator=gen, device=dev) * 3).to(dt)
         x.view(-1, shape[-1])[0, :wc.wire_block(shape[-1])] = 0  # zero block
         for wire in ("int8", "fp8"):
@@ -246,14 +286,24 @@ def check_codec(torch, wc, dev):
                 fail(f"wire_encode {wire} {shape} {dt}: {int(bad)} payload "
                      f"bytes differ, max scale diff "
                      f"{float((s - sp).abs().max())}")
+            if misaligned:
+                buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+                q = buf[1:].view(q.shape).copy_(q)
+            want = "warp256" if q.shape[-1] == 256 and not misaligned \
+                else "strided"
+            wc.ROUTES.clear()
             y = wc.decode_cuda(q, s, dt)
             yp = wc.decode_plain(q, s, dt)
             torch.cuda.synchronize()
+            if dict(wc.ROUTES) != {want: 1}:
+                fail(f"wire_decode {wire} {shape} {dt}: routes "
+                     f"{dict(wc.ROUTES)}, expected {want}")
             if not torch.equal(y, yp):
-                fail(f"wire_decode {wire} {shape} {dt}: max diff "
+                fail(f"wire_decode {wire} {shape} {dt} [{want}]: max diff "
                      f"{float((y.float() - yp.float()).abs().max())}")
             print(f"codec {wire:4s} {str(tuple(shape)):14s} "
-                  f"{str(dt):15s} bit-exact")
+                  f"{str(dt):15s} bit-exact, decode [{want}]"
+                  f"{' payload 1 byte off' if misaligned else ''}")
 
 
 def check_flash(torch, fa, dev):
@@ -346,31 +396,66 @@ def check_rglru(torch, rg, dev):
     """RG-LRU scan kernel against its plain version, relative to the
     largest value: 2e-4 in f32 (the reference's bound on its own kernel),
     1e-2 in bf16 (h and h_last rounded to bf16).  log a is drawn from the
-    model's range, -8 softplus(lambda) r in (-0.105, 0).  Returns the max
-    abs error of h at the model's call (f32, no h0)."""
+    model's range, -8 softplus(lambda) r in (-0.105, 0), or from (-20, 0)
+    (strong decay).  Shapes: the model's call, ragged S and R, S = 1,
+    CHUNK - 1, CHUNK, CHUNK + 1 and 0, and [1, 4096, 2560] (64 chunks
+    chained by look-back).  Then two calls in a row on different inputs,
+    each held to the plain version (no stale flag is read), and two calls
+    on the same inputs, bit for bit.  Returns the max abs error of h at the
+    model's call (f32, no h0)."""
     gen = torch.Generator(device=dev).manual_seed(9)
-    cases = [(RG_SHAPE, torch.float32, False), (RG_SHAPE, torch.float32, True),
-             (RG_SHAPE, torch.bfloat16, False),
-             (RG_SHAPE, torch.bfloat16, True),
-             ((3, 300, 200), torch.float32, True),
-             ((3, 300, 200), torch.bfloat16, False)]
+    f32, bf16, c = torch.float32, torch.bfloat16, rg.CHUNK
+    # (shape, dtype, h0 given, log a span)
+    cases = [(RG_SHAPE, f32, False, 0.105), (RG_SHAPE, f32, True, 0.105),
+             (RG_SHAPE, bf16, False, 0.105), (RG_SHAPE, bf16, True, 0.105),
+             ((3, 300, 200), f32, True, 0.105),
+             ((3, 300, 200), bf16, False, 0.105),
+             ((2, 1, 70), f32, True, 0.105), ((2, c - 1, 70), f32, False, 0.105),
+             ((2, c, 70), bf16, True, 0.105), ((2, c + 1, 130), f32, True, 0.105),
+             ((2, 0, 70), f32, True, 0.105), ((2, 0, 70), bf16, False, 0.105),
+             ((1, 4096, 2560), f32, True, 0.105),
+             ((2, 300, 130), f32, True, 20.0), ((2, 300, 130), bf16, True, 20.0)]
     main = None
-    for shape, dt, with_h0 in cases:
+
+    def inputs(shape, dt, with_h0, span):
         x = torch.randn(shape, generator=gen, device=dev).to(dt)
-        la = (-0.105 * torch.rand(shape, generator=gen, device=dev)).to(dt)
+        la = (-span * torch.rand(shape, generator=gen, device=dev)).to(dt)
         h0 = torch.randn((shape[0], shape[2]), generator=gen, device=dev) \
             if with_h0 else None
+        return x, la, h0
+
+    def held(name, dt, got, want):
+        (h, last), (hp, lastp) = got, want
+        tol = RGLRU_TOL[str(dt).split(".")[-1]]
+        err = max(_rel_err(h, hp) if h.numel() else 0.0,
+                  _rel_err(last, lastp))
+        if not (err <= tol and h.dtype == last.dtype == dt
+                and h.shape == hp.shape):
+            fail(f"{name}: max rel err {err} > {tol} (or dtype {h.dtype}, "
+                 f"shape {tuple(h.shape)})")
+        print(f"{name}: max rel err {err:.3e} (tol {tol})")
+
+    for shape, dt, with_h0, span in cases:
+        x, la, h0 = inputs(shape, dt, with_h0, span)
         h, last = rg.rglru_cuda(x, la, h0)
         hp, lastp = rg.rglru_plain(x, la, h0)
         torch.cuda.synchronize()
-        tol = RGLRU_TOL[str(dt).split(".")[-1]]
-        err = max(_rel_err(h, hp), _rel_err(last, lastp))
-        name = f"rglru {shape} {dt}{' h0 given' if with_h0 else ''}"
-        if not (err <= tol and h.dtype == last.dtype == dt):
-            fail(f"{name}: max rel err {err} > {tol} (or dtype {h.dtype})")
-        print(f"{name}: max rel err {err:.3e} (tol {tol})")
-        if shape == RG_SHAPE and dt == torch.float32 and not with_h0:
+        held(f"rglru {shape} {dt}{' h0 given' if with_h0 else ''}"
+             f"{' log a in (-20, 0)' if span > 1 else ''}", dt, (h, last),
+             (hp, lastp))
+        if shape == RG_SHAPE and dt == f32 and not with_h0:
             main = float((h - hp).abs().max())
+    ins = [inputs(RG_SHAPE, f32, True, 0.105) for _ in range(2)]
+    outs = [rg.rglru_cuda(*i) for i in ins]
+    for k, (i, o) in enumerate(zip(ins, outs)):
+        held(f"rglru {RG_SHAPE} back-to-back call {k + 1} of 2", f32, o,
+             rg.rglru_plain(*i))
+    again = rg.rglru_cuda(*ins[1])
+    torch.cuda.synchronize()
+    if not (torch.equal(again[0], outs[1][0])
+            and torch.equal(again[1], outs[1][1])):
+        fail("rglru: two calls on the same inputs differ")
+    print(f"rglru {RG_SHAPE}: two calls on the same inputs, same bits")
     return main
 
 
@@ -769,19 +854,69 @@ def check_small_training(torch, dev):
 # ------------------------------------------------------------------ phase 4
 
 
-def run_main_path(torch, ops, serve):
+@contextlib.contextmanager
+def codec_calls(wc):
+    """Count each launching call of the codec kernels' wrappers while the
+    block runs, under (kernel, rows, d, activation dtype name, wire): the
+    codec's launches split by shape.  Yields the Counter."""
+    calls = collections.Counter()
+    enc, dec = wc.encode_cuda, wc.decode_cuda
+
+    def name(dtype):
+        return str(dtype).split(".")[-1]
+
+    def encode(x, wire_dtype):
+        if x.numel():
+            calls[("wire_encode", x.numel() // x.shape[-1], x.shape[-1],
+                   name(x.dtype), wire_dtype)] += 1
+        return enc(x, wire_dtype)
+
+    def decode(q, scale, out_dtype):
+        if q.numel():
+            d = q.shape[-2] * q.shape[-1]
+            calls[("wire_decode", q.numel() // d, d, name(out_dtype),
+                   "int8" if name(q.dtype) == "int8" else "fp8")] += 1
+        return dec(q, scale, out_dtype)
+
+    wc.encode_cuda, wc.decode_cuda = encode, decode
+    try:
+        yield calls
+    finally:
+        wc.encode_cuda, wc.decode_cuda = enc, dec
+
+
+def check_codec_calls(wc, where, launches, calls, routes):
+    """The shape counts cover every codec launch, and every decode took
+    the vector route (d_model 2560: b = 256)."""
+    for kernel in ("wire_encode", "wire_decode"):
+        n = sum(v for k, v in calls.items() if k[0] == kernel)
+        if n != launches.get(kernel, 0):
+            fail(f"{where}: {n} {kernel} calls recorded by shape, "
+                 f"{launches.get(kernel, 0)} launches")
+    if routes != {"warp256": launches.get("wire_decode", 0)}:
+        fail(f"{where}: decode routes {routes}, expected every one of "
+             f"{launches.get('wire_decode', 0)} on warp256")
+    print(f"{where}: codec launches by (kernel, rows, d, dtype, wire): "
+          + "; ".join(f"{k}: {v}" for k, v in sorted(calls.items()))
+          + f"; decode routes {routes}")
+
+
+def run_main_path(torch, ops, serve, wc):
     base = ["--arch", ARCH, "--size", "full", "--batch", str(BATCH),
             "--prompt-len", str(PROMPT), "--gen", str(GEN),
             "--seed", str(SEED)]
     from repro_torch.kernels import flash_attention as fa
     ops.reset_launches()
     fa.ROUTES.clear()
-    static = serve.main(base)
-    split = {w: serve.main(base + ["--split-cut", str(CUT),
-                                   "--wire-dtype", w])
-             for w in ("none", "int8", "fp8")}
+    wc.ROUTES.clear()
+    with codec_calls(wc) as calls:
+        static = serve.main(base)
+        split = {w: serve.main(base + ["--split-cut", str(CUT),
+                                       "--wire-dtype", w])
+                 for w in ("none", "int8", "fp8")}
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
+    check_codec_calls(wc, "serving path", launches, calls, dict(wc.ROUTES))
     toks = static["tokens"]
     if tuple(toks.shape) != (BATCH, GEN) or int(toks.min()) < 0:
         fail(f"static tokens {tuple(toks.shape)} out of range")
@@ -803,7 +938,7 @@ def run_main_path(torch, ops, serve):
         fail(f"serving flash routes {dict(fa.ROUTES)}: not all on mma")
     print(f"serving-path launches: {json.dumps(launches, sort_keys=True)}; "
           f"flash routes {dict(fa.ROUTES)}")
-    return static, split, launches
+    return static, split, launches, calls
 
 
 def run_hybrid_serving(torch, ops, serve):
@@ -916,20 +1051,22 @@ def unchanged_params(torch, LM, tree_leaves, res, dev):
     return len(flags), sum(flags)
 
 
-def run_training_path(torch, ops, train, protocol, dev, profile_int8):
+def run_training_path(torch, ops, train, protocol, dev, wc, profile_int8):
     """C2P2SL training of rwkv6-3b at full width through the training
-    CLI, wire none then int8.  Returns (rows per wire, launches); the
-    int8 run's final state goes to ``profile_int8(result)`` after the
-    launch counts are read.  Every WKV6 launch must take the chunked
-    route."""
+    CLI, wire none then int8.  Returns (rows per wire, launches, codec
+    calls by shape); the int8 run's final state goes to
+    ``profile_int8(result)`` after the launch counts are read.  Every
+    WKV6 launch must take the chunked route, every decode "warp256"."""
     from repro_torch.kernels import rwkv6 as rw
     from repro_torch.models.lm import LM
     from repro_torch.utils.trees import tree_leaves
     rows, launches, keep = {}, None, None
     ops.reset_launches()
     rw.ROUTES.clear()
+    wc.ROUTES.clear()
     for wire in ("none", "int8"):
-        res = train.main(_train_argv(wire))
+        with codec_calls(wc) as calls:
+            res = train.main(_train_argv(wire))
         torch.cuda.synchronize()
         rows[wire] = res["rows"]
         d = res["model"].cfg.d_model
@@ -953,6 +1090,8 @@ def run_training_path(torch, ops, train, protocol, dev, profile_int8):
         if wire == "int8":
             launches = dict(ops.LAUNCHES)
             routes = dict(rw.ROUTES)
+            check_codec_calls(wc, "training path", launches, calls,
+                              dict(wc.ROUTES))
             keep = res
         del res
         torch.cuda.empty_cache()
@@ -968,7 +1107,7 @@ def run_training_path(torch, ops, train, protocol, dev, profile_int8):
     profile_int8(keep)
     del keep
     torch.cuda.empty_cache()
-    return rows, launches
+    return rows, launches, calls
 
 
 def run_c2p2sl(torch, dev):
@@ -1062,12 +1201,12 @@ def profile_training_step(torch, res):
               f"{e.key[:70]}")
 
 
-def profile_serving(torch, dev, arch, decode_steps):
+def profile_serving(torch, dev, arch, decode_steps, watch=()):
     """Where the time of the static path goes: one prefill and
     ``decode_steps`` decode steps traced with torch.profiler; wall time
     (host clock, ends in a synchronise), device busy time (sum of kernel
     time) and the device's idle share, with the kernels that take the most
-    time."""
+    time and those whose names hold a string of ``watch``."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_arch
@@ -1111,7 +1250,8 @@ def profile_serving(torch, dev, arch, decode_steps):
                   f"{wall / steps:.3f} ms/step, device busy "
                   f"{busy_us / 1e3 / steps:.3f} ms/step, idle share "
                   f"{1 - busy_us / 1e3 / wall:.3f}")
-            for e in rows[:6]:
+            watched = [e for e in rows[6:] if any(w in e.key for w in watch)]
+            for e in rows[:6] + watched:
                 print(f"  {us(e) / 1e3 / steps:9.3f} ms/step  {e.count // steps:5d}"
                       f" calls/step  {e.key[:70]}")
 
@@ -1119,53 +1259,115 @@ def profile_serving(torch, dev, arch, decode_steps):
 # ------------------------------------------------------------------ phase 5
 
 
+def codec_cells(serve_calls, train_calls):
+    """The codec's shapes on the main paths, from the calls ``codec_calls``
+    recorded: (row-name suffix, rows, activation dtype, wire timed, calls
+    at that shape by (kernel, wire)).  The qwen split serving's prefill
+    hop ([B * S, d] bf16, int8 and fp8) and decode steps ([B, d]); the
+    training hop at the shape, dtype and wire the training path shipped."""
+    hops = {(r, dt, w) for (k, r, _d, dt, w) in train_calls
+            if k == "wire_decode"}
+    if len(hops) != 1:
+        fail(f"training hop shapes {sorted(hops)}: expected one")
+    (hop_rows, hop_dt, hop_wire), = hops
+    cells = []
+    for suffix, rows, dt, wire, calls in (
+            ("", BATCH * PROMPT, "bfloat16", "int8", serve_calls),
+            ("_step", BATCH, "bfloat16", "int8", serve_calls),
+            ("_hop", hop_rows, hop_dt, hop_wire, train_calls)):
+        by = collections.Counter()
+        for (kernel, r, _d, _dt, w), n in calls.items():
+            if r == rows:
+                by[(kernel, w)] += n
+        cells.append((suffix, rows, dt, wire, by))
+    return cells
+
+
+def time_codec(torch, wc, dev, serve_calls, train_calls):
+    """Encode and decode at each shape the main paths coded (``codec_cells``),
+    int8: device time from cold data (``cold_ms``: the bound assumes
+    device memory, and back-to-back calls at these sizes would find their
+    data in L2), the plain version's, the bound (the payload, the
+    activation and the scales moved once at 3.35 TB/s; ~7 f32 operations
+    an element encoding, 2 decoding) and, for the int8 decode,
+    ``torch.mul(q, s, out=o)`` (bit-equal to the decode: the library
+    yardstick; fp8 has none, torch does not promote float8 with f32).
+    ``launches`` counts every call at that shape, both wires; the max abs
+    errors are measured on the row's inputs (bit-exact: 0)."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    d = 2560
+    out = []
+    for suffix, rows, dt_name, wire, by in codec_cells(serve_calls,
+                                                       train_calls):
+        dt = getattr(torch, dt_name)
+        x = torch.randn((rows, d), generator=gen, device=dev).to(dt)
+        q, s = wc.encode_cuda(x, wire)
+        qp, sp = wc.encode_plain(x, wire)
+        y, yp = wc.decode_cuda(q, s, dt), wc.decode_plain(q, s, dt)
+        torch.cuda.synchronize()
+        enc_err = max(float((q.float() - qp.float()).abs().max()),
+                      float((s - sp).abs().max()))
+        dec_err = float((y.float() - yp.float()).abs().max())
+        n, nblk = rows * d, rows * d // wc.wire_block(d)
+        io = n * (dt.itemsize + 1) + nblk * 4
+        launches = {k: sum(v for (kern, _w), v in by.items() if kern == k)
+                    for k in ("wire_encode", "wire_decode")}
+        common = {"route": "cuda", "source": "src/repro_torch/csrc/wire_codec.cu",
+                  "shape": [rows, d], "dtype": dt_name, "wire": wire}
+        b_ms, b_by = bound(io, 7 * n, F32_OPS_S)
+        out.append({
+            "name": f"wire_encode{suffix}", **common,
+            "replaces": "src/repro/kernels/wire_codec.py:90",
+            "launches": launches["wire_encode"], "max_abs_err": enc_err,
+            "ms": cold_ms(wc.encode_cuda, (x, wire), io),
+            "plain_ms": device_ms(lambda: wc.encode_plain(x, wire)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        o = torch.empty(q.shape, dtype=dt, device=dev)
+        b_ms, b_by = bound(io, 2 * n, F32_OPS_S)
+        out.append({
+            "name": f"wire_decode{suffix}", **common,
+            "kernel_route": wc.decode_route(q.shape[-1], q.data_ptr(),
+                                            y.data_ptr()),
+            "replaces": "src/repro/kernels/wire_codec.py:118",
+            "launches": launches["wire_decode"], "max_abs_err": dec_err,
+            "ms": cold_ms(wc.decode_cuda, (q, s, dt), io),
+            "plain_ms": device_ms(lambda: wc.decode_plain(q, s, dt)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cold_ms(lambda q_, s_, o_: torch.mul(q_, s_, out=o_),
+                                  (q, s, o), io)
+            if wire == "int8" else None})
+        enc = lambda: wc.encode_cuda(x, wire)
+        dec = lambda: wc.decode_cuda(q, s, dt)
+        q8, s8 = wc.encode_cuda(x, "fp8")
+        counts = ", ".join(f"{k} {w} {v}" for (k, w), v in sorted(by.items()))
+        print(f"codec at [{rows}, {d}] {dt_name}/{wire} (launches: {counts}): "
+              f"encode {out[-2]['ms']:.4f} ms on the device from cold data "
+              f"({device_ms(enc):.4f} ms in L2), {cuda_ms(enc):.4f} ms "
+              f"between events, {out[-2]['bound_ms'] / out[-2]['ms']:.3f} of "
+              f"its bound; decode [{out[-1]['kernel_route']}] "
+              f"{out[-1]['ms']:.4f} ms on the device from cold data "
+              f"({device_ms(dec):.4f} ms in L2), {cuda_ms(dec):.4f} ms "
+              f"between events, {out[-1]['bound_ms'] / out[-1]['ms']:.3f} of "
+              f"its bound, torch.mul {out[-1]['library_ms']} ms; fp8 decode "
+              f"{cold_ms(wc.decode_cuda, (q8, s8, dt), io):.4f} ms")
+    return out
+
+
 def time_kernels(torch, wc, fa, rw, rg, dev, serve_launches, rg_launches,
-                 train_launches, flash_err, wkv_err, rglru_err, ptxas):
+                 train_launches, codec_calls_, flash_err, wkv_err, rglru_err,
+                 ptxas):
     """Device time of every kernel at its main path's shape beside its
     plain version's, its bound and a library call where one exists.
-    ``launches`` sums each kernel's count over the qwen serving and the
-    training main paths; the recurrentgemma rows (the scan, and flash at
-    head dim 256) take that path's counts."""
+    The codec rows take the qwen serving and training paths' calls at
+    their shape (``time_codec``); ``launches`` sums each other kernel's
+    count over the qwen serving and the training main paths; the
+    recurrentgemma rows (the scan, and flash at head dim 256) take that
+    path's counts."""
     import torch.nn.functional as F
     launches = {n: serve_launches.get(n, 0) + train_launches.get(n, 0)
                 for n in set(serve_launches) | set(train_launches)}
     gen = torch.Generator(device=dev).manual_seed(4)
-    rows, d = BATCH * PROMPT, 2560
-    out = []
-
-    x = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
-    q, s = wc.encode_cuda(x, "int8")
-    n, nblk = rows * d, rows * d // wc.wire_block(d)
-    b_ms, b_by = bound(n * (2 + 1) + nblk * 4, 7 * n, F32_OPS_S)
-    out.append({
-        "name": "wire_encode", "route": "cuda",
-        "source": "src/repro_torch/csrc/wire_codec.cu",
-        "replaces": "src/repro/kernels/wire_codec.py:90",
-        "launches": launches.get("wire_encode", 0), "max_abs_err": 0.0,
-        "ms": device_ms(lambda: wc.encode_cuda(x, "int8")),
-        "plain_ms": device_ms(lambda: wc.encode_plain(x, "int8")),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    b_ms, b_by = bound(n * (1 + 2) + nblk * 4, 2 * n, F32_OPS_S)
-    out.append({
-        "name": "wire_decode", "route": "cuda",
-        "source": "src/repro_torch/csrc/wire_codec.cu",
-        "replaces": "src/repro/kernels/wire_codec.py:118",
-        "launches": launches.get("wire_decode", 0), "max_abs_err": 0.0,
-        "ms": device_ms(lambda: wc.decode_cuda(q, s, torch.bfloat16)),
-        "plain_ms": device_ms(lambda: wc.decode_plain(q, s, torch.bfloat16)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    xs = torch.randn((BATCH, d), generator=gen, device=dev).to(torch.bfloat16)
-    qs, ss = wc.encode_cuda(xs, "int8")
-    enc = lambda: wc.encode_cuda(xs, "int8")
-    dec = lambda: wc.decode_cuda(qs, ss, torch.bfloat16)
-    print(f"codec at the decode shape {(BATCH, d)} bf16/int8: encode "
-          f"{device_ms(enc):.4f} ms on the device, {cuda_ms(enc):.4f} ms "
-          f"between events; decode {device_ms(dec):.4f} ms on the device, "
-          f"{cuda_ms(dec):.4f} ms between events")
-    print(f"codec at the prefill shape {(rows, d)}: encode "
-          f"{cuda_ms(lambda: wc.encode_cuda(x, 'int8')):.4f} ms, decode "
-          f"{cuda_ms(lambda: wc.decode_cuda(q, s, torch.bfloat16)):.4f} ms "
-          f"between events")
+    out = time_codec(torch, wc, dev, *codec_calls_)
 
     h, dh = 20, 128
     qkv = [torch.randn((BATCH, PROMPT, h, dh), generator=gen,
@@ -1190,7 +1392,7 @@ def time_kernels(torch, wc, fa, rw, rg, dev, serve_launches, rg_launches,
     print(rate_line(out[-1], 4 * dh * pairs))
     out += time_wkv6(torch, rw, dev, launches, wkv_err, ptxas.get("wkv6", []))
     out += time_hybrid(torch, fa, rg, dev, rg_launches, flash_err[256],
-                       rglru_err)
+                       rglru_err, ptxas.get("rglru", []))
     return out
 
 
@@ -1293,13 +1495,17 @@ def time_wkv6(torch, rw, dev, launches, wkv_err, ptxas):
     return out
 
 
-def time_hybrid(torch, fa, rg, dev, launches, flash_err, rglru_err):
+def time_hybrid(torch, fa, rg, dev, launches, flash_err, rglru_err, ptxas):
     """The RG-LRU scan at recurrentgemma-2b prefill's call ([4, 512, 2560],
     f32 x and log a, no h0) and flash at its local layers' shape ([4, 10,
     512, 256] q, one kv head, bf16, causal, window 2048, which does not
     bite at S = 512).  Scan bound: x and log a read once, h and h_last
     written once, at 3.35 TB/s, against ~8 f32 operations an element
-    (exp, a*a, 1 - , max, sqrt, two products and a sum)."""
+    (exp, a*a, 1 - , max, sqrt, two products and a sum).  The scan's time
+    is taken from cold data (``cold_ms``) and includes the zeroing of its
+    status buffer (one memset a call); its
+    row carries the kernel's design ("lookback") and ptxas' registers and
+    spills of its f32 instance."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(10)
     b, s, r = RG_SHAPE
@@ -1308,13 +1514,19 @@ def time_hybrid(torch, fa, rg, dev, launches, flash_err, rglru_err):
     la = -0.105 * torch.rand(RG_SHAPE, generator=gen, device=dev)
     b_ms, b_by = bound(3 * n * 4 + b * r * 4, 8 * n, F32_OPS_S)
     out = [{
-        "name": "rglru_scan", "route": "cuda",
+        "name": "rglru_scan", "route": "cuda", "kernel_route": "lookback",
         "source": "src/repro_torch/csrc/rglru.cu",
         "replaces": "src/repro/kernels/rglru.py:56",
         "launches": launches.get("rglru_scan", 0), "max_abs_err": rglru_err,
-        "ms": device_ms(lambda: rg.rglru_cuda(x, la)),
+        "ms": cold_ms(rg.rglru_cuda, (x, la), 3 * n * 4),
         "plain_ms": device_ms(lambda: rg.rglru_plain(x, la), iters=3),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}]
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "ptxas": {k: f"{used}; {spill}" for k, used, spill in ptxas
+                  if "<float, float>" in k or "IffE" in k}}]
+    print(f"kernel rglru_scan [lookback]: {out[0]['ms']:.4f} ms from cold "
+          f"data ({device_ms(lambda: rg.rglru_cuda(x, la)):.4f} ms back to "
+          f"back on one input), {b_ms / out[0]['ms']:.3f} of its bound "
+          f"({b_ms:.4f} ms, {b_by}); ptxas {out[0]['ptxas']}")
     xb, lb = x.to(torch.bfloat16), la.to(torch.bfloat16)
     print(f"rglru at {RG_SHAPE}: f32 "
           f"{cuda_ms(lambda: rg.rglru_cuda(x, la)):.4f} ms between events; "
@@ -1481,7 +1693,8 @@ def main():
     check_small_training(torch, dev)
     phase("build and kernel checks")
 
-    static, split, launches = run_main_path(torch, ops, serve)
+    static, split, launches, serve_calls = run_main_path(torch, ops, serve,
+                                                         wc)
     print(f"main path static: prefill {static['prefill_ms']:.2f} ms, "
           f"decode {static['decode_tok_s']:.1f} tok/s")
     for w, res in split.items():
@@ -1498,7 +1711,7 @@ def main():
           f"ms, decode {hybrid['decode_tok_s']:.1f} tok/s, peak "
           f"{rg_peak:.2f} GB")
     del hybrid
-    profile_serving(torch, dev, RG_ARCH, 1)
+    profile_serving(torch, dev, RG_ARCH, 1, watch=("rglru",))
     torch.cuda.empty_cache()
     phase(f"{RG_ARCH} serving and profile")
 
@@ -1512,8 +1725,8 @@ def main():
     torch.cuda.empty_cache()
     phase(f"{GR_ARCH} serving and profile")
 
-    rows, train_launches = run_training_path(
-        torch, ops, train, protocol, dev,
+    rows, train_launches, train_calls = run_training_path(
+        torch, ops, train, protocol, dev, wc,
         lambda res: profile_training_step(torch, res))
     for wire, rs in rows.items():
         for r in rs:
@@ -1526,8 +1739,8 @@ def main():
     phase(f"{T_ARCH} training, profile and c2p2sl step")
 
     kernels = time_kernels(torch, wc, fa, rw, rg, dev, launches, rg_launches,
-                           train_launches, flash_err, wkv_err, rglru_err,
-                           ptxas)
+                           train_launches, (serve_calls, train_calls),
+                           flash_err, wkv_err, rglru_err, ptxas)
     kernels += time_moe(torch, mg, fa, dev, gr_prefill, gr_launches, gmm_err,
                         flash_err[GR_HEADS[2]])
     for k in kernels:

@@ -27,7 +27,19 @@
 // 8 consecutive elements, loaded with 16-byte loads and stored as one
 // 8-byte store; any other b (96, 200, a prime below 256) takes a masked,
 // lane-strided loop that reads the block twice (the second read hits L1).
-// Decode is an elementwise pass, one element per thread, coalesced.
+//
+// Decode moves rows*d*(1 + out_bytes) + rows*(d/b)*4 bytes and does one
+// product an element: bound by memory too.  Design, the mirror of encode:
+// one warp per block of b elements, so the block's scale is one load a
+// warp (the same address in every lane: one transaction, broadcast) and no
+// thread divides an element index by b.  At b = 256 with the payload
+// 8-byte and the output 16-byte aligned (route "warp256", the main path),
+// each lane owns 8 consecutive payload bytes: one 8-byte load, 8 products,
+// and one 16-byte store (bf16) or two (f32); fp8 converts in pairs
+// (cvt.rn.f16x2.e4m3x2: e4m3 -> half -> float is exact).  Any other b, or
+// a payload or output off those alignments, takes route "strided": the
+// same warp per block, lanes striding over its elements.  kernels/
+// wire_codec.py decode_route names the route before the launch.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -143,14 +155,77 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// 8 payload bytes (little-endian in p) -> their exact values
+template <int WIRE>
+__device__ __forceinline__ void dequant8(uint2 p, float v[8]) {
+  const uint32_t w[2] = {p.x, p.y};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if (WIRE == WIRE_INT8) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[4 * k + j] = static_cast<float>(
+            static_cast<int8_t>(static_cast<uint8_t>(w[k] >> (8 * j))));
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const __half2 hh = __half2(__nv_cvt_fp8x2_to_halfraw2(
+            static_cast<__nv_fp8x2_storage_t>(w[k] >> (16 * j)), __NV_E4M3));
+        const float2 f = __half22float2(hh);
+        v[4 * k + 2 * j] = f.x;
+        v[4 * k + 2 * j + 1] = f.y;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store8(float* p, const float v[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[8]) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]),
+                 bf16x2_bits(v[4], v[5]), bf16x2_bits(v[6], v[7]));
+}
+
+// b == 256, q 8-byte and out 16-byte aligned: lane owns elements
+// [8*lane, 8*lane+8) of its warp's block.
 template <typename T, int WIRE>
 __global__ void __launch_bounds__(kThreads)
-decode_elementwise(const uint8_t* __restrict__ q,
-                   const float* __restrict__ scale, T* __restrict__ out,
-                   int64_t n, int b) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) return;
-  store(out + i, __fmul_rn(dequant<WIRE>(q[i]), scale[i / b]));
+decode_256(const uint8_t* __restrict__ q, const float* __restrict__ scale,
+           T* __restrict__ out, int64_t nblocks) {
+  const int64_t w = static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (w >= nblocks) return;  // warp-uniform
+  const uint2 p = *reinterpret_cast<const uint2*>(q + w * 256 + lane * 8);
+  const float s = scale[w];
+  float v[8];
+  dequant8<WIRE>(p, v);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = __fmul_rn(v[j], s);
+  store8(out + w * 256 + lane * 8, v);
+}
+
+// Any block size and alignment: lane-strided loop over the block.
+template <typename T, int WIRE>
+__global__ void __launch_bounds__(kThreads)
+decode_strided(const uint8_t* __restrict__ q, const float* __restrict__ scale,
+               T* __restrict__ out, int64_t nblocks, int b) {
+  const int64_t w = static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (w >= nblocks) return;  // warp-uniform
+  const float s = scale[w];
+  const uint8_t* qb = q + w * b;
+  T* ob = out + w * b;
+  for (int i = lane; i < b; i += 32)
+    store(ob + i, __fmul_rn(dequant<WIRE>(qb[i]), s));
 }
 
 template <typename T, int WIRE>
@@ -173,10 +248,19 @@ void launch_encode(const void* x, void* q, void* scale, int64_t nblocks,
 template <typename T, int WIRE>
 void launch_decode(const void* q, const void* scale, void* out, int64_t n,
                    int b, cudaStream_t stream) {
-  const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  decode_elementwise<T, WIRE><<<grid, kThreads, 0, stream>>>(
-      static_cast<const uint8_t*>(q), static_cast<const float*>(scale),
-      static_cast<T*>(out), n, b);
+  const int64_t nblocks = n / b;
+  const unsigned grid = static_cast<unsigned>((nblocks + kWarps - 1) / kWarps);
+  const bool vec = b == 256 && reinterpret_cast<uintptr_t>(q) % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec) {
+    decode_256<T, WIRE><<<grid, kThreads, 0, stream>>>(
+        static_cast<const uint8_t*>(q), static_cast<const float*>(scale),
+        static_cast<T*>(out), nblocks);
+  } else {
+    decode_strided<T, WIRE><<<grid, kThreads, 0, stream>>>(
+        static_cast<const uint8_t*>(q), static_cast<const float*>(scale),
+        static_cast<T*>(out), nblocks, b);
+  }
 }
 
 }  // namespace
@@ -205,12 +289,13 @@ int wire_encode(const void* x, void* q, void* scale, long long nblocks, int b,
   return static_cast<int>(cudaGetLastError());
 }
 
-// q: [n] bytes; scale: [n / b] f32; out: [n] (dtype DT_*).
+// q: [n] bytes; scale: [n / b] f32; out: [n] (dtype DT_*); b divides n.
 int wire_decode(const void* q, const void* scale, void* out, long long n,
                 int b, int wire, int out_dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return 0;
+  if (b <= 0 || n % b != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_dtype == DT_BF16) {
     if (wire == WIRE_INT8)

@@ -7,8 +7,11 @@ Port of the JAX package's ``kernels/rglru.py`` (``rglru_scan``) with
 
 x, log_a [B, S, R]; h0 [B, R] or None (zeros) -> (h [B, S, R], h_last
 [B, R]), both in x's dtype, as the Pallas kernel returns them.
-``rglru_cuda`` launches ``csrc/rglru.cu`` on any S and R; ``kernels/ops.py``
-dispatches by device.
+``rglru_cuda`` launches ``csrc/rglru.cu`` on any S and R: one pass over
+tiles of ``LANES`` lanes by chunks of ``CHUNK`` steps, one CTA each, the
+chunks of a tile chained by look-back through scratch that the wrapper
+allocates (``tiling`` gives its sizes).  ``kernels/ops.py`` dispatches by
+device.
 """
 from __future__ import annotations
 
@@ -20,6 +23,20 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _H0_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+LANES = 64      # lanes (r) of a tile: csrc/rglru.cu kLanes
+CHUNK = 64      # time steps of a chunk: csrc/rglru.cu kChunk
+MAX_CTAS = 2 ** 31 - 1
+
+
+def tiling(b: int, s: int, r: int):
+    """(r-tiles, chunks, CTAs) of the kernel's grid for x [b, s, r]: one CTA
+    per (batch, r-tile, chunk); S = 0 still takes one chunk, which writes
+    h_last.  The scratch is int32 [1 + CTAs] (a ticket counter and a flag
+    per CTA, zeroed each call) and f32 [3 * CTAs * LANES] (each chunk's
+    aggregate (A, H) and carry, per lane)."""
+    n_rt = -(-r // LANES)
+    n_chunks = max(1, -(-s // CHUNK))
+    return n_rt, n_chunks, b * n_rt * n_chunks
 
 
 def rglru_plain(x, log_a, h0=None):
@@ -43,7 +60,7 @@ def rglru_plain(x, log_a, h0=None):
 _L, _I, _P = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
 _SIGNATURES = {
     "rglru_scan_fwd": [_P, _P, _P, _I, _L, _P, _P, _I, _I, _I,
-                       _L, _L, _L, _L, _I, _I, _I, _P],
+                       _L, _L, _L, _L, _I, _I, _P, _L, _P, _L, _I, _P],
 }
 
 
@@ -72,10 +89,15 @@ def rglru_cuda(x, log_a, h0=None):
         raise ValueError(f"h0 must be [B, R] = {(b, r)} in one of "
                          f"{list(_H0_DTYPES)}, got {tuple(h0.shape)} "
                          f"{h0.dtype}")
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernel's grid (65535)")
+    n_ctas = tiling(b, s, r)[2]
+    if n_ctas > MAX_CTAS:
+        raise ValueError(f"[{b}, {s}, {r}] needs {n_ctas} CTAs, past the "
+                         f"kernel's grid ({MAX_CTAS})")
     h = torch.empty((b, s, r), dtype=x.dtype, device=x.device)
     h_last = torch.empty((b, r), dtype=x.dtype, device=x.device)
+    status = torch.zeros(1 + n_ctas, dtype=torch.int32, device=x.device)
+    scratch = torch.empty(3 * n_ctas * LANES, dtype=torch.float32,
+                          device=x.device)
     lib = build.load("rglru", _SIGNATURES)
     code = lib.rglru_scan_fwd(
         x.data_ptr(), log_a.data_ptr(),
@@ -84,7 +106,8 @@ def rglru_cuda(x, log_a, h0=None):
         0 if h0 is None else h0.stride(0),
         h.data_ptr(), h_last.data_ptr(), b, s, r,
         x.stride(0), x.stride(1), log_a.stride(0), log_a.stride(1),
-        _DTYPES[x.dtype], _DTYPES[log_a.dtype], x.device.index,
+        _DTYPES[x.dtype], _DTYPES[log_a.dtype], status.data_ptr(),
+        status.numel(), scratch.data_ptr(), scratch.numel(), x.device.index,
         build.stream_of(x))
     build.check("rglru", code, "rglru_scan launch")
     return h, h_last

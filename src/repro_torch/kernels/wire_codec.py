@@ -10,10 +10,16 @@ never carries padding bytes.  ``encode_cuda`` / ``decode_cuda`` launch the
 hand-written kernel in ``csrc/wire_codec.cu``; ``encode_plain`` /
 ``decode_plain`` are the plain PyTorch versions (the block quantizer of
 ``training/compress.py``), which the kernels are held to bit for bit.
-``kernels/ops.py`` picks between them by the tensor's device.
+The decode kernel runs one warp per block on one of two routes, which
+``decode_route`` names before the launch: ``"warp256"`` (b = 256, payload
+8-byte and output 16-byte aligned: vector loads and stores) or
+``"strided"`` (any other b or alignment); ``ROUTES`` counts the decode
+launches of each.  ``kernels/ops.py`` picks between kernel and plain
+version by the tensor's device.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -24,6 +30,7 @@ from repro_torch.training.compress import (dequantize_blocks, payload_dtype,
 
 _IN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _WIRE = {"int8": 0, "fp8": 1}
+ROUTES: collections.Counter = collections.Counter()
 
 
 def wire_block(dim: int, block: int = 256) -> int:
@@ -32,6 +39,17 @@ def wire_block(dim: int, block: int = 256) -> int:
     while dim % b:
         b -= 1
     return b
+
+
+def decode_route(b: int, q_ptr: int, out_ptr: int) -> str:
+    """The decode kernel's route for blocks of ``b`` payload bytes at
+    address ``q_ptr`` written to ``out_ptr``: the vector route takes b = 256
+    with the payload 8-byte and the output 16-byte aligned, as its loads
+    and stores need (the test of ``launch_decode`` in csrc/wire_codec.cu).
+    A pure function of its arguments: it launches nothing."""
+    if b == 256 and q_ptr % 8 == 0 and out_ptr % 16 == 0:
+        return "warp256"
+    return "strided"
 
 
 # ---------------------------------------------------------------- plain
@@ -92,7 +110,8 @@ def encode_cuda(x: torch.Tensor, wire_dtype: str):
 
 def decode_cuda(q: torch.Tensor, scale: torch.Tensor, out_dtype):
     """Launch the decode kernel: (payload, scales) -> [..., d] at
-    ``out_dtype`` (bf16 | f32)."""
+    ``out_dtype`` (bf16 | f32), on the route ``decode_route`` names
+    (counted in ``ROUTES``)."""
     _check_cuda(q, "decode payload")
     _check_cuda(scale, "decode scales")
     if out_dtype not in _IN_DTYPES:
@@ -112,4 +131,6 @@ def decode_cuda(q: torch.Tensor, scale: torch.Tensor, out_dtype):
         _WIRE[wire], _IN_DTYPES[out_dtype], q.device.index,
         build.stream_of(q))
     build.check("wire_codec", code, "wire_decode launch")
+    if q.numel():
+        ROUTES[decode_route(b, q.data_ptr(), out.data_ptr())] += 1
     return out

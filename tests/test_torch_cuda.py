@@ -383,6 +383,100 @@ def test_rglru_counts_launches_and_refuses_autograd():
     assert dict(ops.LAUNCHES) == {"rglru_scan": 1}
 
 
+RGLRU_EDGE_CASES = [  # (b, s, r, h0, log a span): chunks of rg.CHUNK steps
+    (2, 1, 70, True, 0.105),
+    (2, rg.CHUNK - 1, 70, False, 0.105),
+    (2, rg.CHUNK, 70, True, 0.105),
+    (2, rg.CHUNK + 1, 130, True, 0.105),   # ragged S and R
+    (1, 4096, 2560, True, 0.105),          # 64 chunks chained by look-back
+    (2, 300, 130, True, 20.0),             # strong decay, log a in (-20, 0)
+]
+
+
+@pytest.mark.parametrize("case", RGLRU_EDGE_CASES, ids=str)
+@pytest.mark.parametrize("dt,tol", [("float32", 2e-4), ("bfloat16", 1e-2)])
+def test_rglru_kernel_edge_shapes(case, dt, tol):
+    dev = cuda_device()
+    b, s, r, with_h0, span = case
+    x, la, h0 = _rglru_inputs(dev, b, s, r, with_h0, TORCH_DT[dt], seed=1)
+    la = (la.float() * (span / 0.105)).to(TORCH_DT[dt])
+    h, last = rg.rglru_cuda(x, la, h0)
+    hp, lastp = rg.rglru_plain(x, la, h0)
+    assert h.dtype == last.dtype == x.dtype
+    assert _rel(h, hp) <= tol and _rel(last, lastp) <= tol
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_kernel_at_zero_length_writes_h0(with_h0):
+    dev = cuda_device()
+    x, la, h0 = _rglru_inputs(dev, 3, 0, 70, with_h0, torch.float32)
+    h, last = rg.rglru_cuda(x, la, h0)
+    torch.cuda.synchronize()
+    assert h.shape == (3, 0, 70)
+    assert torch.equal(last, h0 if with_h0 else torch.zeros_like(last))
+
+
+def test_rglru_back_to_back_calls_read_no_stale_flags():
+    """Two calls in a row on different inputs (same shape, so the
+    allocator may hand back the same scratch), each held to the plain
+    version: a flag left from the first call would give the second one a
+    wrong carry."""
+    dev = cuda_device()
+    ins = [_rglru_inputs(dev, 2, 700, 200, True, torch.float32, seed=k)
+           for k in (3, 4)]
+    outs = [rg.rglru_cuda(*i) for i in ins]
+    for i, (h, last) in zip(ins, outs):
+        hp, lastp = rg.rglru_plain(*i)
+        assert _rel(h, hp) <= 2e-4 and _rel(last, lastp) <= 2e-4
+
+
+def test_rglru_kernel_is_bit_reproducible():
+    dev = cuda_device()
+    x, la, h0 = _rglru_inputs(dev, 4, 512, 2560, True, torch.float32, seed=5)
+    h1, last1 = rg.rglru_cuda(x, la, h0)
+    h2, last2 = rg.rglru_cuda(x, la, h0)
+    assert torch.equal(h1, h2) and torch.equal(last1, last2)
+
+
+@pytest.mark.parametrize("wire_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("dt", ["bfloat16", "float32"])
+def test_decode_misaligned_payload_takes_the_strided_route(wire_dtype, dt):
+    dev = cuda_device()
+    x = torch.randn((64, 2560), device=dev).to(TORCH_DT[dt])
+    q, s = wc.encode_cuda(x, wire_dtype)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    qm = buf[1:].view(q.shape).copy_(q)            # base 1 byte off
+    wc.ROUTES.clear()
+    y = wc.decode_cuda(qm, s, TORCH_DT[dt])
+    assert dict(wc.ROUTES) == {"strided": 1}
+    assert torch.equal(y, wc.decode_plain(q, s, TORCH_DT[dt]))
+    wc.ROUTES.clear()
+    assert torch.equal(wc.decode_cuda(q, s, TORCH_DT[dt]), y)
+    assert dict(wc.ROUTES) == {"warp256": 1}
+
+
+def test_decode_routes_by_block_size():
+    dev = cuda_device()
+    wc.ROUTES.clear()
+    for d in (2560, 96, 251):
+        q, s = wc.encode_cuda(torch.randn((5, d), device=dev), "int8")
+        wc.decode_cuda(q, s, torch.float32)
+    assert dict(wc.ROUTES) == {"warp256": 1, "strided": 2}
+
+
+@pytest.mark.parametrize("rows", [2048, 4])
+@pytest.mark.parametrize("dt", ["bfloat16", "float32"])
+def test_torch_mul_computes_the_int8_decode(rows, dt):
+    """The library yardstick of the int8 decode: one torch.mul of the
+    payload by its scales into the output dtype gives the kernel's bits."""
+    dev = cuda_device()
+    x = torch.randn((rows, 2560), device=dev).to(TORCH_DT[dt])
+    q, s = wc.encode_cuda(x, "int8")
+    o = torch.empty(q.shape, dtype=TORCH_DT[dt], device=dev)
+    torch.mul(q, s, out=o)
+    assert torch.equal(o.view(rows, 2560), wc.decode_cuda(q, s, TORCH_DT[dt]))
+
+
 def test_small_recurrentgemma_on_card_matches_cpu():
     """The f32 SMOKE model: prefill of a 12-token prompt (longer than the
     window of 8, so the ring wraps) and 8 greedy decode steps, at 1e-3."""

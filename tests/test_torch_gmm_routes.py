@@ -1,17 +1,21 @@
-"""Which kernel route the grouped matmul and flash wrappers pick.
+"""Which kernel route the grouped matmul, flash and wire decode wrappers
+pick.
 
-``moe_gmm.route`` and ``flash_attention.route`` are pure functions of a
-dtype, shapes, strides and base addresses: they launch nothing, so they
-run here on the CPU.  The tensor-core routes need what TMA and cp.async
-need (16-byte aligned bases, strides that are multiples of 16 bytes);
-everything else goes to the SIMT kernels, which take any layout.
-Imports torch only.
+``moe_gmm.route``, ``flash_attention.route`` and
+``wire_codec.decode_route`` are pure functions of a dtype, shapes,
+strides and base addresses: they launch nothing, so they run here on the
+CPU.  The tensor-core routes need what TMA and cp.async need (16-byte
+aligned bases, strides that are multiples of 16 bytes); everything else
+goes to the SIMT kernels, which take any layout.  The decode kernel's
+vector route needs b = 256 and aligned payload and output.  Imports torch
+only.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_gmm as mg
+from repro_torch.kernels import wire_codec as wc
 
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -101,3 +105,29 @@ def test_flash_route_misaligned_bf16_is_simt():
     wide = torch.empty((2, 4, 40, 68), dtype=BF16)[..., :64]   # 136 B rows
     assert _flash_route(wide, k, k, k) == "simt"
     assert _flash_route(k, k, k, k) == "mma"
+
+
+@pytest.mark.parametrize("d,q_ptr,out_ptr,want", [
+    (2560, 0, 0, "warp256"),          # every main path: d_model 2560
+    (2560, 4096 + 8, 512 + 16, "warp256"),
+    (2560, 1, 0, "strided"),          # a payload view 1 byte off
+    (2560, 4, 0, "strided"),
+    (2560, 0, 8, "strided"),          # output off 16 bytes
+    (1536, 0, 0, "warp256"),          # granite's d_model: b = 256 too
+    (96, 0, 0, "strided"),            # b = 96
+    (200, 0, 0, "strided"),
+    (251, 0, 0, "strided"),           # a prime: b = d
+])
+def test_decode_route(d, q_ptr, out_ptr, want):
+    assert wc.decode_route(wc.wire_block(d), q_ptr, out_ptr) == want
+
+
+def test_decode_route_of_tensors():
+    q = torch.empty((4, 10, 256), dtype=torch.int8)
+    out = torch.empty((4, 2560), dtype=torch.bfloat16)
+    assert wc.decode_route(q.shape[-1], q.data_ptr(), out.data_ptr()) == \
+        "warp256"
+    buf = torch.empty(q.numel() + 1, dtype=torch.int8)
+    qm = buf[1:].view(q.shape)
+    assert wc.decode_route(qm.shape[-1], qm.data_ptr(), out.data_ptr()) == \
+        "strided"
