@@ -38,14 +38,22 @@ Phases (any failure exits non-zero; nothing is caught):
      (130) and the small-C variant's C = 1, 8, 12, 16, each on the route
      moe_gmm.route names (bf16: "wgmma" or "wgmma_small_c"; f32: "simt");
      flash at granite's heads (24 q on 8 kv heads of 64), every bf16 case
-     on the tensor-core route "mma"; flash, RG-LRU and moe_gmm refusing
-     autograd.  Small f32 models on the card are held to the same
+     on the tensor-core route "mma"; the flash backward kernel against
+     attention_bwd_plain within 2e-4 (f32) / 5e-2 (bf16) absolute and
+     element by element within 2e-5 + 1e-4 |p| (f32) / 1e-3 + 2^-7 |p|
+     (bf16) (qwen1.5-4b's training call [2, 20, 512, 128] bf16 causal, granite's
+     24 q on 8 kv heads of 64, a window, f32, a dO in the model layout and
+     one with no unit stride along dh, rows without keys), the forward's
+     log-sum-exp beside the plain one, and two backward calls on the same
+     inputs bit for bit; RG-LRU and moe_gmm refusing autograd.  Small f32
+     models on the card are held to the same
      models on the CPU: a qwen prefill, a recurrentgemma prefill of a
      12-token prompt (window 8: the ring wraps) and 8 decode steps, a
      granite-moe prefill and 8 decode steps (the router's top-k expert ids
      compared first), qwen3-moe split at cut 1 ('none' tokens equal the
-     static tokens, measured bytes equal billed bytes), and one training
-     step of an RWKV model (loss and updated parameters);
+     static tokens, measured bytes equal billed bytes), and one pipelined
+     training step each of an RWKV and a qwen model (loss and updated
+     parameters; the qwen step through the flash backward kernel);
   4. the main paths at full width, random weights from seed 0, bf16 compute:
      a. serving qwen1.5-4b (40 layers, batch 4, prompt 512, 32 greedy
         tokens) through the serving CLI's entry point: the static path, then
@@ -71,6 +79,16 @@ Phases (any failure exits non-zero; nothing is caught):
      d. one make_c2p2sl_step with 2 UEs and a ragged shard_batch (b = [5,
         3], k = 4), its loss printed beside the pipelined loss on the same
         weights and batch;
+     f. C2P2SL training of qwen1.5-4b (40 layers, f32 master weights,
+        batch 8, seq 512) through the training CLI's entry point, after
+        rwkv6-3b's state is freed: 3 steps of the 2-stage, 4-micro-batch
+        pipeline cut at 20, the hop int8 both ways.  Every loss finite,
+        every parameter tensor changed, hop bytes up and down equal to the
+        billed bytes, exactly 960 flash forward launches (2 a block and
+        micro-batch under the activation checkpoint), every one on "mma",
+        and 480 flash backward launches; 24 encodes and 24 decodes of the
+        [1024, 2560] hop, every decode on "warp256"; peak GB beside the
+        card's name and power limit;
      e. serving granite-moe-3b-a800m (32 MoE layers, 40 experts top-8, 24
         heads on 8 kv heads of 64, tied embeddings; batch 4, prompt 512, 32
         greedy tokens) through the serving CLI's entry point: tokens in
@@ -81,8 +99,9 @@ Phases (any failure exits non-zero; nothing is caught):
         with ValueError; prefill ms, decode tok/s and peak GB;
   5. timings: torch.profiler traces of one prefill and four decode steps
      of qwen, one prefill and one decode step each of recurrentgemma and
-     granite-moe, and one training step (device busy time and idle share,
-     top kernels, the WKV6 kernels' total); per kernel its device time, its
+     granite-moe, and one training step of each of rwkv6-3b and qwen1.5-4b
+     (device busy time and idle share, top kernels, the WKV6 kernels'
+     total, the flash forward's and backward's); per kernel its device time, its
      plain version's, its bound and the library yardstick where one
      PyTorch call computes the same function (torch.bmm for moe_gmm, SDPA
      for flash, torch.mul for the int8 decode); the codec at each shape
@@ -90,7 +109,11 @@ Phases (any failure exits non-zero; nothing is caught):
      training hop), each row with the launches at its shape; for moe_gmm
      and flash also the achieved TFLOP/s and the share of the bound; for
      WKV6 and the RG-LRU scan the route, ptxas' registers and spills, and
-     for WKV6 the f32 call's (SIMT) time in the same run.
+     for WKV6 the f32 call's (SIMT) time in the same run; the flash
+     forward with lse and the flash backward at qwen's training call from
+     cold data, with SDPA's forward under grad mode (which keeps its lse)
+     and its backward (torch.autograd.grad) as their library yardsticks,
+     and the backward's ptxas registers and spills.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -125,6 +148,14 @@ RG_HEADS = (10, 1, 256, 2048)                   # q heads, kv heads, dh, window
 # the training path: rwkv6-3b, 2 stages (cut 16), 4 micro-batches
 T_ARCH, T_BATCH, T_SEQ, T_K, T_STEPS = "rwkv6-3b", 8, 512, 4, 3
 WKV_SHAPE = (T_BATCH // T_K, T_SEQ, 40, 64)     # one micro-batch's call
+# the dense training path: qwen1.5-4b, the same batch, k and steps, cut at
+# 20, int8 hop; each block's forward runs twice under its checkpoint
+Q_LAYERS = 40
+Q_TRAIN = (T_BATCH // T_K, 20, T_SEQ, 128)      # one micro-batch's attention
+Q_LAUNCHES = {"flash_attention": 2 * Q_LAYERS * T_K * T_STEPS,
+              "flash_attention_bwd": Q_LAYERS * T_K * T_STEPS,
+              "wire_encode": 2 * T_K * T_STEPS,
+              "wire_decode": 2 * T_K * T_STEPS}
 
 
 # the MoE serving path: granite-moe-3b-a800m, the same batch and lengths;
@@ -139,6 +170,11 @@ QM_ARCH = "qwen3-moe-30b-a3b"                   # its SMOKE config splits
 
 SERVING_KERNELS = ("wire_encode", "wire_decode", "flash_attention")
 TRAINING_KERNELS = ("wkv6", "wkv6_bwd", "wire_encode", "wire_decode")
+FLASH_TOL = {"float32": 2e-4, "bfloat16": 5e-2}  # forward and backward
+# the backward also element by element: |g - p| <= atol + rtol |p|.  bf16
+# rounds each gradient to 2^-8 of its size, so rtol 2^-7 leaves a factor 2
+# and atol 1e-3 covers the f32 sums' error near zero (~1e-6 in f32 cases)
+FLASH_BWD_ELEM = {"float32": (2e-5, 1e-4), "bfloat16": (1e-3, 2 ** -7)}
 
 
 def fail(msg: str):
@@ -310,7 +346,7 @@ def check_flash(torch, fa, dev):
     """Flash kernel against the plain version; returns the max error at
     each main path's bf16 shape, by head dim."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    tol = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+    tol = {getattr(torch, name): t for name, t in FLASH_TOL.items()}
     hq, hkv, dh, w = RG_HEADS
     # (B, Hq, Hkv, S, dh, causal, window, dtype, model layout [B,S,H,dh])
     cases = [(BATCH, 20, 20, PROMPT, 128, True, 0, torch.bfloat16, True),
@@ -387,6 +423,92 @@ def check_flash_rows_without_keys(torch, fa, dev, gen, tol):
             if not err <= tol[dt]:
                 fail(f"{name}: max abs err {err} > {tol[dt]}")
             print(f"{name} [{want}]: max abs err {err:.3e} (tol {tol[dt]})")
+
+
+def check_flash_bwd(torch, fa, dev):
+    """The flash backward kernel against ``attention_bwd_plain`` on the
+    same values: the forward runs on its route with lse, the plain
+    version in f32 on the inputs upcast (its outputs are not rounded a
+    second time).  Tolerance ``FLASH_TOL`` absolute, the forward's
+    contract, and element by element ``FLASH_BWD_ELEM`` (|g - p| <= atol
+    + rtol |p|: bf16 outputs round at 2^-8 of their size, so a missing
+    contribution to a small entry shows); the error relative to the
+    largest value and the worst element's share of its limit printed
+    beside them; the kernel's lse within 1e-4 of the plain lse.  Cases: qwen1.5-4b's training call
+    [2, 20, 512, 128] bf16 causal in the model layout (dO as autograd
+    gives it: a [B, S, H, dh] view), granite's 24 q on 8 kv heads of 64, a
+    window, f32, a dO with no unit stride along dh (copied by the wrapper),
+    and rows without keys (q [1, 1, 256, 64], k/v [1, 1, 128, 64], window
+    16: rows 143-255 add dO / 128 to every row of dV, nothing to dq or
+    dk).  Every case runs the backward twice on the same inputs: the same
+    bits.  Returns the max abs error at qwen's call."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bf16, f32 = torch.bfloat16, torch.float32
+    b, h, s, dh = Q_TRAIN
+    gh, gkv, gdh = GR_HEADS
+    # (B, Hq, Hkv, Sq, Skv, dh, causal, window, dtype, q/k/v in the model
+    # layout, dO layout: "bshd" a model-layout view, "bhsd" contiguous,
+    # "bhds" a [B, H, dh, S] transpose)
+    cases = [(b, h, h, s, s, dh, True, 0, bf16, True, "bshd"),
+             (b, gh, gkv, s, s, gdh, True, 0, bf16, True, "bshd"),
+             (2, 4, 4, 300, 300, 128, True, 64, bf16, False, "bhsd"),
+             (2, 4, 2, 300, 300, 64, True, 48, f32, False, "bhsd"),
+             (b, 4, 4, s, s, dh, True, 0, f32, True, "bshd"),
+             (1, 4, 2, 130, 130, 64, False, 0, bf16, False, "bhds"),
+             (1, 1, 1, 256, 128, 64, True, 16, bf16, False, "bhsd"),
+             (1, 1, 1, 256, 128, 64, True, 16, f32, False, "bhsd")]
+    main_err = None
+    for bb, hq, hkv, sq, skv, d, causal, window, dt, bshd, dol in cases:
+        def mk(h_, s_, layout):
+            shape = {"bshd": (bb, s_, h_, d), "bhsd": (bb, h_, s_, d),
+                     "bhds": (bb, h_, d, s_)}[layout]
+            t = torch.randn(shape, generator=gen, device=dev).to(dt)
+            return {"bshd": lambda: t.transpose(1, 2), "bhsd": lambda: t,
+                    "bhds": lambda: t.transpose(2, 3)}[layout]()
+        lay = "bshd" if bshd else "bhsd"
+        q, k, v = mk(hq, sq, lay), mk(hkv, skv, lay), mk(hkv, skv, lay)
+        do = mk(hq, sq, dol)
+        kw = dict(causal=causal, window=window)
+        fa.ROUTES.clear()
+        o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+        grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        up = [t.float() for t in (q, k, v)]
+        _, lse_p = fa.attention_plain_lse(*up, **kw)
+        plain = fa.attention_bwd_plain(*up, o.float(), lse_p, do.float(),
+                                       **kw)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[str(dt).split(".")[-1]]
+        atol, rtol = FLASH_BWD_ELEM[str(dt).split(".")[-1]]
+        want = "mma" if dt == bf16 else "simt"
+        errs = {n: float((g.float() - p).abs().max())
+                for n, g, p in zip(("dq", "dk", "dv"), grads, plain)}
+        share = max(float(((g.float() - p).abs() / (atol + rtol * p.abs()))
+                          .max()) for g, p in zip(grads, plain))
+        rel = {n: errs[n] / max(float(p.abs().max()), 1e-30)
+               for n, p in zip(("dq", "dk", "dv"), plain)}
+        lse_err = float((lse - lse_p).abs().max())
+        name = (f"flash_bwd B{bb} H{hq}/{hkv} Sq{sq} Skv{skv} dh{d} "
+                f"causal={causal} window={window} {dt} dO {dol}")
+        if dict(fa.ROUTES) != {want: 1}:
+            fail(f"{name}: forward routes {dict(fa.ROUTES)}, expected {want}")
+        if not (max(errs.values()) <= tol and lse_err <= 1e-4):
+            fail(f"{name}: max abs errs {errs} > {tol} or lse err "
+                 f"{lse_err} > 1e-4")
+        if not share <= 1.0:
+            fail(f"{name}: an element's error is {share:.3f} of its limit "
+                 f"{atol} + {rtol} |plain|")
+        if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+            fail(f"{name}: a second backward call gave other bits")
+        print(f"{name} [forward {want}]: max abs err "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+              + f" (tol {tol}); relative to the largest value "
+              + ", ".join(f"{n} {e:.1e}" for n, e in rel.items())
+              + f"; worst element {share:.3f} of {atol:g} + {rtol:g} |p|"
+              + f"; lse err {lse_err:.1e}; second call: the same bits")
+        if main_err is None:
+            main_err = max(errs.values())
+    return main_err
 
 
 RGLRU_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
@@ -661,13 +783,12 @@ def check_small_model(torch, dev):
 
 
 def check_refuses_autograd(torch, ops, dev):
-    """The flash, RG-LRU and grouped-matmul kernels have no backward: under
+    """The RG-LRU and grouped-matmul kernels have no backward: under
     autograd they must raise instead of returning a tensor that drops the
     gradients."""
     t = torch.randn(1, 2, 16, 64, device=dev, requires_grad=True)
-    for name, call in (("flash_attention", lambda: ops.flash_attention(
-            t, t, t)), ("rglru_scan", lambda: ops.rglru_scan(t[0], t[0])),
-            ("moe_gmm", lambda: ops.moe_gmm(t[0], t[0]))):
+    for name, call in (("rglru_scan", lambda: ops.rglru_scan(t[0], t[0])),
+                       ("moe_gmm", lambda: ops.moe_gmm(t[0], t[0]))):
         try:
             call()
         except NotImplementedError:
@@ -809,46 +930,58 @@ def check_wkv6_strong_decay(torch, rw, dev, gen):
               + ", ".join(f"{n} {e:.1e}" for n, e in errs.items()) + ")")
 
 
-def check_small_training(torch, dev):
-    """One training step of a small f32 RWKV model (the 2-stage, 2-micro-
-    batch pipeline) on the card against the same step on the CPU, with
-    the hop raw and int8-coded (the codec is bit-exact on both devices,
-    so the coded hop's backward on the card is held here too).  SGD, so
-    the updated parameters are linear in the gradients (Adam's first step
-    divides by |g| and turns rounding noise into sign flips)."""
+def check_small_training(torch, ops, dev):
+    """One training step of small f32 RWKV and qwen models (the 2-stage,
+    2-micro-batch pipeline) on the card against the same step on the CPU,
+    with the hop raw and int8-coded (the codec is bit-exact on both
+    devices, so the coded hop's backward on the card is held here too);
+    on the card the step must launch exactly its model's forward and
+    backward kernels (WKV6 or flash; 2 blocks x 2 micro-batches: 8
+    forwards, as each block's forward runs again under its activation
+    checkpoint, and 4 backwards).  SGD, so the updated
+    parameters are linear in the gradients (Adam's first step divides by
+    |g| and turns rounding noise into sign flips)."""
     from repro_torch.configs import get_arch
     from repro_torch.models.lm import LM
     from repro_torch.parallel.pipeline import PipelineSpec
     from repro_torch.parallel.steps import make_lm_train_step
     from repro_torch.training.optim import sgd
     from repro_torch.utils.trees import tree_leaves, tree_map
-    cfg = get_arch(T_ARCH).smoke
-    params = LM(cfg, "cpu").init(torch.Generator().manual_seed(SEED),
-                                 master=True)
-    gen = torch.Generator().manual_seed(7)
-    batch = {n: torch.randint(0, cfg.vocab, (4, 40), generator=gen)
-             for n in ("tokens", "labels")}
-    for wire in ("none", "int8"):
-        spec = PipelineSpec(num_stages=2, microbatches=2, wire_dtype=wire)
-        out = {}
-        for where in ("cpu", dev):
-            model = LM(cfg, where)
-            opt = sgd(0.1, momentum=0.9)
-            p = tree_map(lambda t: t.detach().clone().to(where), params)
-            state = {"params": p, "opt_state": opt.init(p), "step": 0}
-            step = make_lm_train_step(model, opt, pipeline=spec)
-            state, mets = step(state, {n: t.to(where)
-                                       for n, t in batch.items()})
-            out[str(where)] = (float(mets["loss"]), state["params"])
-        (lc, pc), (lg, pg) = out["cpu"], out[str(dev)]
-        perr = max(float((a.detach().cpu() - b.detach()).abs().max())
-                   for a, b in zip(tree_leaves(pg), tree_leaves(pc)))
-        if not (abs(lg - lc) <= 1e-4 * abs(lc) and perr <= 1e-4):
-            fail(f"small RWKV training step ({wire} hop), card vs CPU: loss "
-                 f"{lg} vs {lc}, max parameter diff {perr}")
-        print(f"small f32 RWKV training step ({wire} hop), card vs CPU: "
-              f"loss {lg:.6f} vs {lc:.6f}, max updated-parameter diff "
-              f"{perr:.2e} (tol 1e-4)")
+    for arch, kernels in ((T_ARCH, {"wkv6": 8, "wkv6_bwd": 4}),
+                          (ARCH, {"flash_attention": 8,
+                                  "flash_attention_bwd": 4})):
+        cfg = get_arch(arch).smoke
+        params = LM(cfg, "cpu").init(torch.Generator().manual_seed(SEED),
+                                     master=True)
+        gen = torch.Generator().manual_seed(7)
+        batch = {n: torch.randint(0, cfg.vocab, (4, 40), generator=gen)
+                 for n in ("tokens", "labels")}
+        for wire in ("none", "int8"):
+            spec = PipelineSpec(num_stages=2, microbatches=2, wire_dtype=wire)
+            out = {}
+            for where in ("cpu", dev):
+                model = LM(cfg, where)
+                opt = sgd(0.1, momentum=0.9)
+                p = tree_map(lambda t: t.detach().clone().to(where), params)
+                state = {"params": p, "opt_state": opt.init(p), "step": 0}
+                step = make_lm_train_step(model, opt, pipeline=spec)
+                ops.reset_launches()
+                state, mets = step(state, {n: t.to(where)
+                                           for n, t in batch.items()})
+                out[str(where)] = (float(mets["loss"]), state["params"])
+            launches = {k: ops.LAUNCHES.get(k, 0) for k in kernels}
+            (lc, pc), (lg, pg) = out["cpu"], out[str(dev)]
+            perr = max(float((a.detach().cpu() - b.detach()).abs().max())
+                       for a, b in zip(tree_leaves(pg), tree_leaves(pc)))
+            if not (abs(lg - lc) <= 1e-4 * abs(lc) and perr <= 1e-4):
+                fail(f"small {arch} training step ({wire} hop), card vs "
+                     f"CPU: loss {lg} vs {lc}, max parameter diff {perr}")
+            if launches != kernels:
+                fail(f"small {arch} training step ({wire} hop): launches "
+                     f"{launches}, expected {kernels}")
+            print(f"small f32 {arch} training step ({wire} hop), card vs "
+                  f"CPU: loss {lg:.6f} vs {lc:.6f}, max updated-parameter "
+                  f"diff {perr:.2e} (tol 1e-4); launches {launches}")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1034,21 +1167,39 @@ def run_moe_serving(torch, ops, serve):
     return res, launches, peak_gb
 
 
-def _train_argv(wire: str):
-    return ["--arch", T_ARCH, "--size", "full", "--pipeline-stages", "2",
+def _train_argv(wire: str, arch: str = T_ARCH):
+    return ["--arch", arch, "--size", "full", "--pipeline-stages", "2",
             "--pipeline-k", str(T_K), "--batch", str(T_BATCH), "--seq",
             str(T_SEQ), "--steps", str(T_STEPS), "--seed", str(SEED),
             "--wire-dtype", wire, "--log-every", "1"]
 
 
-def unchanged_params(torch, LM, tree_leaves, res, dev):
-    """(number of parameter tensors, how many equal their initial value):
-    the initial values are drawn again from the run's seed."""
-    fresh = LM(res["model"].cfg, dev).init(
+def check_training_run(torch, protocol, dev, res, name, wire):
+    """A training CLI run's result: every loss finite, the hop's bytes up
+    and down each step equal to the billed bytes, and every parameter
+    tensor changed from its initial value (drawn again from the run's
+    seed).  Returns (parameter tensors, billed bytes a step)."""
+    from repro_torch.models.lm import LM
+    from repro_torch.utils.trees import tree_leaves
+    model = res["model"]
+    d = model.cfg.d_model
+    billed = protocol.billed_hop_bytes(T_BATCH * T_SEQ * d, d, wire,
+                                       model.dtype.itemsize)
+    for row in res["rows"]:
+        if not math.isfinite(row["loss"]):
+            fail(f"{name}: step {row['step']} loss {row['loss']}")
+        if row["hop_bytes_up"] != billed or row["hop_bytes_down"] != billed:
+            fail(f"{name} step {row['step']}: hop bytes up "
+                 f"{row['hop_bytes_up']} down {row['hop_bytes_down']} != "
+                 f"billed {billed}")
+    fresh = LM(model.cfg, dev).init(
         torch.Generator(device=dev).manual_seed(SEED), master=True)
     pairs = zip(tree_leaves(res["state"]["params"]), tree_leaves(fresh))
-    flags = [bool(torch.equal(a, b)) for a, b in pairs]
-    return len(flags), sum(flags)
+    same = sum(bool(torch.equal(a, b)) for a, b in pairs)
+    n = len(tree_leaves(fresh))
+    if same:
+        fail(f"{name}: {same} of {n} parameter tensors did not change")
+    return n, billed
 
 
 def run_training_path(torch, ops, train, protocol, dev, wc, profile_int8):
@@ -1058,8 +1209,6 @@ def run_training_path(torch, ops, train, protocol, dev, wc, profile_int8):
     ``profile_int8(result)`` after the launch counts are read.  Every
     WKV6 launch must take the chunked route, every decode "warp256"."""
     from repro_torch.kernels import rwkv6 as rw
-    from repro_torch.models.lm import LM
-    from repro_torch.utils.trees import tree_leaves
     rows, launches, keep = {}, None, None
     ops.reset_launches()
     rw.ROUTES.clear()
@@ -1069,20 +1218,8 @@ def run_training_path(torch, ops, train, protocol, dev, wc, profile_int8):
             res = train.main(_train_argv(wire))
         torch.cuda.synchronize()
         rows[wire] = res["rows"]
-        d = res["model"].cfg.d_model
-        billed = protocol.billed_hop_bytes(T_BATCH * T_SEQ * d, d, wire, 2)
-        for row in res["rows"]:
-            if not math.isfinite(row["loss"]):
-                fail(f"train {wire}: step {row['step']} loss {row['loss']}")
-            if row["hop_bytes_up"] != billed or \
-                    row["hop_bytes_down"] != billed:
-                fail(f"train {wire} step {row['step']}: hop bytes up "
-                     f"{row['hop_bytes_up']} down {row['hop_bytes_down']} "
-                     f"!= billed {billed}")
-        n, same = unchanged_params(torch, LM, tree_leaves, res, dev)
-        if same:
-            fail(f"train {wire}: {same} of {n} parameter tensors did not "
-                 "change")
+        n, billed = check_training_run(torch, protocol, dev, res,
+                                       f"train {wire}", wire)
         print(f"train {wire}: losses "
               f"{[round(r['loss'], 5) for r in res['rows']]}, all {n} "
               f"parameter tensors changed, hop bytes per step up == down == "
@@ -1106,6 +1243,49 @@ def run_training_path(torch, ops, train, protocol, dev, wc, profile_int8):
           f"WKV6 routes {json.dumps(routes, sort_keys=True)}")
     profile_int8(keep)
     del keep
+    torch.cuda.empty_cache()
+    return rows, launches, calls
+
+
+def run_qwen_training(torch, ops, train, protocol, dev, wc, card):
+    """C2P2SL training of qwen1.5-4b at full width through the training
+    CLI, int8 hop, after rwkv6-3b's state is freed; the launch counts are
+    read around that one run.  Returns (rows, launches, codec calls by
+    shape); the final state goes to ``profile_training_step``, whose
+    flash lines give the forward's and backward's device time."""
+    from repro_torch.kernels import flash_attention as fa
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    fa.ROUTES.clear()
+    wc.ROUTES.clear()
+    with codec_calls(wc) as calls:
+        res = train.main(_train_argv("int8", ARCH))
+    torch.cuda.synchronize()
+    launches, routes = dict(ops.LAUNCHES), dict(fa.ROUTES)
+    n, billed = check_training_run(torch, protocol, dev, res,
+                                   f"train {ARCH}", "int8")
+    d = res["model"].cfg.d_model
+    if launches != Q_LAUNCHES:
+        fail(f"train {ARCH}: launches {launches} != {Q_LAUNCHES}")
+    if routes != {"mma": Q_LAUNCHES["flash_attention"]}:
+        fail(f"train {ARCH}: flash routes {routes}: not all on mma")
+    check_codec_calls(wc, f"{ARCH} training path", launches, calls,
+                      dict(wc.ROUTES))
+    rows_, dt = T_BATCH // T_K * T_SEQ, str(res["model"].dtype).split(".")[-1]
+    want = {(kern, rows_, d, dt, "int8"): Q_LAUNCHES[kern]
+            for kern in ("wire_encode", "wire_decode")}
+    if dict(calls) != want:
+        fail(f"train {ARCH}: codec calls {dict(calls)} != {want}")
+    peak = max(r["peak_gb"] for r in res["rows"])
+    print(f"train {ARCH} int8: losses "
+          f"{[round(r['loss'], 5) for r in res['rows']]}, all {n} parameter "
+          f"tensors changed, hop bytes per step up == down == billed "
+          f"{billed:.0f}; launches {json.dumps(launches, sort_keys=True)}, "
+          f"flash routes {routes}; peak {peak:.2f} GB on {card}")
+    profile_training_step(torch, res, {"flash forward": "flash_fwd",
+                                       "flash backward": "flash_bwd"})
+    rows = res["rows"]
+    del res
     torch.cuda.empty_cache()
     return rows, launches, calls
 
@@ -1165,9 +1345,10 @@ def run_c2p2sl(torch, dev):
     torch.cuda.empty_cache()
 
 
-def profile_training_step(torch, res):
+def profile_training_step(torch, res, watch):
     """Where a training step's time goes: one more step of the int8 run
-    traced with torch.profiler."""
+    traced with torch.profiler; ``watch`` maps a label to a substring of
+    kernel names, whose device time and launches are summed."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.synthetic import TokenTaskConfig, token_batches
@@ -1189,14 +1370,18 @@ def profile_training_step(torch, res):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     busy_us, rows, us = _kernel_us(prof.key_averages())
-    wkv = [e for e in rows if "wkv6" in e.key]
-    print(f"profile training step (int8, traced): wall {wall:.3f} ms, "
-          f"device busy {busy_us / 1e3:.3f} ms, idle share "
+    found = {label: [e for e in rows if key in e.key]
+             for label, key in watch.items()}
+    print(f"profile training step ({model.cfg.name}, int8, traced): wall "
+          f"{wall:.3f} ms, device busy {busy_us / 1e3:.3f} ms, idle share "
           f"{1 - busy_us / 1e3 / wall:.3f}, "
-          f"{sum(e.count for e in rows)} device operations; WKV6 kernels "
-          f"{sum(us(e) for e in wkv) / 1e3:.3f} ms in "
-          f"{sum(e.count for e in wkv)} launches")
-    for e in rows[:8] + [e for e in wkv if e not in rows[:8]]:
+          f"{sum(e.count for e in rows)} device operations; "
+          + "; ".join(f"{label} kernels {sum(us(e) for e in es) / 1e3:.3f} "
+                      f"ms in {sum(e.count for e in es)} launches"
+                      for label, es in found.items()))
+    seen = rows[:8]
+    for e in seen + [e for es in found.values() for e in es
+                     if e not in seen]:
         print(f"  {us(e) / 1e3:9.3f} ms/step  {e.count:6d} calls/step  "
               f"{e.key[:70]}")
 
@@ -1358,14 +1543,18 @@ def time_kernels(torch, wc, fa, rw, rg, dev, serve_launches, rg_launches,
                  ptxas):
     """Device time of every kernel at its main path's shape beside its
     plain version's, its bound and a library call where one exists.
-    The codec rows take the qwen serving and training paths' calls at
-    their shape (``time_codec``); ``launches`` sums each other kernel's
-    count over the qwen serving and the training main paths; the
-    recurrentgemma rows (the scan, and flash at head dim 256) take that
-    path's counts."""
+    The codec rows take the qwen serving and the training paths' calls at
+    their shape (``time_codec``); flash at dh 128 takes the qwen serving
+    path's count, and its training call (with lse, a row of its own) the
+    training paths'; ``launches`` sums each other kernel's count over the
+    qwen serving and the training main paths (``train_launches``:
+    rwkv6-3b's and qwen1.5-4b's); the recurrentgemma rows (the scan, and
+    flash at head dim 256) take that path's counts."""
     import torch.nn.functional as F
-    launches = {n: serve_launches.get(n, 0) + train_launches.get(n, 0)
-                for n in set(serve_launches) | set(train_launches)}
+    trained = collections.Counter()
+    for counts in train_launches:
+        trained.update(counts)
+    launches = collections.Counter(serve_launches) + trained
     gen = torch.Generator(device=dev).manual_seed(4)
     out = time_codec(torch, wc, dev, *codec_calls_)
 
@@ -1381,7 +1570,7 @@ def time_kernels(torch, wc, fa, rw, rg, dev, serve_launches, rg_launches,
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:73",
-        "launches": launches.get("flash_attention", 0),
+        "launches": serve_launches.get("flash_attention", 0),
         "max_abs_err": flash_err[128],
         "ms": device_ms(lambda: fa.flash_attention_cuda(*qkv, causal=True)),
         "plain_ms": device_ms(lambda: fa.attention_plain(*qkv, causal=True),
@@ -1390,10 +1579,106 @@ def time_kernels(torch, wc, fa, rw, rg, dev, serve_launches, rg_launches,
         "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
             *contig, is_causal=True))})
     print(rate_line(out[-1], 4 * dh * pairs))
+    out.append(time_flash_train(torch, fa, dev,
+                                trained.get("flash_attention", 0)))
+    out.append(time_flash_bwd(torch, fa, dev,
+                              launches.get("flash_attention_bwd", 0),
+                              flash_err["bwd"],
+                              ptxas.get("flash_attention_bwd", [])))
     out += time_wkv6(torch, rw, dev, launches, wkv_err, ptxas.get("wkv6", []))
     out += time_hybrid(torch, fa, rg, dev, rg_launches, flash_err[256],
                        rglru_err, ptxas.get("rglru", []))
     return out
+
+
+def time_flash_train(torch, fa, dev, launches):
+    """The flash forward with lse at qwen1.5-4b's training call: [2, 20,
+    512, 128] bf16, causal, q, k, v in the model layout, from cold data
+    (``cold_ms``).  Bound: q, k, v read and O and lse written once at
+    3.35 TB/s, against its two products (S and PV: 2 dh operations a
+    causal (q, k) pair each) at the bf16 tensor-core rate.  The library
+    yardstick is SDPA's forward on contiguous copies that require grad,
+    under grad mode: the call that keeps its lse for the backward (timed
+    here only).  The max abs error is over O and lse against
+    ``attention_plain_lse`` on the row's inputs."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(15)
+    b, h, s, dh = Q_TRAIN
+    q, k, v = (torch.randn((b, s, h, dh), generator=gen, device=dev)
+               .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+    fa.ROUTES.clear()
+    o, lse = fa.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+    if dict(fa.ROUTES) != {"mma": 1}:
+        fail(f"flash with lse at {list(Q_TRAIN)}: routes {dict(fa.ROUTES)}")
+    o_p, lse_p = fa.attention_plain_lse(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = max(float((o.float() - o_p.float()).abs().max()),
+              float((lse - lse_p).abs().max()))
+    nbytes = 4 * b * h * s * dh * 2 + b * h * s * 4
+    flops = 4 * dh * (b * h * s * (s + 1) // 2)
+    b_ms, b_by = bound(nbytes, flops, BF16_OPS_S)
+    lib = [t.contiguous().requires_grad_(True) for t in (q, k, v)]
+    fwd = lambda *a: fa.flash_attention_cuda(*a, causal=True, with_lse=True)
+    row = {
+        "name": "flash_attention_train", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:73",
+        "shape": [b, h, s, dh], "dtype": "bfloat16", "with_lse": True,
+        "launches": launches, "max_abs_err": err,
+        "ms": cold_ms(fwd, (q, k, v), nbytes),
+        "plain_ms": device_ms(lambda: fa.attention_plain_lse(
+            q, k, v, causal=True), iters=10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+            *lib, is_causal=True))}
+    print(rate_line(row, flops))
+    return row
+
+
+def time_flash_bwd(torch, fa, dev, launches, err, ptxas):
+    """The flash backward at qwen1.5-4b's training call: [2, 20, 512, 128]
+    bf16, causal, q, k, v and dO in the model layout, from cold data
+    (``cold_ms``).  Bound: q, k, v, O, dO and lse read once and dq, dk, dv
+    written once (~42 MB) at 3.35 TB/s, against its five products (S,
+    dP, dV, dK, dQ: 2 dh operations a causal (q, k) pair each, ~6.7
+    GFLOP) at the bf16 tensor-core rate: the bytes bound it.  The library
+    yardstick is SDPA's backward, ``torch.autograd.grad`` through
+    ``F.scaled_dot_product_attention`` on contiguous copies (timed here
+    only).  The row carries ptxas' registers and spills of the bf16 dh 128
+    instances."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(14)
+    b, h, s, dh = Q_TRAIN
+    q, k, v, do = (torch.randn((b, s, h, dh), generator=gen, device=dev)
+                   .to(torch.bfloat16).transpose(1, 2) for _ in range(4))
+    o, lse = fa.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+    nbytes = 8 * b * h * s * dh * 2 + b * h * s * 4
+    flops = 5 * 2 * dh * (b * h * s * (s + 1) // 2)
+    b_ms, b_by = bound(nbytes, flops, BF16_OPS_S)
+    lib = [t.contiguous().requires_grad_(True) for t in (q, k, v)]
+    lib_out, lib_do = F.scaled_dot_product_attention(*lib, is_causal=True), \
+        do.contiguous()
+    bwd = lambda *a: fa.flash_attention_bwd_cuda(*a, causal=True)
+    row = {
+        "name": "flash_attention_bwd", "route": "cuda", "kernel_route": "simt",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/common.py:88",   # no Pallas backward
+        "shape": [b, h, s, dh], "dtype": "bfloat16",
+        "launches": launches, "max_abs_err": err,
+        "ms": cold_ms(bwd, (q, k, v, o, lse, do), nbytes),
+        "plain_ms": device_ms(lambda: fa.attention_bwd_plain(
+            q, k, v, o, lse, do, causal=True), iters=5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(lambda: torch.autograd.grad(
+            lib_out, lib, lib_do, retain_graph=True)),
+        "ptxas": {n: f"{used}; {spill}" for n, used, spill in ptxas
+                  if "bfloat16, 128>" in n or "bfloat16Li128E" in n}}
+    print(rate_line(row, flops))
+    print(f"flash_attention_bwd at {list(Q_TRAIN)} bf16: "
+          f"{device_ms(lambda: bwd(q, k, v, o, lse, do)):.4f} ms back to "
+          f"back on one input, {cuda_ms(lambda: bwd(q, k, v, o, lse, do)):.4f}"
+          f" ms between events; ptxas {row['ptxas']}")
+    return row
 
 
 def wkv6_products(b, s, h, dh=64, chunk=64, sub=16):
@@ -1659,7 +1944,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
@@ -1682,6 +1968,7 @@ def main():
 
     check_codec(torch, wc, dev)
     flash_err = check_flash(torch, fa, dev)
+    flash_err["bwd"] = check_flash_bwd(torch, fa, dev)
     rglru_err = check_rglru(torch, rg, dev)
     check_refuses_autograd(torch, ops, dev)
     wkv_err = check_wkv6(torch, rw, dev)
@@ -1690,7 +1977,7 @@ def main():
     check_small_hybrid(torch, dev)
     check_small_moe(torch, dev)
     check_small_moe_split(torch, ops, serve)
-    check_small_training(torch, dev)
+    check_small_training(torch, ops, dev)
     phase("build and kernel checks")
 
     static, split, launches, serve_calls = run_main_path(torch, ops, serve,
@@ -1727,7 +2014,7 @@ def main():
 
     rows, train_launches, train_calls = run_training_path(
         torch, ops, train, protocol, dev, wc,
-        lambda res: profile_training_step(torch, res))
+        lambda res: profile_training_step(torch, res, {"WKV6": "wkv6"}))
     for wire, rs in rows.items():
         for r in rs:
             print(f"main path train {wire} step {r['step']}: loss "
@@ -1738,8 +2025,19 @@ def main():
     run_c2p2sl(torch, dev)
     phase(f"{T_ARCH} training, profile and c2p2sl step")
 
+    q_rows, q_launches, q_calls = run_qwen_training(torch, ops, train,
+                                                    protocol, dev, wc, card)
+    for r in q_rows:
+        print(f"main path train {ARCH} int8 step {r['step']}: loss "
+              f"{r['loss']:.5f}, {r['step_ms']:.1f} ms, "
+              f"{r['tokens_per_s']:.0f} tokens/s, peak {r['peak_gb']:.2f} "
+              f"GB, hop up {r['hop_bytes_up']} B, down "
+              f"{r['hop_bytes_down']} B")
+    phase(f"{ARCH} training and profile")
+
     kernels = time_kernels(torch, wc, fa, rw, rg, dev, launches, rg_launches,
-                           train_launches, (serve_calls, train_calls),
+                           (train_launches, q_launches),
+                           (serve_calls, train_calls + q_calls),
                            flash_err, wkv_err, rglru_err, ptxas)
     kernels += time_moe(torch, mg, fa, dev, gr_prefill, gr_launches, gmm_err,
                         flash_err[GR_HEADS[2]])

@@ -7,6 +7,11 @@
 //   a unit stride along dh) -> o [B, Hq, Sq, dh] in q's dtype.
 //   scores scaled by 1/sqrt(dh); running max m and denominator l in f32;
 //   masked entries are -1e30 (as in the Pallas body); out = acc / max(l, 1e-30).
+//   Given a non-null `lse` [B, Hq, Sq] f32, both routes also write each
+//   row's log-sum-exp m + log l in natural units, which the backward
+//   (flash_attention_bwd.cu) recomputes P from; serving passes null.  A row
+//   without any key writes -1e30 (its sum of exp(-1e30) terms), as the plain
+//   version does.
 //   Masks are positional from 0 on both sides: causal k <= q, window
 //   k > q - window.  GQA reads kv head h / (Hq / Hkv); grouped K/V are never
 //   materialized.  Any Sq and Skv: the ragged edge is masked here (the
@@ -98,9 +103,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv,
-          int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os,
-          float scale, int causal, int window) {
+          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+          int Hq, int Hkv, int Sq, int Skv, Strides qs, Strides ks,
+          Strides vs, Strides os, float scale, int causal, int window) {
   constexpr int RQ = kBQ / 16;  // rows per thread
   constexpr int CK = kBK / 16;  // key columns per thread
   constexpr int CD = DH / 16;   // output columns per thread
@@ -226,12 +231,17 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < CD; ++j)
       store(op + qi * os.s + tx + 16 * j, __fdiv_rn(acc[i][j], denom));
+    // m is in natural units here (q carries the scale); a row without a key
+    // has m = -1e30, and -1e30 + log(Skv) rounds to -1e30
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(bb) * Hq + h) * Sq + qi] =
+          m[i] + logf(l[i]);
   }
 }
 
 template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int Sq, int Skv, Strides qs, Strides ks,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Hq, int Hkv, int Sq, int Skv, Strides qs, Strides ks,
            Strides vs, Strides os, float scale, int causal, int window,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
@@ -242,8 +252,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   flash_fwd<T, DH><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Skv, qs, ks,
-      vs, os, scale, causal, window);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hkv, Sq, Skv, qs,
+      ks, vs, os, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -317,9 +327,9 @@ __global__ void __launch_bounds__(kThreadsMma)
 flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Sq, int Skv,
-              Strides qs, Strides ks, Strides vs, Strides os, float scale_log2,
-              int causal, int window) {
+              __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Hq,
+              int Hkv, int Sq, int Skv, Strides qs, Strides ks, Strides vs,
+              Strides os, float scale_log2, int causal, int window) {
   using Cf = Cfg<DH>;
   constexpr int BK = Cf::BK;
   constexpr int NB = BK / 8;   // n8 blocks of keys in S
@@ -501,12 +511,19 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
           __floats2bfloat162_rn(__fdiv_rn(acc[j][2 * i], denom),
                                 __fdiv_rn(acc[j][2 * i + 1], denom));
+    // m is in log2 units: lse = (m + log2 l) ln 2.  The mask value is -1e30
+    // in those units too, so a row without a key (m = -1e30) writes -1e30,
+    // the natural-unit sum the plain version and the SIMT route give.
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(static_cast<long long>(bb) * Hq + h) * Sq + qi] =
+          m[i] == kMasked ? kMasked
+                          : (m[i] + log2f(l[i])) * 0.6931471805599453f;
   }
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int Sq, int Skv, Strides qs, Strides ks,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Hq, int Hkv, int Sq, int Skv, Strides qs, Strides ks,
            Strides vs, Strides os, float scale, int causal, int window,
            cudaStream_t stream) {
   constexpr int smem = Cfg<DH>::SMEM;
@@ -518,8 +535,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale * 1.4426950408889634f, causal,
-      window);
+      lse, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale * 1.4426950408889634f,
+      causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -528,16 +545,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // ROUTE_MMA launches mma::launch<DH> (bf16 only), ROUTE_SIMT launch<T, DH>.
 template <typename T>
 int dispatch_dh(int route, int dh, const void* q, const void* k,
-                const void* v, void* o, int B, int Hq, int Hkv, int Sq,
-                int Skv, Strides qs, Strides ks, Strides vs, Strides os,
-                float scale, int causal, int window, cudaStream_t stream) {
-#define FLASH_CASE(DH)                                                      \
-  case DH:                                                                  \
-    return route == ROUTE_MMA                                               \
-               ? mma::launch<DH>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks,   \
-                                 vs, os, scale, causal, window, stream)     \
-               : launch<T, DH>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, \
-                               os, scale, causal, window, stream);
+                const void* v, void* o, float* lse, int B, int Hq, int Hkv,
+                int Sq, int Skv, Strides qs, Strides ks, Strides vs,
+                Strides os, float scale, int causal, int window,
+                cudaStream_t stream) {
+#define FLASH_CASE(DH)                                                    \
+  case DH:                                                                \
+    return route == ROUTE_MMA                                             \
+               ? mma::launch<DH>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, \
+                                 ks, vs, os, scale, causal, window, stream) \
+               : launch<T, DH>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs,   \
+                               ks, vs, os, scale, causal, window, stream);
   switch (dh) {
     FLASH_CASE(16)
     FLASH_CASE(32)
@@ -554,15 +572,17 @@ int dispatch_dh(int route, int dh, const void* q, const void* k,
 
 extern "C" {
 
-// Strides are in elements, for the [B, H, S, dh] index order.  route: 0
+// Strides are in elements, for the [B, H, S, dh] index order.  lse: null,
+// or [B, Hq, Sq] f32 for each row's log-sum-exp.  route: 0
 // the SIMT kernel (f32 or bf16), 1 the tensor-core kernel (bf16, bases and
 // strides 16-byte aligned; kernels/flash_attention.py `route` checks this
 // before the launch).  Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a head dim without an instantiation: 16, 32,
 // 64, 128 and 256 are built; or a route the dtype does not take).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int B, int Hq, int Hkv, int Sq, int Skv, int dh,
-                        int dtype, long long qsb, long long qsh, long long qss,
+                        float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
+                        int dh, int dtype, long long qsb, long long qsh,
+                        long long qss,
                         long long ksb, long long ksh, long long kss,
                         long long vsb, long long vsh, long long vss,
                         long long osb, long long osh, long long oss,
@@ -578,11 +598,11 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
       os{osb, osh, oss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_BF16)
-    return dispatch_dh<__nv_bfloat16>(route, dh, q, k, v, o, B, Hq, Hkv, Sq,
-                                      Skv, qs, ks, vs, os, scale, causal,
+    return dispatch_dh<__nv_bfloat16>(route, dh, q, k, v, o, lse, B, Hq, Hkv,
+                                      Sq, Skv, qs, ks, vs, os, scale, causal,
                                       window, s);
-  return dispatch_dh<float>(route, dh, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs,
-                            ks, vs, os, scale, causal, window, s);
+  return dispatch_dh<float>(route, dh, q, k, v, o, lse, B, Hq, Hkv, Sq, Skv,
+                            qs, ks, vs, os, scale, causal, window, s);
 }
 
 const char* flash_attention_error_string(int code) {

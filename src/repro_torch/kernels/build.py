@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("wire_codec", "flash_attention", "wkv6", "rglru", "moe_gmm")
+SOURCES = ("wire_codec", "flash_attention", "flash_attention_bwd", "wkv6",
+           "rglru", "moe_gmm")
 
 _LOADED: dict = {}
 

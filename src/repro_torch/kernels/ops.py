@@ -6,12 +6,13 @@ tensor launches the hand-written kernel, which raises when it cannot
 back.  ``LAUNCHES[name]`` grows by one at each launch of that kernel and
 nowhere else, so a run can show that its path went through the kernels.
 
-``wkv6`` is differentiable on both devices: on the CPU autograd runs
-through the plain version, on the card through ``_WKV6``, whose backward
-is the hand-written backward kernel (counted as ``wkv6_bwd``).  The flash,
-RG-LRU and grouped-matmul kernels have no backward yet, so on the card
-they refuse to run under autograd rather than drop the gradients of
-their inputs; on the CPU autograd runs through their plain versions.
+``wkv6`` and ``flash_attention`` are differentiable on both devices: on
+the CPU autograd runs through the plain versions, on the card through
+``_WKV6`` and ``_Flash``, whose backwards are the hand-written backward
+kernels (counted as ``wkv6_bwd`` and ``flash_attention_bwd``).  The RG-LRU
+and grouped-matmul kernels have no backward yet, so on the card they
+refuse to run under autograd rather than drop the gradients of their
+inputs; on the CPU autograd runs through their plain versions.
 """
 from __future__ import annotations
 
@@ -25,8 +26,8 @@ from repro_torch.kernels import rglru as _rg
 from repro_torch.kernels import rwkv6 as _rw
 from repro_torch.kernels import wire_codec as _wc
 
-KERNELS = ("wire_encode", "wire_decode", "flash_attention", "wkv6",
-           "wkv6_bwd", "rglru_scan", "moe_gmm")
+KERNELS = ("wire_encode", "wire_decode", "flash_attention",
+           "flash_attention_bwd", "wkv6", "wkv6_bwd", "rglru_scan", "moe_gmm")
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -61,19 +62,46 @@ def wire_decode(q: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+def _records_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def _refuse_autograd(kernel: str, *tensors) -> None:
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    if _records_grad(*tensors):
         raise NotImplementedError(
             f"the {kernel} kernel has no backward yet: it runs on the card "
             "only without autograd (torch.no_grad / inference_mode)")
+
+
+class _Flash(torch.autograd.Function):
+    """The CUDA flash forward (which also writes each row's log-sum-exp)
+    and the backward kernels as one autograd node."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _fa.flash_attention_cuda(q, k, v, causal=causal,
+                                            window=window, with_lse=True)
+        LAUNCHES["flash_attention"] += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _fa.flash_attention_bwd_cuda(
+            q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window)
+        LAUNCHES["flash_attention_bwd"] += 1
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q [B,Hq,S,dh], k/v [B,Hkv,S,dh] -> [B,Hq,S,dh]."""
     if not _on_cuda(q):
         return _fa.attention_plain(q, k, v, causal=causal, window=window)
-    _refuse_autograd("flash", q, k, v)
+    if _records_grad(q, k, v):
+        return _Flash.apply(q, k, v, causal, window)
     out = _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
     LAUNCHES["flash_attention"] += 1
     return out

@@ -282,23 +282,176 @@ def test_wkv6_autograd_counts_forward_and_backward_launches():
     assert all(bool(torch.isfinite(t).all()) for t in grads)
 
 
-def test_flash_kernel_refuses_autograd():
+def test_flash_autograd_launches_the_backward_kernel():
+    """Under autograd ops.flash_attention is one node of the forward and
+    backward kernels: gradients equal the CPU's autograd through the plain
+    version, one launch each; without autograd the forward alone."""
     dev = cuda_device()
-    t = torch.randn(1, 2, 16, 64, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        ops.flash_attention(t, t, t)
+    g = torch.Generator().manual_seed(8)
+    qkv = [torch.randn((1, 4, 70, 64), generator=g) for _ in range(3)]
+    cpu = [t.clone().requires_grad_(True) for t in qkv]
+    card = [t.to(dev).requires_grad_(True) for t in qkv]
+    want = torch.autograd.grad(ops.flash_attention(*cpu).square().sum(), cpu)
+    ops.reset_launches()
+    out = ops.flash_attention(*card)
+    assert dict(ops.LAUNCHES) == {"flash_attention": 1}
+    got = torch.autograd.grad(out.square().sum(), card)
+    assert dict(ops.LAUNCHES) == {"flash_attention": 1,
+                                  "flash_attention_bwd": 1}
+    for a, b in zip(got, want):
+        assert float((a.cpu() - b).abs().max()) <= 2e-4
     with torch.no_grad():
-        assert ops.flash_attention(t, t, t).shape == t.shape
+        assert ops.flash_attention(*card).shape == card[0].shape
+    assert dict(ops.LAUNCHES) == {"flash_attention": 2,
+                                  "flash_attention_bwd": 1}
 
 
-@pytest.mark.parametrize("wire_dtype", ["none", "int8"])
-def test_small_rwkv_training_step_on_card_matches_cpu(wire_dtype):
-    """One pipelined (S = 2, k = 2) SGD step of the f32 smoke RWKV model,
-    the hop raw or int8-coded (the codec is bit-exact on both devices):
-    loss and updated parameters at 1e-4, every kernel of the path
-    launched."""
+FLASH_BWD_CASES = [  # (b, hq, hkv, sq, skv, dh, causal, window, bshd)
+    (2, 4, 4, 130, 130, 64, True, 0, True),
+    (2, 6, 2, 100, 100, 64, True, 0, True),       # GQA rep 3
+    (1, 4, 2, 150, 150, 128, True, 24, False),    # sliding window, GQA
+    (1, 2, 2, 90, 90, 128, False, 0, False),
+    (1, 2, 1, 96, 96, 64, False, 32, True),       # bidirectional window
+    (1, 1, 1, 256, 128, 64, True, 16, False),     # rows 143-255: no key
+]
+
+
+def _flash_bwd_inputs(dev, case, dt, seed=0):
+    """q, k, v (model-layout views where ``bshd``), the forward's output
+    and lse on the card, and dO: a model-layout view where ``bshd`` (read
+    in place), else laid out [B, H, dh, S], with no unit stride along dh
+    (the wrapper copies it)."""
+    b, hq, hkv, sq, skv, dh, causal, window, bshd = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def mk(h, s):
+        if bshd:
+            return torch.randn((b, s, h, dh), generator=g, device=dev).to(
+                dt).transpose(1, 2)
+        return torch.randn((b, h, s, dh), generator=g, device=dev).to(dt)
+    q, k, v = mk(hq, sq), mk(hkv, skv), mk(hkv, skv)
+    o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                     with_lse=True)
+    if bshd:
+        do = mk(hq, sq)
+    else:
+        do = torch.randn((b, hq, dh, sq), generator=g, device=dev).to(
+            dt).transpose(2, 3)
+    return q, k, v, o, lse, do
+
+
+# element by element, |g - p| <= atol + rtol |p|: bf16 rounds each gradient
+# to 2^-8 of its size, so a missing contribution to a small entry shows
+FLASH_BWD_ELEM = {"float32": (2e-5, 1e-4), "bfloat16": (1e-3, 2 ** -7)}
+
+
+def _assert_elementwise(got, want, dt):
+    atol, rtol = FLASH_BWD_ELEM[dt]
+    err = (got.float() - want).abs()
+    assert bool((err <= atol + rtol * want.abs()).all()), float(err.max())
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=str)
+@pytest.mark.parametrize("dt,tol", [("float32", 2e-4), ("bfloat16", 5e-2)])
+def test_flash_bwd_matches_plain(case, dt, tol):
+    """dq, dk, dv against attention_bwd_plain on the same values (in f32),
+    within ``tol`` absolute and ``FLASH_BWD_ELEM`` element by element, and
+    the forward's lse against the plain lse (rows without a key: both
+    -1e30)."""
     dev = cuda_device()
-    cfg = get_arch("rwkv6-3b").smoke
+    causal, window = case[6], case[7]
+    q, k, v, o, lse, do = _flash_bwd_inputs(dev, case, TORCH_DT[dt])
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
+                                        window=window)
+    f32 = [t.float() for t in (q, k, v)]
+    _, lse_p = fa.attention_plain_lse(*f32, causal=causal, window=window)
+    plain = fa.attention_bwd_plain(*f32, o.float(), lse_p, do.float(),
+                                   causal=causal, window=window)
+    assert float((lse - lse_p).abs().max()) <= 1e-4
+    for got, want, t in zip(grads, plain, (q, k, v)):
+        assert got.dtype == t.dtype and got.shape == t.shape
+        assert float((got.float() - want).abs().max()) <= tol
+        _assert_elementwise(got, want, dt)
+
+
+def test_flash_bwd_misaligned_bf16_and_the_full_width_call():
+    """A bf16 q based 2 bytes off 16 (the forward on SIMT) and qwen1.5-4b's
+    training call [2, 20, 512, 128] in the model layout, within 5e-2 and
+    element by element."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(9)
+    n = 2 * 4 * 40 * 64
+    buf = torch.randn(n + 1, generator=g, device=dev).to(torch.bfloat16)
+    q = buf[1:].view(2, 4, 40, 64)
+    k, v, do = (torch.randn((2, 4, 40, 64), generator=g, device=dev)
+                .to(torch.bfloat16) for _ in range(3))
+    cases = [(q, k, v, do)]
+    cases.append([torch.randn((2, 512, 20, 128), generator=g, device=dev)
+                  .to(torch.bfloat16).transpose(1, 2) for _ in range(4)])
+    for q, k, v, do in cases:
+        fa.ROUTES.clear()
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+        assert dict(fa.ROUTES) == {"simt" if q.data_ptr() % 16 else "mma": 1}
+        grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+        f32 = [t.float() for t in (q, k, v)]
+        _, lse_p = fa.attention_plain_lse(*f32, causal=True)
+        plain = fa.attention_bwd_plain(*f32, o.float(), lse_p, do.float(),
+                                       causal=True)
+        for got, want in zip(grads, plain):
+            assert float((got.float() - want).abs().max()) <= 5e-2
+            _assert_elementwise(got, want, "bfloat16")
+
+
+def test_flash_bwd_is_bit_reproducible():
+    """No float atomics: two backward calls on the same inputs give the
+    same bits (GQA, a window and rows without a key included)."""
+    dev = cuda_device()
+    for case in (FLASH_BWD_CASES[1], FLASH_BWD_CASES[-1]):
+        q, k, v, o, lse, do = _flash_bwd_inputs(dev, case, torch.bfloat16, 3)
+        kw = dict(causal=case[6], window=case[7])
+        first = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        second = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("sq,skv", [(0, 16), (16, 0)])
+def test_flash_bwd_at_zero_length_gives_zero_gradients(sq, skv):
+    """No query row or no key: nothing to launch, and the gradients are
+    zeros (an empty dq, or dk and dv), as the plain version gives."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, do = (torch.randn((1, 2, sq, 64), generator=g, device=dev)
+             for _ in range(2))
+    k, v = (torch.randn((1, 2, skv, 64), generator=g, device=dev)
+            for _ in range(2))
+    o, lse = torch.zeros_like(q), torch.zeros((1, 2, sq), device=dev)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    plain = fa.attention_bwd_plain(q, k, v, o, lse, do)
+    for got, want, t in zip(grads, plain, (q, k, v)):
+        assert got.shape == t.shape and torch.equal(got, want)
+        assert not bool(got.any())
+
+
+def test_flash_bwd_raises_on_what_it_does_not_take():
+    dev = cuda_device()
+    t = torch.randn(1, 2, 8, 256, device=dev)    # dh 256: tiles too large
+    o, lse = fa.flash_attention_cuda(t, t, t, with_lse=True)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_cuda(t, t, t, o, lse, t)
+    t = torch.randn(1, 2, 8, 64, device=dev)
+    o, lse = fa.flash_attention_cuda(t, t, t, with_lse=True)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_cuda(t, t, t, o, lse[:, :1], t)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_cuda(t, t, t, o, lse, t.bfloat16())
+
+
+def _small_training_step_on_card_and_cpu(arch, wire_dtype):
+    """One pipelined (S = 2, k = 2) SGD step of ``arch``'s f32 smoke model
+    on the CPU and on the card: (loss, params, launches) of each."""
+    dev = cuda_device()
+    cfg = get_arch(arch).smoke
     params = LM(cfg, "cpu").init(torch.Generator().manual_seed(0),
                                  master=True)
     gen = torch.Generator().manual_seed(2)
@@ -321,9 +474,29 @@ def test_small_rwkv_training_step_on_card_matches_cpu(wire_dtype):
     assert abs(lg - lc) <= 1e-4 * abs(lc)
     for a, b in zip(tree_leaves(pg), tree_leaves(pc)):
         assert float((a.detach().cpu() - b.detach()).abs().max()) <= 1e-4
-    assert launches["wkv6"] > 0 and launches["wkv6_bwd"] > 0
     if wire_dtype == "int8":
         assert launches["wire_encode"] == launches["wire_decode"] == 4
+    return launches
+
+
+@pytest.mark.parametrize("wire_dtype", ["none", "int8"])
+def test_small_rwkv_training_step_on_card_matches_cpu(wire_dtype):
+    """One pipelined (S = 2, k = 2) SGD step of the f32 smoke RWKV model,
+    the hop raw or int8-coded (the codec is bit-exact on both devices):
+    loss and updated parameters at 1e-4, every kernel of the path
+    launched."""
+    launches = _small_training_step_on_card_and_cpu("rwkv6-3b", wire_dtype)
+    assert launches["wkv6"] > 0 and launches["wkv6_bwd"] > 0
+
+
+@pytest.mark.parametrize("wire_dtype", ["none", "int8"])
+def test_small_qwen_training_step_on_card_matches_cpu(wire_dtype):
+    """The same step on the f32 smoke qwen model: every attention block's
+    backward is the flash backward kernel.  2 blocks x 2 micro-batches:
+    each block's forward runs twice under its activation checkpoint."""
+    launches = _small_training_step_on_card_and_cpu("qwen1.5-4b", wire_dtype)
+    assert launches["flash_attention"] == 8
+    assert launches["flash_attention_bwd"] == 4
 
 
 RGLRU_CASES = [  # (b, s, r, h0)

@@ -2,7 +2,9 @@
 
 Parameters come from the reference's ``init`` through ``bridge.py``; data
 from numpy seeds (``token_batches`` is the same numpy code on both sides).
-Everything runs in f32 on the smoke RWKV config.  Tolerances:
+Everything runs in f32 on the smoke configs; the steps, the bridge and
+the CLI run on both ``rwkv6-3b`` and ``qwen1.5-4b`` (``ARCHS``: the WKV6
+and the attention blocks).  Tolerances:
 
 * optimizers and the schedule: 1e-6 relative (elementwise f32 updates);
 * the microbatched train step: 1e-5 on parameters and AdamW's m and v,
@@ -44,8 +46,8 @@ from repro_torch.runtime import protocol
 from repro_torch.training import optim
 from repro_torch.utils.trees import tree_leaves
 
-CFG_REF = ref_arch("rwkv6-3b").smoke
 CFG = get_arch("rwkv6-3b").smoke
+ARCHS = ("rwkv6-3b", "qwen1.5-4b")
 SEQ = 24
 
 
@@ -63,20 +65,22 @@ def close_trees(port_tree, ref_tree, tol):
         np.testing.assert_allclose(g, np.asarray(w), rtol=tol, atol=tol)
 
 
-def reference_setup():
-    """The reference model, its initial parameters as numpy and two
-    batches of 6 x SEQ tokens."""
-    ref = RefLM(CFG_REF)
+def reference_setup(arch: str = "rwkv6-3b"):
+    """The reference model of ``arch``'s smoke config, its initial
+    parameters as numpy and two batches of 6 x SEQ tokens."""
+    ref = RefLM(ref_arch(arch).smoke)
     key = jax.random.key(0)
     tree = jax.tree.map(np.asarray, ref_compile(ref.init, key)(key))
-    batches = list(zip(range(2), ref_token_batches(RefTask(vocab=CFG.vocab),
+    vocab = get_arch(arch).smoke.vocab
+    batches = list(zip(range(2), ref_token_batches(RefTask(vocab=vocab),
                                                    6, SEQ, seed=3)))
     return ref, tree, [b for _, b in batches]
 
 
-@pytest.fixture(scope="module")
-def setup():
-    return reference_setup()
+@pytest.fixture(scope="module", params=ARCHS)
+def setup(request):
+    """``reference_setup`` of each of ``ARCHS`` and the port's config."""
+    return (*reference_setup(request.param), get_arch(request.param).smoke)
 
 
 def port_batch(b):
@@ -148,14 +152,14 @@ def test_microbatched_train_step_matches_reference(setup):
     (3e-5 at lr 1e-3, the reference's own test_equivalence notes the
     same); at 1e-4 that stays under the 1e-5 bound while every update
     (~1e-4) is still ten times it.  m and v carry the gradients at 1e-5."""
-    ref, tree, batches = setup
+    ref, tree, batches, cfg = setup
     ref_opt = ref_optim.adamw(1e-4, grad_clip=1.0)
     rs = _ref_state(tree, ref_opt)
     step = ref_compile(ref_train_step(ref, ref_opt, microbatches=2), rs,
                        jax.tree.map(jnp.asarray, batches[0]))
     port_opt = optim.adamw(1e-4, grad_clip=1.0)
     ps = port_state(tree, port_opt)
-    port_step = make_lm_train_step(LM(CFG, "cpu"), port_opt, microbatches=2)
+    port_step = make_lm_train_step(LM(cfg, "cpu"), port_opt, microbatches=2)
     for b in batches:
         rs, rm = step(rs, jax.tree.map(jnp.asarray, b))
         ps, pm = port_step(ps, port_batch(b))
@@ -169,8 +173,8 @@ def test_microbatched_train_step_matches_reference(setup):
 def test_pipelined_none_step_equals_microbatched_step(setup):
     """S = 2, k = 2 with the raw hop is the k = 2 accumulated step; int8
     runs the same path and bills its hop bytes exactly."""
-    _ref, tree, batches = setup
-    model, batch = LM(CFG, "cpu"), port_batch(batches[0])
+    _ref, tree, batches, cfg = setup
+    model, batch = LM(cfg, "cpu"), port_batch(batches[0])
     out = {}
     for name, kw in (("micro", dict(microbatches=2)),
                      ("none", dict(pipeline=pipeline.PipelineSpec(2, 2))),
@@ -184,8 +188,8 @@ def test_pipelined_none_step_equals_microbatched_step(setup):
     for a, b in zip(tree_leaves(out["none"][1]), tree_leaves(out["micro"][1])):
         torch.testing.assert_close(a.detach(), b.detach(), rtol=1e-5,
                                    atol=1e-5)
-    meter, n = out["int8"][2], 6 * SEQ * CFG.d_model
-    billed = protocol.billed_hop_bytes(n, CFG.d_model, "int8", 4)
+    meter, n = out["int8"][2], 6 * SEQ * cfg.d_model
+    billed = protocol.billed_hop_bytes(n, cfg.d_model, "int8", 4)
     assert (meter.up, meter.down, meter.hops_up, meter.hops_down) \
         == (billed, billed, 2, 2)
     assert abs(out["int8"][0] - out["none"][0]) < 1e-2
@@ -242,7 +246,7 @@ def test_coded_hop_matches_reference_coded_ppermute(wire_dtype):
 
 
 def test_bridge_round_trip_of_rwkv_params_and_adamw_state(setup):
-    _ref, tree, _ = setup
+    _ref, tree, _, _ = setup
     opt = ref_optim.adamw(1e-3)
     state = jax.tree.map(np.asarray, opt.init(jax.tree.map(jnp.asarray,
                                                            tree)))
@@ -256,15 +260,16 @@ def test_bridge_round_trip_of_rwkv_params_and_adamw_state(setup):
 # ------------------------------------------------------------ CLI, flash
 
 
-def test_train_cli_on_cpu():
-    res = train.main(["--arch", "rwkv6-3b", "--size", "smoke", "--device",
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_cli_on_cpu(arch):
+    res = train.main(["--arch", arch, "--size", "smoke", "--device",
                       "cpu", "--steps", "2", "--batch", "4", "--seq", "16",
                       "--pipeline-stages", "2", "--pipeline-k", "2",
                       "--wire-dtype", "int8", "--log-every", "1"])
     rows = res["rows"]
     assert [r["step"] for r in rows] == [1, 2]
-    billed = protocol.billed_hop_bytes(4 * 16 * CFG.d_model, CFG.d_model,
-                                       "int8", 4)
+    d = get_arch(arch).smoke.d_model
+    billed = protocol.billed_hop_bytes(4 * 16 * d, d, "int8", 4)
     for r in rows:
         assert np.isfinite(r["loss"]) and r["peak_gb"] is None
         assert r["hop_bytes_up"] == r["hop_bytes_down"] == billed
@@ -282,8 +287,8 @@ def test_train_cli_needs_the_card_unless_asked_for_the_cpu():
 
 def test_flash_attention_keeps_autograd_on_the_cpu():
     """On the CPU ops.flash_attention is the plain version, so autograd
-    runs through it (on the card it raises under autograd: the kernel has
-    no backward yet; test_torch_cuda.py)."""
+    runs through it (on the card through the forward and backward kernels;
+    test_torch_cuda.py)."""
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn((1, 2, 9, 16), generator=g, requires_grad=True)
                for _ in range(3))
