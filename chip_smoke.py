@@ -43,7 +43,9 @@ Phases (any failure exits non-zero; nothing is caught):
      element by element within 2e-5 + 1e-4 |p| (f32) / 1e-3 + 2^-7 |p|
      (bf16) (qwen1.5-4b's training call [2, 20, 512, 128] bf16 causal, granite's
      24 q on 8 kv heads of 64, a window, f32, a dO in the model layout and
-     one with no unit stride along dh, rows without keys), the forward's
+     one with no unit stride along dh, rows without keys, a q based 2
+     bytes off 16), each on its backward route (bf16 on the tensor-core
+     route "mma", f32 and the misaligned q on "simt"), the forward's
      log-sum-exp beside the plain one, and two backward calls on the same
      inputs bit for bit; RG-LRU and moe_gmm refusing autograd.  Small f32
      models on the card are held to the same
@@ -86,9 +88,10 @@ Phases (any failure exits non-zero; nothing is caught):
         every parameter tensor changed, hop bytes up and down equal to the
         billed bytes, exactly 960 flash forward launches (2 a block and
         micro-batch under the activation checkpoint), every one on "mma",
-        and 480 flash backward launches; 24 encodes and 24 decodes of the
-        [1024, 2560] hop, every decode on "warp256"; peak GB beside the
-        card's name and power limit;
+        and 480 flash backward launches, every one on "mma"; the losses
+        beside those of the SIMT backward, the first equal to 5 digits;
+        24 encodes and 24 decodes of the [1024, 2560] hop, every decode on
+        "warp256"; peak GB beside the card's name and power limit;
      e. serving granite-moe-3b-a800m (32 MoE layers, 40 experts top-8, 24
         heads on 8 kv heads of 64, tied embeddings; batch 4, prompt 512, 32
         greedy tokens) through the serving CLI's entry point: tokens in
@@ -101,7 +104,8 @@ Phases (any failure exits non-zero; nothing is caught):
      of qwen, one prefill and one decode step each of recurrentgemma and
      granite-moe, and one training step of each of rwkv6-3b and qwen1.5-4b
      (device busy time and idle share, top kernels, the WKV6 kernels'
-     total, the flash forward's and backward's); per kernel its device time, its
+     total, the flash forward's, and the backward's dq and dK/dV kernels'
+     apart); per kernel its device time, its
      plain version's, its bound and the library yardstick where one
      PyTorch call computes the same function (torch.bmm for moe_gmm, SDPA
      for flash, torch.mul for the int8 decode); the codec at each shape
@@ -113,7 +117,9 @@ Phases (any failure exits non-zero; nothing is caught):
      forward with lse and the flash backward at qwen's training call from
      cold data, with SDPA's forward under grad mode (which keeps its lse)
      and its backward (torch.autograd.grad) as their library yardsticks,
-     and the backward's ptxas registers and spills.
+     the backward's SIMT route at the same shape (q based 2 bytes off 16)
+     as ``simt_ms``, and its two tensor-core kernels' ptxas registers and
+     spills.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -175,6 +181,10 @@ FLASH_TOL = {"float32": 2e-4, "bfloat16": 5e-2}  # forward and backward
 # rounds each gradient to 2^-8 of its size, so rtol 2^-7 leaves a factor 2
 # and atol 1e-3 covers the f32 sums' error near zero (~1e-6 in f32 cases)
 FLASH_BWD_ELEM = {"float32": (2e-5, 1e-4), "bfloat16": (1e-3, 2 ** -7)}
+# qwen1.5-4b's three int8 training losses through the SIMT backward (the
+# flash backward's first kernels, before its tensor-core route): the first
+# step's loss depends on the forward alone, so it must agree to 5 digits
+Q_LOSSES_SIMT = (12.45325, 12.44874, 12.42027)
 
 
 def fail(msg: str):
@@ -232,16 +242,19 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 L2_BYTES = 50e6                                  # H100's L2 cache
 
 
-def cold_ms(fn, args, nbytes: int, iters: int = 20) -> float:
+def cold_ms(fn, args, nbytes: int, iters: int = 20, copy=None) -> float:
     """``device_ms`` of ``fn(*args)`` as a caller whose data is not in L2
     would see it: the call runs on copies of ``args`` in turn (enough that
     they pass twice the L2's 50 MB at ``nbytes`` a call, at most 64) and
     keeps every result until the window ends, so no call reads what an
-    earlier one left in L2 or writes into lines it left dirty there."""
+    earlier one left in L2 or writes into lines it left dirty there.
+    ``copy(args)`` makes one copy (default: each tensor cloned)."""
     import torch
     n = min(64, max(2, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
-    copies = [args] + [tuple(a.clone() if torch.is_tensor(a) else a
-                             for a in args) for _ in range(n - 1)]
+    if copy is None:
+        copy = lambda xs: tuple(a.clone() if torch.is_tensor(a) else a
+                                for a in xs)
+    copies = [args] + [copy(args) for _ in range(n - 1)]
     keep, turn = [], [0]
 
     def call():
@@ -441,24 +454,27 @@ def check_flash_bwd(torch, fa, dev):
     and rows without keys (q [1, 1, 256, 64], k/v [1, 1, 128, 64], window
     16: rows 143-255 add dO / 128 to every row of dV, nothing to dq or
     dk).  Every case runs the backward twice on the same inputs: the same
-    bits.  Returns the max abs error at qwen's call."""
+    bits.  Each case's backward route is asserted (``BWD_ROUTES``): bf16 on
+    "mma" (head dims 64 and 128), f32 and a bf16 q based 2 bytes off 16 on
+    "simt".  Returns the max abs error at qwen's call."""
     gen = torch.Generator(device=dev).manual_seed(13)
     bf16, f32 = torch.bfloat16, torch.float32
     b, h, s, dh = Q_TRAIN
     gh, gkv, gdh = GR_HEADS
     # (B, Hq, Hkv, Sq, Skv, dh, causal, window, dtype, q/k/v in the model
     # layout, dO layout: "bshd" a model-layout view, "bhsd" contiguous,
-    # "bhds" a [B, H, dh, S] transpose)
-    cases = [(b, h, h, s, s, dh, True, 0, bf16, True, "bshd"),
-             (b, gh, gkv, s, s, gdh, True, 0, bf16, True, "bshd"),
-             (2, 4, 4, 300, 300, 128, True, 64, bf16, False, "bhsd"),
-             (2, 4, 2, 300, 300, 64, True, 48, f32, False, "bhsd"),
-             (b, 4, 4, s, s, dh, True, 0, f32, True, "bshd"),
-             (1, 4, 2, 130, 130, 64, False, 0, bf16, False, "bhds"),
-             (1, 1, 1, 256, 128, 64, True, 16, bf16, False, "bhsd"),
-             (1, 1, 1, 256, 128, 64, True, 16, f32, False, "bhsd")]
+    # "bhds" a [B, H, dh, S] transpose; q based 2 bytes off 16)
+    cases = [(b, h, h, s, s, dh, True, 0, bf16, True, "bshd", False),
+             (b, gh, gkv, s, s, gdh, True, 0, bf16, True, "bshd", False),
+             (2, 4, 4, 300, 300, 128, True, 64, bf16, False, "bhsd", False),
+             (2, 4, 2, 300, 300, 64, True, 48, f32, False, "bhsd", False),
+             (b, 4, 4, s, s, dh, True, 0, f32, True, "bshd", False),
+             (1, 4, 2, 130, 130, 64, False, 0, bf16, False, "bhds", False),
+             (1, 1, 1, 256, 128, 64, True, 16, bf16, False, "bhsd", False),
+             (1, 1, 1, 256, 128, 64, True, 16, f32, False, "bhsd", False),
+             (2, 4, 4, 130, 130, 64, True, 0, bf16, False, "bhsd", True)]
     main_err = None
-    for bb, hq, hkv, sq, skv, d, causal, window, dt, bshd, dol in cases:
+    for bb, hq, hkv, sq, skv, d, causal, window, dt, bshd, dol, mis in cases:
         def mk(h_, s_, layout):
             shape = {"bshd": (bb, s_, h_, d), "bhsd": (bb, h_, s_, d),
                      "bhds": (bb, h_, d, s_)}[layout]
@@ -468,8 +484,12 @@ def check_flash_bwd(torch, fa, dev):
         lay = "bshd" if bshd else "bhsd"
         q, k, v = mk(hq, sq, lay), mk(hkv, skv, lay), mk(hkv, skv, lay)
         do = mk(hq, sq, dol)
+        if mis:
+            buf = torch.empty(q.numel() + 1, dtype=dt, device=dev)
+            q = buf[1:].view(q.shape).copy_(q)
         kw = dict(causal=causal, window=window)
         fa.ROUTES.clear()
+        fa.BWD_ROUTES.clear()
         o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True, **kw)
         grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
         again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
@@ -480,7 +500,7 @@ def check_flash_bwd(torch, fa, dev):
         torch.cuda.synchronize()
         tol = FLASH_TOL[str(dt).split(".")[-1]]
         atol, rtol = FLASH_BWD_ELEM[str(dt).split(".")[-1]]
-        want = "mma" if dt == bf16 else "simt"
+        want = "mma" if dt == bf16 and not mis else "simt"
         errs = {n: float((g.float() - p).abs().max())
                 for n, g, p in zip(("dq", "dk", "dv"), grads, plain)}
         share = max(float(((g.float() - p).abs() / (atol + rtol * p.abs()))
@@ -489,9 +509,13 @@ def check_flash_bwd(torch, fa, dev):
                for n, p in zip(("dq", "dk", "dv"), plain)}
         lse_err = float((lse - lse_p).abs().max())
         name = (f"flash_bwd B{bb} H{hq}/{hkv} Sq{sq} Skv{skv} dh{d} "
-                f"causal={causal} window={window} {dt} dO {dol}")
+                f"causal={causal} window={window} {dt} dO {dol}"
+                f"{' q 2 bytes off' if mis else ''}")
         if dict(fa.ROUTES) != {want: 1}:
             fail(f"{name}: forward routes {dict(fa.ROUTES)}, expected {want}")
+        if dict(fa.BWD_ROUTES) != {want: 2}:
+            fail(f"{name}: backward routes {dict(fa.BWD_ROUTES)}, expected "
+                 f"{want}")
         if not (max(errs.values()) <= tol and lse_err <= 1e-4):
             fail(f"{name}: max abs errs {errs} > {tol} or lse err "
                  f"{lse_err} > 1e-4")
@@ -500,7 +524,7 @@ def check_flash_bwd(torch, fa, dev):
                  f"{atol} + {rtol} |plain|")
         if not all(torch.equal(x, y) for x, y in zip(grads, again)):
             fail(f"{name}: a second backward call gave other bits")
-        print(f"{name} [forward {want}]: max abs err "
+        print(f"{name} [forward and backward {want}]: max abs err "
               + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
               + f" (tol {tol}); relative to the largest value "
               + ", ".join(f"{n} {e:.1e}" for n, e in rel.items())
@@ -1250,18 +1274,22 @@ def run_training_path(torch, ops, train, protocol, dev, wc, profile_int8):
 def run_qwen_training(torch, ops, train, protocol, dev, wc, card):
     """C2P2SL training of qwen1.5-4b at full width through the training
     CLI, int8 hop, after rwkv6-3b's state is freed; the launch counts are
-    read around that one run.  Returns (rows, launches, codec calls by
-    shape); the final state goes to ``profile_training_step``, whose
-    flash lines give the forward's and backward's device time."""
+    read around that one run; every flash forward and backward on "mma".
+    Its losses print beside ``Q_LOSSES_SIMT``, the first equal to 5
+    digits.  Returns (rows, launches, codec calls by shape); the final
+    state goes to ``profile_training_step``, whose flash lines give the
+    forward's and the two backward kernels' device time."""
     from repro_torch.kernels import flash_attention as fa
     torch.cuda.synchronize()
     ops.reset_launches()
     fa.ROUTES.clear()
+    fa.BWD_ROUTES.clear()
     wc.ROUTES.clear()
     with codec_calls(wc) as calls:
         res = train.main(_train_argv("int8", ARCH))
     torch.cuda.synchronize()
     launches, routes = dict(ops.LAUNCHES), dict(fa.ROUTES)
+    bwd_routes = dict(fa.BWD_ROUTES)
     n, billed = check_training_run(torch, protocol, dev, res,
                                    f"train {ARCH}", "int8")
     d = res["model"].cfg.d_model
@@ -1269,6 +1297,13 @@ def run_qwen_training(torch, ops, train, protocol, dev, wc, card):
         fail(f"train {ARCH}: launches {launches} != {Q_LAUNCHES}")
     if routes != {"mma": Q_LAUNCHES["flash_attention"]}:
         fail(f"train {ARCH}: flash routes {routes}: not all on mma")
+    if bwd_routes != {"mma": Q_LAUNCHES["flash_attention_bwd"]}:
+        fail(f"train {ARCH}: flash backward routes {bwd_routes}: not all "
+             f"on mma")
+    losses = [r["loss"] for r in res["rows"]]
+    if round(losses[0], 5) != Q_LOSSES_SIMT[0]:
+        fail(f"train {ARCH}: first loss {losses[0]:.6f} != "
+             f"{Q_LOSSES_SIMT[0]} (the forward is the same)")
     check_codec_calls(wc, f"{ARCH} training path", launches, calls,
                       dict(wc.ROUTES))
     rows_, dt = T_BATCH // T_K * T_SEQ, str(res["model"].dtype).split(".")[-1]
@@ -1277,13 +1312,15 @@ def run_qwen_training(torch, ops, train, protocol, dev, wc, card):
     if dict(calls) != want:
         fail(f"train {ARCH}: codec calls {dict(calls)} != {want}")
     peak = max(r["peak_gb"] for r in res["rows"])
-    print(f"train {ARCH} int8: losses "
-          f"{[round(r['loss'], 5) for r in res['rows']]}, all {n} parameter "
+    print(f"train {ARCH} int8: losses {[round(x, 5) for x in losses]} "
+          f"(SIMT backward: {list(Q_LOSSES_SIMT)}), all {n} parameter "
           f"tensors changed, hop bytes per step up == down == billed "
           f"{billed:.0f}; launches {json.dumps(launches, sort_keys=True)}, "
-          f"flash routes {routes}; peak {peak:.2f} GB on {card}")
+          f"flash routes {routes}, backward routes {bwd_routes}; peak "
+          f"{peak:.2f} GB on {card}")
     profile_training_step(torch, res, {"flash forward": "flash_fwd",
-                                       "flash backward": "flash_bwd"})
+                                       "flash backward dq": "flash_bwd_dq",
+                                       "flash backward dkv": "flash_bwd_dkv"})
     rows = res["rows"]
     del res
     torch.cuda.empty_cache()
@@ -1635,17 +1672,30 @@ def time_flash_train(torch, fa, dev, launches):
     return row
 
 
+def _q_off_16(torch, args):
+    """A copy of the backward's arguments whose q is based 2 bytes off 16
+    (the same values and strides): ``bwd_route`` sends it to "simt"."""
+    q, *rest = args
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)
+    # q is a transposed [B, S, H, dh] view: copy it in that layout
+    base = buf[1:].view(q.shape[0], q.shape[2], q.shape[1], q.shape[3])
+    return (base.copy_(q.transpose(1, 2)).transpose(1, 2),
+            *(a.clone() for a in rest))
+
+
 def time_flash_bwd(torch, fa, dev, launches, err, ptxas):
     """The flash backward at qwen1.5-4b's training call: [2, 20, 512, 128]
     bf16, causal, q, k, v and dO in the model layout, from cold data
-    (``cold_ms``).  Bound: q, k, v, O, dO and lse read once and dq, dk, dv
-    written once (~42 MB) at 3.35 TB/s, against its five products (S,
-    dP, dV, dK, dQ: 2 dh operations a causal (q, k) pair each, ~6.7
-    GFLOP) at the bf16 tensor-core rate: the bytes bound it.  The library
-    yardstick is SDPA's backward, ``torch.autograd.grad`` through
-    ``F.scaled_dot_product_attention`` on contiguous copies (timed here
-    only).  The row carries ptxas' registers and spills of the bf16 dh 128
-    instances."""
+    (``cold_ms``), on the route the main path takes ("mma", from
+    ``BWD_ROUTES``) and, as ``simt_ms``, on SIMT (the same values with q
+    based 2 bytes off 16).  Bound: q, k, v, O, dO and lse read once and
+    dq, dk, dv written once (~42 MB) at 3.35 TB/s, against its five
+    products (S, dP, dV, dK, dQ: 2 dh operations a causal (q, k) pair
+    each, ~6.7 GFLOP) at the bf16 tensor-core rate: the bytes bound it.
+    The library yardstick is SDPA's backward, ``torch.autograd.grad``
+    through ``F.scaled_dot_product_attention`` on contiguous copies (timed
+    here only).  The row carries ptxas' registers and spills of the two
+    tensor-core kernels at dh 128."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(14)
     b, h, s, dh = Q_TRAIN
@@ -1659,25 +1709,39 @@ def time_flash_bwd(torch, fa, dev, launches, err, ptxas):
     lib_out, lib_do = F.scaled_dot_product_attention(*lib, is_causal=True), \
         do.contiguous()
     bwd = lambda *a: fa.flash_attention_bwd_cuda(*a, causal=True)
+    args, simt_args = (q, k, v, o, lse, do), _q_off_16(torch, (q, k, v, o,
+                                                                lse, do))
+    routes = []
+    for a in (args, simt_args):
+        fa.BWD_ROUTES.clear()
+        bwd(*a)
+        routes.append(dict(fa.BWD_ROUTES))
+    if routes != [{"mma": 1}, {"simt": 1}]:
+        fail(f"flash_attention_bwd timing: routes {routes}, expected mma "
+             f"and, with q 2 bytes off, simt")
     row = {
-        "name": "flash_attention_bwd", "route": "cuda", "kernel_route": "simt",
+        "name": "flash_attention_bwd", "route": "cuda",
+        "kernel_route": next(iter(routes[0])),
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/common.py:88",   # no Pallas backward
         "shape": [b, h, s, dh], "dtype": "bfloat16",
         "launches": launches, "max_abs_err": err,
-        "ms": cold_ms(bwd, (q, k, v, o, lse, do), nbytes),
+        "ms": cold_ms(bwd, args, nbytes),
+        "simt_ms": cold_ms(bwd, simt_args, nbytes,
+                           copy=lambda xs: _q_off_16(torch, xs)),
         "plain_ms": device_ms(lambda: fa.attention_bwd_plain(
             q, k, v, o, lse, do, causal=True), iters=5),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": device_ms(lambda: torch.autograd.grad(
             lib_out, lib, lib_do, retain_graph=True)),
         "ptxas": {n: f"{used}; {spill}" for n, used, spill in ptxas
-                  if "bfloat16, 128>" in n or "bfloat16Li128E" in n}}
+                  if "_mma<128>" in n or "_mmaILi128E" in n}}
     print(rate_line(row, flops))
     print(f"flash_attention_bwd at {list(Q_TRAIN)} bf16: "
-          f"{device_ms(lambda: bwd(q, k, v, o, lse, do)):.4f} ms back to "
-          f"back on one input, {cuda_ms(lambda: bwd(q, k, v, o, lse, do)):.4f}"
-          f" ms between events; ptxas {row['ptxas']}")
+          f"{device_ms(lambda: bwd(*args)):.4f} ms back to back on one "
+          f"input, {cuda_ms(lambda: bwd(*args)):.4f} ms between events; "
+          f"SIMT route {row['simt_ms']:.4f} ms from cold data "
+          f"({row['simt_ms'] / row['ms']:.2f}x); ptxas {row['ptxas']}")
     return row
 
 

@@ -19,12 +19,13 @@
 //   it adds dO / Skv to every row of dV and nothing to dQ or dK, because the
 //   mask blocks its logits' gradient; its lse is never read.
 //
-// Two kernels, launched one after the other on the caller's stream:
-// * `flash_bwd_dq`: one 256-thread block per (q tile of 64 rows, q head,
-//   batch), heaviest tiles first.  It computes D for its rows and writes it
-//   to a scratch row the wrapper allocates, then walks the kv tiles its
-//   rows see (the forward's causal and window skipping) and sums dQ in
-//   registers, written once.
+// Two kernels, launched one after the other on the caller's stream (the
+// SIMT route's names; the mma route's end in `_mma`):
+// * `flash_bwd_dq`: one block per (q tile of 64 rows, q head, batch),
+//   heaviest tiles first.  It computes D for its rows and writes it to a
+//   scratch row the wrapper allocates, then walks the kv tiles its rows see
+//   (the forward's causal and window skipping) and sums dQ in registers,
+//   written once.
 // * `flash_bwd_dkv`: one block per (kv tile of 64 keys, kv head, batch).
 //   It walks the query heads of its GQA group and the q tiles that see its
 //   kv tile (from the causal diagonal down to the window's last row, and the
@@ -37,19 +38,31 @@
 // causal) the function reads q, k, v, O, dO and lse and writes dq, dk, dv
 // once, ~42 MB (~0.0125 ms at 3.35 TB/s), against ~6.7 GFLOP of products
 // (five of the causal half of [512, 512] x 128 per head; ~0.007 ms on the
-// bf16 tensor cores): the bytes bound it.  This version runs every product
-// on the f32 pipes, tiled like the forward's SIMT kernel (flash_attention.cu
-// `flash_fwd`): the tiles are staged in shared memory as f32 (row pitch
-// dh + 1, so a column read by 16 threads hits 16 banks) and each thread
-// holds a 4 x 4 tile of S and dP and a 4 x (dh / 16) tile of its outputs,
-// so f32 inputs keep the 2e-4 contract.  Its floor is the f32 rate, ~0.1 ms
-// for those 6.7 GFLOP at 67 TFLOP/s: the tensor-core version is later work.
+// bf16 tensor cores): the bytes bound it.
+//
+// Two routes, chosen by the caller before the launch (kernels/
+// flash_attention.py `bwd_route`), never by a failure:
+// * "mma" (bf16 at head dims 64 and 128 whose eight tensors have 16-byte
+//   aligned bases and strides): `bwd_mma::flash_bwd_dq_mma` and
+//   `bwd_mma::flash_bwd_dkv_mma`, every product on the bf16 tensor cores
+//   with the tiles streamed by cp.async (their own comment below).
+// * "simt" (f32, bf16 that cp.async cannot load 16 bytes at a time, and
+//   head dims 16 and 32): `flash_bwd_dq` and `flash_bwd_dkv`, every product
+//   on the f32 pipes, tiled like the forward's SIMT kernel (flash_attention.cu
+//   `flash_fwd`): the tiles are staged in shared memory as f32 (row pitch
+//   dh + 1, so a column read by 16 threads hits 16 banks) and each thread
+//   holds a 4 x 4 tile of S and dP and a 4 x (dh / 16) tile of its outputs,
+//   so f32 inputs keep the 2e-4 contract.
 // Head dims 16, 32, 64 and 128 are built; at 256 four f32 tiles of 64 rows
 // (263 KB) pass the 227 KB a block may hold, and the wrapper refuses it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "mma_ptx.cuh"
 
 namespace {
 
@@ -399,6 +412,482 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv(Args<T> a) {
   }
 }
 
+// ------------------------------------------- bf16 on the tensor cores (mma)
+//
+// The same two kernels, split and walk on mma.sync m16n8k16 (bf16 in, f32
+// sums), built like the forward's `flash_fwd_mma`: 4 warps a block, each
+// owning 16 rows of the block's tile; tiles of 16-byte rows staged by
+// cp.async, XOR-swizzled in 16-byte chunks so that ldmatrix reads them
+// without bank conflicts; the streamed tiles in a double-buffered ring.
+// Grids run (heads, batch, tiles) with the heaviest tiles in the first
+// blocks, so that under a causal mask the long blocks start first.
+// * `flash_bwd_dq_mma`: 64 query rows a block.  Q and dO are staged once;
+//   Q is held in registers as A fragments, dO's are read from shared
+//   memory at each tile (held too, they push dh 128 past 255 registers
+//   into spills).  D is summed from the staged dO and O read 16 bytes at a
+//   time.  Each kv tile of BK keys gives S = Q K^T and dP = dO V^T (K, V
+//   as B fragments by ldmatrix); P and dS live in registers, where the C
+//   fragments of S are already dS's A fragments, and dQ += dS K takes K's
+//   B fragments by ldmatrix.trans.
+// * `flash_bwd_dkv_mma`: 64 keys a block, K and V staged once.  Each q tile
+//   of BQ rows (GQA heads and tiles walked as `flash_bwd_dkv` walks them)
+//   streams Q, dO, lse and D through the ring and gives S^T = K Q^T and
+//   dP^T = V dO^T (K, V as A fragments, Q, dO as B); dV += P^T dO and
+//   dK += dS^T Q take dO and Q by ldmatrix.trans.
+// Precision: a bf16 P or dS (2^-9 of its size) moves an output by many
+// times its own bf16 rounding where the sum cancels, past the element
+// gate |g - p| <= 1e-3 + 2^-7 |p| (tests/test_torch_flash_bwd_tiles.py
+// emulates both); so P and dS enter each of their products as a bf16 high
+// part plus a bf16 low part (ptx::split2), two mma a fragment: 10 products
+// for the 7 of the split, every sum in f32, in a fixed order (no atomics).
+// Registers bound the tiles: at dh 128 a dkv warp holds dK and dV (two
+// 16 x 128 f32 blocks, 128 registers a thread), so its q tiles take 32 rows.
+namespace bwd_mma {
+
+using namespace ptx;
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 4;
+constexpr int kTile = 16 * kWarps;  // query rows (dq) or keys (dkv) a block
+constexpr int kThreadsMma = 32 * kWarps;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DH>
+struct Cfg {
+  static constexpr int BK = 64;                   // keys a kv tile (dq)
+  static constexpr int BQ = DH == 128 ? 32 : 64;  // query rows a q tile (dkv)
+  static constexpr int NCH = DH / 8;              // 16-byte chunks in a row
+  static constexpr int MASK = (NCH < 8 ? NCH : 8) - 1;
+  // Q, dO, 2 x (K, V); lse and D
+  static constexpr int SMEM_DQ = (2 * kTile + 4 * BK) * DH * 2 + 2 * kTile * 4;
+  // K, V, 2 x (Q, dO); 2 x (lse, D)
+  static constexpr int SMEM_DKV =
+      (2 * kTile + 4 * BQ) * DH * 2 + 4 * BQ * 4;
+};
+
+// Element offset of 16-byte chunk c of row r in a [rows][DH] tile.
+template <int DH>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * DH + ((c ^ (r & Cfg<DH>::MASK)) << 3);
+}
+
+// Rows row0 .. row0 + ROWS - 1 of a [S, DH] slab with row stride `stride`
+// into a swizzled tile; rows at or past S are zero-filled.
+template <int DH, int ROWS>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          long long stride, int row0, int S) {
+  constexpr int NCH = Cfg<DH>::NCH;
+  static_assert(ROWS * NCH % kThreadsMma == 0, "whole passes of the block");
+#pragma unroll
+  for (int n = 0; n < ROWS * NCH / kThreadsMma; ++n) {
+    const int i = threadIdx.x + n * kThreadsMma;
+    const int r = i / NCH, c = i % NCH;
+    const bool ok = row0 + r < S;
+    const bf16* g =
+        ok ? src + static_cast<long long>(row0 + r) * stride + c * 8 : src;
+    cp_async16(dst + swz<DH>(r, c), g, ok);
+  }
+}
+
+// A fragments (row-major 16 x 16, rows 16 w .. 16 w + 15 of the tile) of
+// dh slice kk; B fragments of n8 blocks 2 nb and 2 nb + 1 whose rows are
+// n (non-transposed: S-like products) and of k16 slice kb whose rows are k
+// (ldmatrix.trans: the products into dQ, dK and dV).
+template <int DH>
+__device__ __forceinline__ void frag_a(uint32_t (&r)[4], const bf16* t,
+                                       int w, int kk) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4(r, t + swz<DH>(w * 16 + (lane & 15), 2 * kk + (lane >> 4)));
+}
+template <int DH>
+__device__ __forceinline__ void frag_b(uint32_t (&r)[4], const bf16* t,
+                                       int nb, int kk) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4(r, t + swz<DH>(nb * 16 + (lane & 7) + ((lane >> 4) << 3),
+                         2 * kk + ((lane >> 3) & 1)));
+}
+template <int DH>
+__device__ __forceinline__ void frag_bt(uint32_t (&r)[4], const bf16* t,
+                                        int kb, int db) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4_t(r, t + swz<DH>(kb * 16 + (lane & 15), 2 * db + (lane >> 4)));
+}
+
+// acc[ND] += (hi + lo of the C fragments c[2 kb], c[2 kb + 1]) x B, for
+// every k16 slice kb of c; B's slice kb is rows 16 kb .. of the tile t.
+template <int DH, int NC>
+__device__ __forceinline__ void product_hi_lo(float (&acc)[DH / 8][4],
+                                              const float (&c)[NC][4],
+                                              const bf16* t) {
+#pragma unroll
+  for (int kb = 0; kb < NC / 2; ++kb) {
+    uint32_t hi[4], lo[4];
+    split2(c[2 * kb][0], c[2 * kb][1], hi[0], lo[0]);
+    split2(c[2 * kb][2], c[2 * kb][3], hi[1], lo[1]);
+    split2(c[2 * kb + 1][0], c[2 * kb + 1][1], hi[2], lo[2]);
+    split2(c[2 * kb + 1][2], c[2 * kb + 1][3], hi[3], lo[3]);
+#pragma unroll
+    for (int db = 0; db < DH / 16; ++db) {
+      uint32_t b[4];
+      frag_bt<DH>(b, t, kb, db);
+      mma16816(acc[2 * db], hi, b[0], b[1]);
+      mma16816(acc[2 * db + 1], hi, b[2], b[3]);
+      mma16816(acc[2 * db], lo, b[0], b[1]);
+      mma16816(acc[2 * db + 1], lo, b[2], b[3]);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+}
+
+// Rows r, r + 8 of a [16 x DH] C-fragment block times `mul` as bf16 pairs
+// at row pointers p0 (row r) and p1 (row r + 8), where they are in range.
+template <int DH>
+__device__ __forceinline__ void store_rows(bf16* p0, bf16* p1, bool ok0,
+                                           bool ok1,
+                                           const float (&acc)[DH / 8][4],
+                                           float mul) {
+  const int col = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    if (ok0)
+      *reinterpret_cast<__nv_bfloat162*>(p0 + 8 * j + col) =
+          pack2(acc[j][0] * mul, acc[j][1] * mul);
+    if (ok1)
+      *reinterpret_cast<__nv_bfloat162*>(p1 + 8 * j + col) =
+          pack2(acc[j][2] * mul, acc[j][3] * mul);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreadsMma)
+flash_bwd_dq_mma(Args<bf16> a) {
+  using Cf = Cfg<DH>;
+  constexpr int BK = Cf::BK, NB = BK / 8, ND = DH / 8, KQ = DH / 16;
+  constexpr int NCH = Cf::NCH;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kTile][DH]
+  bf16* dOs = Qs + kTile * DH;                   // [kTile][DH]
+  bf16* Ks = dOs + kTile * DH;                   // [2][BK][DH]
+  bf16* Vs = Ks + 2 * BK * DH;                   // [2][BK][DH]
+  float* Ls = reinterpret_cast<float*>(Vs + 2 * BK * DH);  // [kTile], log2
+  float* Ds = Ls + kTile;                                   // [kTile]
+
+  // grid (Hq, B, q tiles): the blocks of the heaviest tiles start first
+  const int n_qt = (a.Sq + kTile - 1) / kTile;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.z)) * kTile;
+  const int h = blockIdx.x, bb = blockIdx.y;
+  const int hk = h / (a.Hq / a.Hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long row0 = (static_cast<long long>(bb) * a.Hq + h) * a.Sq;
+  const bf16* kp = a.k + bb * a.ks.b + hk * a.ks.h;
+  const bf16* vp = a.v + bb * a.vs.b + hk * a.vs.h;
+
+  // kv tiles the block's rows see; a row without a key sees none, and its
+  // dQ stays 0
+  const int q_last = min(q0 + kTile, a.Sq) - 1;
+  int kt_end = (a.Skv + BK - 1) / BK;
+  if (a.causal) kt_end = min(kt_end, q_last / BK + 1);
+  const int kt_begin = a.window > 0 ? max(q0 - a.window + 1, 0) / BK : 0;
+
+  load_tile<DH, kTile>(Qs, a.q + bb * a.qs.b + h * a.qs.h, a.qs.s, q0, a.Sq);
+  load_tile<DH, kTile>(dOs, a.dO + bb * a.dos.b + h * a.dos.h, a.dos.s, q0,
+                       a.Sq);
+  cp_commit();
+  if (kt_begin < kt_end) {
+    load_tile<DH, BK>(Ks, kp, a.ks.s, kt_begin * BK, a.Skv);
+    load_tile<DH, BK>(Vs, vp, a.vs.s, kt_begin * BK, a.Skv);
+  }
+  cp_commit();
+  cp_wait<1>();  // Q and dO have landed
+  __syncthreads();
+
+  {  // D = rowsum(dO * O): two neighbouring lanes a row, 16 bytes a load
+    const int r = threadIdx.x >> 1, half = threadIdx.x & 1, qi = q0 + r;
+    float d = 0.f;
+    if (qi < a.Sq) {
+      const bf16* orow = a.o + bb * a.os.b + h * a.os.h + qi * a.os.s;
+#pragma unroll
+      for (int c = half * NCH / 2; c < (half + 1) * NCH / 2; ++c) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + 8 * c);
+        const uint4 gv = *reinterpret_cast<const uint4*>(dOs + swz<DH>(r, c));
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(o2[e]);
+          const float2 gf = __bfloat1622float2(g2[e]);
+          d = fmaf(gf.x, of.x, d);
+          d = fmaf(gf.y, of.y, d);
+        }
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if (half == 0) {
+      Ds[r] = d;
+      Ls[r] = qi < a.Sq ? a.lse[row0 + qi] * kLog2e : 0.f;
+      if (qi < a.Sq) a.D[row0 + qi] = d;
+    }
+  }
+
+  uint32_t qf[KQ][4];  // Q's A fragments
+#pragma unroll
+  for (int kk = 0; kk < KQ; ++kk) {
+    frag_a<DH>(qf[kk], Qs, warp, kk);
+  }
+  __syncthreads();  // Ls and Ds are written
+  // this lane's rows in S / dQ: r and r + 8
+  const int rl = warp * 16 + (lane >> 2), r0 = q0 + rl;
+  const float lse2[2] = {Ls[rl], Ls[rl + 8]};
+  const float dd[2] = {Ds[rl], Ds[rl + 8]};
+  const float scale_log2 = a.scale * kLog2e;
+
+  float acc[ND][4];
+  zero(acc);
+  for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
+    const int st = it & 1;
+    if (kt + 1 < kt_end) {
+      load_tile<DH, BK>(Ks + (st ^ 1) * BK * DH, kp, a.ks.s, (kt + 1) * BK,
+                        a.Skv);
+      load_tile<DH, BK>(Vs + (st ^ 1) * BK * DH, vp, a.vs.s, (kt + 1) * BK,
+                        a.Skv);
+    }
+    cp_commit();
+    cp_wait<1>();  // tile kt has landed
+    __syncthreads();
+    const bf16* Kt = Ks + st * BK * DH;
+    const bf16* Vt = Vs + st * BK * DH;
+
+    float s[NB][4], ds[NB][4];  // S, then P; dP, then dS
+    zero(s);
+    zero(ds);
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+      uint32_t g[4];  // dO's A fragment: from shared memory, see above
+      frag_a<DH>(g, dOs, warp, kk);
+#pragma unroll
+      for (int nb = 0; nb < NB / 2; ++nb) {
+        uint32_t b[4];
+        frag_b<DH>(b, Kt, nb, kk);
+        mma16816(s[2 * nb], qf[kk], b[0], b[1]);
+        mma16816(s[2 * nb + 1], qf[kk], b[2], b[3]);
+        frag_b<DH>(b, Vt, nb, kk);
+        mma16816(ds[2 * nb], g, b[0], b[1]);
+        mma16816(ds[2 * nb + 1], g, b[2], b[3]);
+      }
+    }
+
+    // s[j][c]: row r0 + 8 (c >> 1), key k0 + 8 j + 2 (lane & 3) + (c & 1).
+    // Rows past Sq have zero dO and D, so their dS is 0 unmasked.
+    const int k0 = kt * BK;
+    const bool edge = (a.causal && k0 + BK - 1 > q0) ||
+                      (a.window > 0 && k0 <= q0 + kTile - 1 - a.window) ||
+                      k0 + BK > a.Skv;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float p = exp2f(fmaf(s[j][c], scale_log2, -lse2[c >> 1]));
+        if (edge) {
+          const int kj = k0 + 8 * j + 2 * (lane & 3) + (c & 1);
+          const int qi = r0 + 8 * (c >> 1);
+          if (kj >= a.Skv || !sees(qi, kj, a.causal, a.window)) p = 0.f;
+        }
+        ds[j][c] = p * (ds[j][c] - dd[c >> 1]);
+      }
+    product_hi_lo<DH>(acc, ds, Kt);  // dQ += dS K
+    __syncthreads();  // every warp is done with stage st before it refills
+  }
+
+  bf16* dqp = a.dq + bb * a.dqs.b + h * a.dqs.h;
+  store_rows<DH>(dqp + r0 * a.dqs.s, dqp + (r0 + 8) * a.dqs.s, r0 < a.Sq,
+                 r0 + 8 < a.Sq, acc, a.scale);
+}
+
+// The q tile the walk of one query head takes at or after qt: the tiles
+// from the causal diagonal to the window's reach (.. qt_hi), then those
+// holding rows without a key (qt_nokey ..).
+__device__ __forceinline__ int walk_from(int qt, int qt_hi, int qt_nokey) {
+  return qt > qt_hi && qt < qt_nokey ? qt_nokey : qt;
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreadsMma)
+flash_bwd_dkv_mma(Args<bf16> a) {
+  using Cf = Cfg<DH>;
+  constexpr int BQ = Cf::BQ, NQ = BQ / 8, ND = DH / 8, KQ = DH / 16;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [kTile][DH]
+  bf16* Vs = Ks + kTile * DH;                    // [kTile][DH]
+  bf16* Qs = Vs + kTile * DH;                    // [2][BQ][DH]
+  bf16* dOs = Qs + 2 * BQ * DH;                  // [2][BQ][DH]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * DH);  // [2][BQ]
+  float* Ds = Ls + 2 * BQ;                                   // [2][BQ]
+
+  // grid (Hkv, B, kv tiles): under a causal mask the blocks of the
+  // heaviest tiles (the first keys) start first
+  const int k0 = blockIdx.z * kTile;
+  const int hk = blockIdx.x, bb = blockIdx.y;
+  const int rep = a.Hq / a.Hkv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // the q tiles of each query head, as flash_bwd_dkv walks them
+  const int n_qt = (a.Sq + BQ - 1) / BQ;
+  const int k_last = min(k0 + kTile, a.Skv) - 1;
+  const int qt_lo = a.causal ? k0 / BQ : 0;
+  const long long reach = a.window > 0
+                              ? static_cast<long long>(k_last) + a.window - 1
+                              : static_cast<long long>(a.Sq) - 1;
+  const int qt_hi =
+      static_cast<int>(min(reach, static_cast<long long>(a.Sq) - 1) / BQ);
+  const long long first_no_key =
+      static_cast<long long>(a.Skv) + a.window - 1;
+  const int qt_nokey = a.window > 0 && first_no_key < a.Sq
+                           ? static_cast<int>(first_no_key / BQ)
+                           : n_qt;
+  const int qt_first = walk_from(qt_lo, qt_hi, qt_nokey);
+  const float uniform = __fdiv_rn(1.f, static_cast<float>(a.Skv));
+  const float scale_log2 = a.scale * kLog2e;
+
+  // Q, dO, lse and D of query head hk * rep + hh, tile qt, into stage st
+  auto load_q = [&](int st, int hh, int qt) {
+    const int h = hk * rep + hh, q0 = qt * BQ;
+    const long long row0 = (static_cast<long long>(bb) * a.Hq + h) * a.Sq;
+    load_tile<DH, BQ>(Qs + st * BQ * DH, a.q + bb * a.qs.b + h * a.qs.h,
+                      a.qs.s, q0, a.Sq);
+    load_tile<DH, BQ>(dOs + st * BQ * DH, a.dO + bb * a.dos.b + h * a.dos.h,
+                      a.dos.s, q0, a.Sq);
+    for (int i = threadIdx.x; i < BQ; i += kThreadsMma) {
+      const bool ok = q0 + i < a.Sq;
+      const long long at = ok ? row0 + q0 + i : 0;
+      cp_async4(Ls + st * BQ + i, a.lse + at, ok);
+      cp_async4(Ds + st * BQ + i, a.D + at, ok);
+    }
+  };
+
+  load_tile<DH, kTile>(Ks, a.k + bb * a.ks.b + hk * a.ks.h, a.ks.s, k0,
+                       a.Skv);
+  load_tile<DH, kTile>(Vs, a.v + bb * a.vs.b + hk * a.vs.h, a.vs.s, k0,
+                       a.Skv);
+  const bool any = qt_first < n_qt;
+  if (any) load_q(0, 0, qt_first);
+  cp_commit();
+
+  float dk[ND][4], dv[ND][4];
+  zero(dk);
+  zero(dv);
+  // this lane's keys in S^T / dK / dV: kr and kr + 8
+  const int kr = k0 + warp * 16 + (lane >> 2);
+
+  int hh = 0, qt = qt_first;
+  for (int it = 0; any && hh < rep; ++it) {
+    const int st = it & 1;
+    int nhh = hh, nqt = walk_from(qt + 1, qt_hi, qt_nokey);
+    if (nqt >= n_qt) {
+      ++nhh;
+      nqt = qt_first;
+    }
+    if (nhh < rep) load_q(st ^ 1, nhh, nqt);
+    cp_commit();
+    cp_wait<1>();  // K, V and this tile have landed
+    __syncthreads();
+    const bf16* Qt = Qs + st * BQ * DH;
+    const bf16* dOt = dOs + st * BQ * DH;
+    const float* Lt = Ls + st * BQ;
+    const float* Dt = Ds + st * BQ;
+
+    float s[NQ][4], ds[NQ][4];  // S^T, then P^T; dP^T, then dS^T
+    zero(s);
+    zero(ds);
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+      uint32_t ka[4], va[4];
+      frag_a<DH>(ka, Ks, warp, kk);
+      frag_a<DH>(va, Vs, warp, kk);
+#pragma unroll
+      for (int nb = 0; nb < NQ / 2; ++nb) {
+        uint32_t b[4];
+        frag_b<DH>(b, Qt, nb, kk);
+        mma16816(s[2 * nb], ka, b[0], b[1]);
+        mma16816(s[2 * nb + 1], ka, b[2], b[3]);
+        frag_b<DH>(b, dOt, nb, kk);
+        mma16816(ds[2 * nb], va, b[0], b[1]);
+        mma16816(ds[2 * nb + 1], va, b[2], b[3]);
+      }
+    }
+
+    // s[j][c]: key kr + 8 (c >> 1), query row q0 + 8 j + 2 (lane & 3) +
+    // (c & 1)
+    const int q0 = qt * BQ;
+    const bool edge = (a.causal && k0 + kTile - 1 > q0) ||
+                      (a.window > 0 && k0 <= q0 + BQ - 1 - a.window) ||
+                      k0 + kTile > a.Skv || q0 + BQ > a.Sq;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const int col = 8 * j + 2 * (lane & 3);
+      const float2 l2 = *reinterpret_cast<const float2*>(Lt + col);
+      const float2 d2 = *reinterpret_cast<const float2*>(Dt + col);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float lse = c & 1 ? l2.y : l2.x, d = c & 1 ? d2.y : d2.x;
+        float p = exp2f(fmaf(s[j][c], scale_log2, -lse * kLog2e));
+        float g = p * (ds[j][c] - d);
+        if (edge) {
+          const int kj = kr + 8 * (c >> 1), qi = q0 + col + (c & 1);
+          if (qi >= a.Sq || kj >= a.Skv) {
+            p = g = 0.f;
+          } else if (!sees(qi, kj, a.causal, a.window)) {
+            g = 0.f;
+            p = no_key(qi, a.Skv, a.window) ? uniform : 0.f;
+          }
+        }
+        s[j][c] = p;
+        ds[j][c] = g;
+      }
+    }
+    product_hi_lo<DH>(dv, s, dOt);  // dV += P^T dO
+    product_hi_lo<DH>(dk, ds, Qt);  // dK += dS^T Q
+    __syncthreads();  // every warp is done with stage st before it refills
+    hh = nhh;
+    qt = nqt;
+  }
+
+  bf16* dkp = a.dk + bb * a.dks.b + hk * a.dks.h;
+  bf16* dvp = a.dv + bb * a.dvs.b + hk * a.dvs.h;
+  store_rows<DH>(dkp + kr * a.dks.s, dkp + (kr + 8) * a.dks.s, kr < a.Skv,
+                 kr + 8 < a.Skv, dk, a.scale);
+  store_rows<DH>(dvp + kr * a.dvs.s, dvp + (kr + 8) * a.dvs.s, kr < a.Skv,
+                 kr + 8 < a.Skv, dv, 1.f);
+}
+
+template <int DH>
+int launch(const Args<bf16>& a, int B, cudaStream_t stream) {
+  constexpr int smem_dq = Cfg<DH>::SMEM_DQ, smem_dkv = Cfg<DH>::SMEM_DKV;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_mma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_dq);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_bwd_dkv_mma<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_dkv);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_dq(a.Hq, B, (a.Sq + kTile - 1) / kTile);
+  flash_bwd_dq_mma<DH><<<grid_dq, kThreadsMma, smem_dq, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_dkv(a.Hkv, B, (a.Skv + kTile - 1) / kTile);
+  flash_bwd_dkv_mma<DH><<<grid_dkv, kThreadsMma, smem_dkv, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace bwd_mma
+
 template <typename T, int DH>
 int launch(const Args<T>& a, int B, cudaStream_t stream) {
   constexpr size_t smem_dq = dq_smem<DH>(), smem_dkv = dkv_smem<DH>();
@@ -419,8 +908,20 @@ int launch(const Args<T>& a, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+enum { ROUTE_SIMT = 0, ROUTE_MMA = 1 };
+
+// ROUTE_MMA launches bwd_mma::launch<DH> (bf16 at head dims 64 and 128),
+// ROUTE_SIMT launch<T, DH>.
 template <typename T>
-int dispatch_dh(int dh, const Args<T>& a, int B, cudaStream_t stream) {
+int dispatch_dh(int route, int dh, const Args<T>& a, int B,
+                cudaStream_t stream) {
+  if (route == ROUTE_MMA) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      if (dh == 64) return bwd_mma::launch<64>(a, B, stream);
+      if (dh == 128) return bwd_mma::launch<128>(a, B, stream);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (dh) {
     case 16:
       return launch<T, 16>(a, B, stream);
@@ -439,7 +940,7 @@ template <typename T>
 int run(const void* q, const void* k, const void* v, const void* o,
         const void* dO, const float* lse, float* D, void* dq, void* dk,
         void* dv, int B, int Hq, int Hkv, int Sq, int Skv, int dh,
-        const long long* st, float scale, int causal, int window,
+        const long long* st, float scale, int causal, int window, int route,
         cudaStream_t stream) {
   Args<T> a;
   a.q = static_cast<const T*>(q);
@@ -463,7 +964,7 @@ int run(const void* q, const void* k, const void* v, const void* o,
   a.causal = causal;
   a.window = window;
   a.scale = scale;
-  return dispatch_dh<T>(dh, a, B, stream);
+  return dispatch_dh<T>(route, dh, a, B, stream);
 }
 
 }  // namespace
@@ -472,27 +973,33 @@ extern "C" {
 
 // strides: 24 element strides, the batch, head and sequence strides of q,
 // k, v, o, dO, dq, dk and dv in that order (the [B, H, S, dh] index order;
-// the stride along dh is 1).  D: [B, Hq, Sq] f32 scratch.  Launches
-// flash_bwd_dq, then flash_bwd_dkv, on `stream`; returns
-// cudaGetLastError() (cudaErrorInvalidValue for a head dim without an
-// instantiation: 16, 32, 64 and 128 are built).
+// the stride along dh is 1).  D: [B, Hq, Sq] f32 scratch.  route: 0 the
+// SIMT kernels (f32 or bf16), 1 the tensor-core kernels (bf16 at head dims
+// 64 and 128, bases and strides 16-byte aligned; kernels/flash_attention.py
+// `bwd_route` checks this before the launch).  Launches the dQ kernel,
+// then the dK/dV kernel, on `stream`; returns cudaGetLastError()
+// (cudaErrorInvalidValue for a head dim without an instantiation: 16, 32,
+// 64 and 128 on SIMT, 64 and 128 on mma; or a route the dtype does not
+// take).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dO, const float* lse,
                         float* D, void* dq, void* dk, void* dv, int B, int Hq,
                         int Hkv, int Sq, int Skv, int dh, int dtype,
                         const long long* strides, float scale, int causal,
-                        int window, int device, void* stream) {
+                        int window, int route, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0) return 0;
-  if (Hq % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (Hq % Hkv != 0 || (route != ROUTE_SIMT && route != ROUTE_MMA))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_BF16)
     return run<__nv_bfloat16>(q, k, v, o, dO, lse, D, dq, dk, dv, B, Hq, Hkv,
-                              Sq, Skv, dh, strides, scale, causal, window, s);
+                              Sq, Skv, dh, strides, scale, causal, window,
+                              route, s);
   if (dtype == DT_F32)
     return run<float>(q, k, v, o, dO, lse, D, dq, dk, dv, B, Hq, Hkv, Sq, Skv,
-                      dh, strides, scale, causal, window, s);
+                      dh, strides, scale, causal, window, route, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

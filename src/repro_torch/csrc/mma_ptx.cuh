@@ -1,8 +1,8 @@
 // Inline-PTX wrappers shared by the kernels on the bf16 tensor cores
-// (flash_attention.cu, wkv6.cu): cp.async copies into shared memory,
-// ldmatrix fragment loads and the mma.sync m16n8k16 bf16 product with f32
-// sums.  kernels/build.py hashes this header into every library's cache
-// key, so a change here rebuilds both.
+// (flash_attention.cu, flash_attention_bwd.cu, wkv6.cu): cp.async copies
+// into shared memory, ldmatrix fragment loads and the mma.sync m16n8k16
+// bf16 product with f32 sums.  kernels/build.py hashes this header into
+// every library's cache key, so a change here rebuilds them all.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,6 +20,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4 bytes global -> shared (through L1: cp.async takes 4-byte copies only
+// with .ca); zero-filled when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_commit() {
@@ -54,6 +63,18 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
 
 __device__ __forceinline__ __nv_bfloat162 pack2(float lo, float hi) {
   return __floats2bfloat162_rn(lo, hi);
+}
+
+// Two f32 values as a bf16 high part, bf16(x), and a bf16 low part,
+// bf16(x - bf16(x)), each packed in a 32-bit A-fragment register: hi + lo
+// carries x to ~2^-16 of its size through two products.
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = pack2(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = pack2(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 }  // namespace ptx

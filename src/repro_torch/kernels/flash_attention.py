@@ -20,8 +20,12 @@ f32 (``attention_plain_lse`` is its plain version).
 
 The backward has no Pallas counterpart: the reference differentiates its
 jnp attention (``models/common.py::_attend_block``).
-``flash_attention_bwd_cuda`` launches ``csrc/flash_attention_bwd.cu`` (f32
-sums on the SIMT pipes for bf16 and f32, head dims ``BWD_HEAD_DIMS``) and
+``flash_attention_bwd_cuda`` launches ``csrc/flash_attention_bwd.cu`` (head
+dims ``BWD_HEAD_DIMS``) on the route ``bwd_route`` picks before the launch:
+``"mma"`` (bf16 at head dims ``BWD_MMA_HEAD_DIMS`` whose eight tensors
+``route`` would send to the tensor cores) or ``"simt"`` (f32 sums on the
+SIMT pipes, for f32 and every other bf16 call); ``BWD_ROUTES`` counts the
+launches of each, apart from the forward's ``ROUTES``.
 ``attention_bwd_plain`` is its plain version, in the same algebra: P
 recomputed from lse, ``D = rowsum(dO * O)``.
 """
@@ -38,9 +42,11 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)      # instantiated in the CUDA source
 BWD_HEAD_DIMS = (16, 32, 64, 128)       # the backward's f32 tiles: not 256
+BWD_MMA_HEAD_DIMS = (64, 128)           # the backward's tensor-core kernels
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTE_IDS = {"simt": 0, "mma": 1}
 ROUTES: collections.Counter = collections.Counter()
+BWD_ROUTES: collections.Counter = collections.Counter()
 
 
 def route(dtype, strides, data_ptrs) -> str:
@@ -54,6 +60,17 @@ def route(dtype, strides, data_ptrs) -> str:
     if any(s % 8 for s in strides) or any(p % 16 for p in data_ptrs):
         return "simt"
     return "mma"
+
+
+def bwd_route(dtype, dh: int, strides, data_ptrs) -> str:
+    """The backward's kernel route: ``"mma"`` where ``route`` sends the
+    eight tensors (q, k, v, o, dO, dq, dk, dv: their batch, head and
+    sequence ``strides`` and base addresses) to the tensor cores and the
+    head dim is one of ``BWD_MMA_HEAD_DIMS``, else ``"simt"``.  A pure
+    function of its arguments: it launches nothing."""
+    if dh not in BWD_MMA_HEAD_DIMS:
+        return "simt"
+    return route(dtype, strides, data_ptrs)
 
 
 def _mask(sq: int, skv: int, causal: bool, window: int, device):
@@ -142,7 +159,7 @@ _SIGNATURES = {
 _BWD_SIGNATURES = {
     "flash_attention_bwd": [_P] * 10 + [_I] * 7
                            + [ctypes.POINTER(_L), ctypes.c_float, _I, _I,
-                              _I, _P],
+                              _I, _I, _P],
 }
 
 
@@ -206,7 +223,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                              window: int = 0):
-    """Launch the backward kernels on CUDA tensors: (dq, dk, dv) with the
+    """Launch the backward kernels on CUDA tensors, on the route
+    ``bwd_route`` picks (counted in ``BWD_ROUTES``): (dq, dk, dv) with the
     dtypes of q, k, v and, where dense, their strides.  ``o`` and ``lse``
     come from ``flash_attention_cuda(..., with_lse=True)`` on the same
     inputs and masks; ``do`` may have any strides (one without a unit
@@ -234,12 +252,15 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
         return dq.zero_(), dk.zero_(), dv.zero_()
     d = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     tensors = (q, k, v, o, do, dq, dk, dv)
-    strides = (_L * 24)(*(s for t in tensors for s in t.stride()[:3]))
+    flat = [s for t in tensors for s in t.stride()[:3]]
+    how = bwd_route(q.dtype, dh, flat, [t.data_ptr() for t in tensors])
     lib = build.load("flash_attention_bwd", _BWD_SIGNATURES)
     code = lib.flash_attention_bwd(
         *(t.data_ptr() for t in (q, k, v, o, do, lse, d, dq, dk, dv)),
-        b, hq, hkv, sq, skv, dh, _DTYPES[q.dtype], strides,
-        1.0 / math.sqrt(dh), int(bool(causal)), int(window), q.device.index,
-        build.stream_of(q))
-    build.check("flash_attention_bwd", code, "flash_attention_bwd launch")
+        b, hq, hkv, sq, skv, dh, _DTYPES[q.dtype], (_L * 24)(*flat),
+        1.0 / math.sqrt(dh), int(bool(causal)), int(window), _ROUTE_IDS[how],
+        q.device.index, build.stream_of(q))
+    build.check("flash_attention_bwd", code,
+                f"flash_attention_bwd launch ({how})")
+    BWD_ROUTES[how] += 1
     return dq, dk, dv

@@ -282,24 +282,38 @@ def test_wkv6_autograd_counts_forward_and_backward_launches():
     assert all(bool(torch.isfinite(t).all()) for t in grads)
 
 
-def test_flash_autograd_launches_the_backward_kernel():
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_flash_autograd_launches_the_backward_kernel(dt):
     """Under autograd ops.flash_attention is one node of the forward and
-    backward kernels: gradients equal the CPU's autograd through the plain
-    version, one launch each; without autograd the forward alone."""
+    backward kernels, one launch each; without autograd the forward alone.
+    f32 (the SIMT backward): gradients equal the CPU's autograd through the
+    plain version.  bf16 (the tensor-core backward): the node's gradients
+    are the bits of the backward kernel called on the forward's output and
+    lse."""
     dev = cuda_device()
     g = torch.Generator().manual_seed(8)
     qkv = [torch.randn((1, 4, 70, 64), generator=g) for _ in range(3)]
     cpu = [t.clone().requires_grad_(True) for t in qkv]
-    card = [t.to(dev).requires_grad_(True) for t in qkv]
-    want = torch.autograd.grad(ops.flash_attention(*cpu).square().sum(), cpu)
+    card = [t.to(dev, TORCH_DT[dt]).requires_grad_(True) for t in qkv]
     ops.reset_launches()
+    fa.BWD_ROUTES.clear()
     out = ops.flash_attention(*card)
     assert dict(ops.LAUNCHES) == {"flash_attention": 1}
     got = torch.autograd.grad(out.square().sum(), card)
     assert dict(ops.LAUNCHES) == {"flash_attention": 1,
                                   "flash_attention_bwd": 1}
-    for a, b in zip(got, want):
-        assert float((a.cpu() - b).abs().max()) <= 2e-4
+    assert dict(fa.BWD_ROUTES) == {"simt" if dt == "float32" else "mma": 1}
+    if dt == "float32":
+        want = torch.autograd.grad(ops.flash_attention(*cpu).square().sum(),
+                                   cpu)
+        for a, b in zip(got, want):
+            assert float((a.cpu() - b).abs().max()) <= 2e-4
+    else:
+        with torch.no_grad():
+            o, lse = fa.flash_attention_cuda(*card, with_lse=True)
+            want = fa.flash_attention_bwd_cuda(*card, o, lse, 2 * o)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
     with torch.no_grad():
         assert ops.flash_attention(*card).shape == card[0].shape
     assert dict(ops.LAUNCHES) == {"flash_attention": 2,
@@ -357,12 +371,15 @@ def test_flash_bwd_matches_plain(case, dt, tol):
     """dq, dk, dv against attention_bwd_plain on the same values (in f32),
     within ``tol`` absolute and ``FLASH_BWD_ELEM`` element by element, and
     the forward's lse against the plain lse (rows without a key: both
-    -1e30)."""
+    -1e30).  Every case has head dim 64 or 128: bf16 on the tensor-core
+    route, f32 on SIMT."""
     dev = cuda_device()
     causal, window = case[6], case[7]
     q, k, v, o, lse, do = _flash_bwd_inputs(dev, case, TORCH_DT[dt])
+    fa.BWD_ROUTES.clear()
     grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
                                         window=window)
+    assert dict(fa.BWD_ROUTES) == {"mma" if dt == "bfloat16" else "simt": 1}
     f32 = [t.float() for t in (q, k, v)]
     _, lse_p = fa.attention_plain_lse(*f32, causal=causal, window=window)
     plain = fa.attention_bwd_plain(*f32, o.float(), lse_p, do.float(),
@@ -375,9 +392,9 @@ def test_flash_bwd_matches_plain(case, dt, tol):
 
 
 def test_flash_bwd_misaligned_bf16_and_the_full_width_call():
-    """A bf16 q based 2 bytes off 16 (the forward on SIMT) and qwen1.5-4b's
-    training call [2, 20, 512, 128] in the model layout, within 5e-2 and
-    element by element."""
+    """A bf16 q based 2 bytes off 16 (the forward and the backward on SIMT)
+    and qwen1.5-4b's training call [2, 20, 512, 128] in the model layout
+    (both on the tensor cores), within 5e-2 and element by element."""
     dev = cuda_device()
     g = torch.Generator(device=dev).manual_seed(9)
     n = 2 * 4 * 40 * 64
@@ -392,7 +409,9 @@ def test_flash_bwd_misaligned_bf16_and_the_full_width_call():
         fa.ROUTES.clear()
         o, lse = fa.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
         assert dict(fa.ROUTES) == {"simt" if q.data_ptr() % 16 else "mma": 1}
+        fa.BWD_ROUTES.clear()
         grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+        assert dict(fa.BWD_ROUTES) == dict(fa.ROUTES)
         f32 = [t.float() for t in (q, k, v)]
         _, lse_p = fa.attention_plain_lse(*f32, causal=True)
         plain = fa.attention_bwd_plain(*f32, o.float(), lse_p, do.float(),
@@ -402,17 +421,40 @@ def test_flash_bwd_misaligned_bf16_and_the_full_width_call():
             _assert_elementwise(got, want, "bfloat16")
 
 
-def test_flash_bwd_is_bit_reproducible():
+@pytest.mark.parametrize("dt", ["bfloat16", "float32"])
+def test_flash_bwd_is_bit_reproducible(dt):
     """No float atomics: two backward calls on the same inputs give the
-    same bits (GQA, a window and rows without a key included)."""
+    same bits (GQA, a window and rows without a key included), on the
+    tensor-core route (bf16) and on SIMT (f32)."""
     dev = cuda_device()
     for case in (FLASH_BWD_CASES[1], FLASH_BWD_CASES[-1]):
-        q, k, v, o, lse, do = _flash_bwd_inputs(dev, case, torch.bfloat16, 3)
+        q, k, v, o, lse, do = _flash_bwd_inputs(dev, case, TORCH_DT[dt], 3)
         kw = dict(causal=case[6], window=case[7])
+        fa.BWD_ROUTES.clear()
         first = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
         second = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        assert dict(fa.BWD_ROUTES) == {
+            "mma" if dt == "bfloat16" else "simt": 2}
         for a, b in zip(first, second):
             assert torch.equal(a, b)
+
+
+def test_flash_bwd_bf16_takes_the_tensor_cores():
+    """Every aligned bf16 backward at head dims 64 and 128 (the cases
+    above, and qwen1.5-4b's and granite's training calls in the model
+    layout) launches on "mma", the forward's route count untouched."""
+    dev = cuda_device()
+    cases = FLASH_BWD_CASES + [(2, 20, 20, 512, 512, 128, True, 0, True),
+                               (2, 24, 8, 512, 512, 64, True, 0, True)]
+    fa.BWD_ROUTES.clear()
+    for case in cases:
+        q, k, v, o, lse, do = _flash_bwd_inputs(dev, case, torch.bfloat16)
+        fa.ROUTES.clear()
+        fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=case[6],
+                                    window=case[7])
+        assert not fa.ROUTES
+    torch.cuda.synchronize()
+    assert dict(fa.BWD_ROUTES) == {"mma": len(cases)}
 
 
 @pytest.mark.parametrize("sq,skv", [(0, 16), (16, 0)])
