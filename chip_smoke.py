@@ -55,7 +55,13 @@ Phases (any failure exits non-zero; nothing is caught):
      compared first), qwen3-moe split at cut 1 ('none' tokens equal the
      static tokens, measured bytes equal billed bytes), and one pipelined
      training step each of an RWKV and a qwen model (loss and updated
-     parameters; the qwen step through the flash backward kernel);
+     parameters; the qwen step through the flash backward kernel); the
+     continuous-batching engine, its decode step captured as a CUDA
+     graph, on the SMOKE qwen, recurrentgemma and granite-moe (16 slots,
+     where the naive MoE capacity would drop tokens): greedy tokens equal
+     the CPU engine's and the card's solo decodes, tokens sampled at T 0.7
+     equal at 1 and 3 slots and to solo, a replayed step leaves the
+     inactive slots' bytes as they were, prompt + gen == cache_len runs;
   4. the main paths at full width, random weights from seed 0, bf16 compute:
      a. serving qwen1.5-4b (40 layers, batch 4, prompt 512, 32 greedy
         tokens) through the serving CLI's entry point: the static path, then
@@ -92,6 +98,18 @@ Phases (any failure exits non-zero; nothing is caught):
         beside those of the SIMT backward, the first equal to 5 digits;
         24 encodes and 24 decodes of the [1024, 2560] hop, every decode on
         "warp256"; peak GB beside the card's name and power limit;
+     g. continuous batching of qwen1.5-4b (after e): 12 requests of prompt
+        512 with budgets 8 / 32 / 128, 8 slots, longest first, 2048-token
+        prefill chunks, cache_len 640, through the serving CLI (the decode
+        step one CUDA graph), then the engine on the same weights captured
+        and with graph=False: the same tokens in all three, exactly 40
+        flash launches a prefill chunk and none in decode, and three
+        requests (one per budget) decoded solo with teacher forcing on the
+        engine's tokens within CB_TOL of the largest |logit|, every token
+        the argmax of the engine's logits; wall, tok/s, decode steps,
+        prefill chunks, engine units against the convoy's, occupancy,
+        TTFT p50 / p99, the capture's ms, and one decode step (8 lanes)
+        untraced and under torch.profiler, for each;
      e. serving granite-moe-3b-a800m (32 MoE layers, 40 experts top-8, 24
         heads on 8 kv heads of 64, tied embeddings; batch 4, prompt 512, 32
         greedy tokens) through the serving CLI's entry point: tokens in
@@ -173,6 +191,18 @@ GR_GMM = (40, 512, 1536, 512)                   # E, C, D, F of w1 and w3
 GR_GMM_DECODE = (40, 8, 1536, 512)
 GR_HEADS = (24, 8, 64)                          # q heads, kv heads, dh
 QM_ARCH = "qwen3-moe-30b-a3b"                   # its SMOKE config splits
+# the continuous-batching path: qwen1.5-4b, 12 requests of prompt 512 with
+# budgets 8 / 32 / 128 (seeded shuffle), 8 slots, longest first, chunks of
+# up to 2048 prompt tokens; cache_len = prompt + the largest budget
+CB_REQUESTS, CB_SLOTS, CB_MIX, CB_CHUNK = 12, 8, "8,32,128", 2048
+CB_CACHE = PROMPT + 128
+# teacher-forced solo decode against the engine: the largest logit gap over
+# the largest |logit|.  Both runs round every activation, and the logits
+# themselves (the head's bf16 product), to bf16: steps of 2^-8 to 2^-7 of
+# a value.  They take GEMMs of another M (8 lanes: cuBLAS' 64x8 tiles; 1
+# lane: its GEMV), which sum in another order and flip single roundings
+# through 40 layers.  2e-2 is 2.6 to 5.1 bf16 steps of the largest logit
+CB_TOL = 2e-2
 
 SERVING_KERNELS = ("wire_encode", "wire_decode", "flash_attention")
 TRAINING_KERNELS = ("wkv6", "wkv6_bwd", "wire_encode", "wire_decode")
@@ -1191,6 +1221,271 @@ def run_moe_serving(torch, ops, serve):
     return res, launches, peak_gb
 
 
+def _engine_reqs(vocab, specs, rid0=0):
+    import numpy as np
+
+    from repro_torch.serving.scheduler import Request
+    rng = np.random.default_rng(11)
+    return [Request(rid=rid0 + i, prompt=rng.integers(0, vocab, p),
+                    max_new_tokens=g) for i, (p, g) in enumerate(specs)]
+
+
+def check_small_engines(torch, dev):
+    """The continuous-batching engine on small f32 models, its decode step
+    captured as a CUDA graph: dense qwen SMOKE, recurrentgemma SMOKE (the
+    RG-LRU scan and windowed flash in prefill, the ring in decode) and
+    granite-moe SMOKE at 16 slots (5 experts, top 2: the batched step's
+    naive capacity would drop tokens).  Greedy tokens equal the card's
+    solo decodes and the CPU engine's exactly; tokens sampled at T = 0.7
+    are the same at 1 and 3 slots and equal the card's solo decodes; a
+    replayed step leaves an inactive slot's arena bytes as they were; a
+    request with prompt + gen == cache_len runs."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import kv
+    from repro_torch.serving.engine import ServingEngine, solo_decode
+    from repro_torch.utils.trees import tree_leaves, tree_map
+    for arch, slots, specs in (
+            (ARCH, 2, [(5, 4), (5, 2), (7, 6), (5, 3), (7, 5)]),
+            (RG_ARCH, 2, [(12, 6), (5, 3), (12, 4), (9, 8)]),
+            (GR_ARCH, 16, [(4, 3)] * 16)):
+        cfg = get_arch(arch).smoke
+        cpu, card = LM(cfg, "cpu"), LM(cfg, dev)
+        params = cpu.init(torch.Generator().manual_seed(SEED))
+        pcard = tree_map(lambda t: t.to(dev), params)
+        want = ServingEngine(cpu, params, slots=slots, cache_len=20).run(
+            _engine_reqs(cfg.vocab, specs))
+        eng = ServingEngine(card, pcard, slots=slots, cache_len=20,
+                            graph=True)
+        got = eng.run(_engine_reqs(cfg.vocab, specs))
+        for r in _engine_reqs(cfg.vocab, specs):
+            solo = solo_decode(card, pcard, r.prompt, r.max_new_tokens,
+                               cache_len=20)
+            if not (np.array_equal(got[r.rid], want[r.rid])
+                    and np.array_equal(got[r.rid], solo)):
+                fail(f"small {arch} engine (graph) on the card: request "
+                     f"{r.rid} tokens {got[r.rid].tolist()}, CPU engine "
+                     f"{want[r.rid].tolist()}, card solo {solo.tolist()}")
+        sampled = {n: ServingEngine(card, pcard, slots=n, cache_len=20,
+                                    temperature=0.7, seed=9, graph=True)
+                   .run(_engine_reqs(cfg.vocab, specs[:4]))
+                   for n in (1, 3)}
+        for r in _engine_reqs(cfg.vocab, specs[:4]):
+            solo = solo_decode(card, pcard, r.prompt, r.max_new_tokens,
+                               cache_len=20, temperature=0.7, seed=9,
+                               rid=r.rid)
+            if not (np.array_equal(sampled[1][r.rid], solo)
+                    and np.array_equal(sampled[3][r.rid], solo)):
+                fail(f"small {arch} engine sampled at T 0.7: request "
+                     f"{r.rid} {sampled[1][r.rid].tolist()} (1 slot), "
+                     f"{sampled[3][r.rid].tolist()} (3 slots), solo "
+                     f"{solo.tolist()}")
+        print(f"small f32 {arch} engine, {slots} slots, step captured "
+              f"({eng.capture_ms:.1f} ms): {len(got)} requests' greedy "
+              f"tokens == CPU engine's == card solo decodes; sampled at "
+              f"T 0.7 equal at 1 and 3 slots and to solo")
+        if arch == GR_ARCH:
+            continue
+        # pins: a replayed step keeps an inactive slot's bytes; a request
+        # whose prompt + gen == cache_len runs to its end
+        pin = ServingEngine(card, pcard, slots=3, cache_len=20, graph=True)
+        for r in _engine_reqs(cfg.vocab, [(5, 1), (5, 15)]):
+            pin.submit(r)
+        pin.step_once()
+        rows = lambda s: [t.clone() for t in tree_leaves(
+            kv.take_slot(pin.cache, pin.axes, s))]
+        before = [rows(s) for s in (0, 2)]
+        pin.step_once()
+        after = [rows(s) for s in (0, 2)]
+        if not all(torch.equal(a, b) for x, y in zip(before, after)
+                   for a, b in zip(x, y)):
+            fail(f"small {arch}: a replayed step changed an inactive slot")
+        out = pin.run()
+        solo = solo_decode(card, pcard, _engine_reqs(cfg.vocab, [(5, 1), (
+            5, 15)])[1].prompt, 15, cache_len=20)
+        if not (np.array_equal(out[1], solo) and pin.positions.max() == 20):
+            fail(f"small {arch}: prompt + gen == cache_len: "
+                 f"{out[1].tolist()} vs solo {solo.tolist()}")
+        print(f"small f32 {arch}: a replayed step leaves the inactive "
+              f"slots' bytes unchanged; prompt 5 + gen 15 == cache_len 20 "
+              f"runs and equals its solo decode")
+
+
+def profile_engine_step(torch, engine, name, card):
+    """One decode step of a full engine (8 lanes active, nothing queued):
+    4 steps on the host clock, then 4 under torch.profiler (wall, device
+    busy and idle share per step), beside the card.  Device time by CUDA
+    events where the trace holds none."""
+    from torch.profiler import ProfilerActivity, profile
+    for r in _engine_reqs(engine.model.cfg.vocab,
+                          [(PROMPT, 128)] * CB_SLOTS, rid0=1000):
+        engine.submit(r)
+    while len(engine.scheduler) or engine.decode_steps < 4:
+        engine.step_once()
+    chunks = engine.prefill_chunks
+    steps = 4
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.step_once()
+    torch.cuda.synchronize()
+    untraced = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step_once()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    if engine.prefill_chunks != chunks or not engine.active.all():
+        fail(f"continuous {name}: the profiled steps were not pure decode")
+    busy_us, rows, us = _kernel_us(prof.key_averages())
+    busy = busy_us / 1e3 / steps
+    how = "torch.profiler"
+    if busy <= 0:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        engine.step_once()
+        end.record()
+        torch.cuda.synchronize()
+        busy, how = start.elapsed_time(end), "CUDA events (no trace)"
+    print(f"profile continuous {name} decode step (8 lanes, {how}): wall "
+          f"{wall:.3f} ms/step, device busy {busy:.3f} ms/step, idle share "
+          f"{1 - busy / wall:.3f}; untraced wall {untraced:.3f} ms/step "
+          f"(idle share {1 - busy / untraced:.3f} against it) ({card})")
+    for e in rows[:4]:
+        print(f"  {us(e) / 1e3 / steps:9.3f} ms/step  "
+              f"{e.count // steps:5d} calls/step  {e.key[:70]}")
+    return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall,
+            "untraced_ms": untraced, "idle_untraced": 1 - busy / untraced}
+
+
+def _engine_line(name, res, stats, convoy, card):
+    lat = stats["qos"]["latency"]
+    print(f"continuous {name}: {res['emitted']} tokens of "
+          f"{res['requests']} requests in {res['wall_s'] * 1e3:.1f} ms, "
+          f"{res['tok_s']:.1f} tok/s; {stats['decode_steps']} decode steps, "
+          f"{stats['prefill_chunks']} prefill chunks; engine units "
+          f"{stats['engine_units']} vs convoy(batch {BATCH}) {convoy}; "
+          f"occupancy {stats['occupancy_mean']:.3f}/{CB_SLOTS}; ttft p50 "
+          f"{lat['p50_ttft_s'] * 1e3:.1f} ms, p99 "
+          f"{lat['p99_ttft_s'] * 1e3:.1f} ms; capture "
+          + (f"{stats['capture_ms']:.1f} ms" if stats["graph"] else "none")
+          + f" ({card})")
+
+
+def run_continuous(torch, ops, serve, card):
+    """Continuous batching of qwen1.5-4b FULL on the card: through the
+    serving CLI (the decode step one CUDA graph), then the engine on the
+    same weights captured (logits kept for three requests) and with
+    graph=False.  Fails unless the three emit the same tokens, flash
+    launches 40 times a prefill chunk and never in decode, and three
+    requests, one per budget, decoded solo with teacher forcing on the
+    engine's tokens give the engine's logits within CB_TOL of the largest
+    |logit|, every emitted token the argmax of the engine's own logits."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.engine import ServingEngine, convoy_units, \
+        solo_decode
+    argv = ["--arch", ARCH, "--size", "full", "--continuous", "--requests",
+            str(CB_REQUESTS), "--prompt-len", str(PROMPT), "--gen-mix",
+            CB_MIX, "--slots", str(CB_SLOTS), "--policy", "longest_first",
+            "--prefill-chunk-tokens", str(CB_CHUNK), "--batch", str(BATCH),
+            "--seed", str(SEED)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    fa.ROUTES.clear()
+    cli = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = cli["stats"]
+    want = {"flash_attention": Q_LAYERS * stats["prefill_chunks"]}
+    if launches != want or dict(fa.ROUTES) != {"mma": want[
+            "flash_attention"]}:
+        fail(f"continuous {ARCH}: launches {launches} (routes "
+             f"{dict(fa.ROUTES)}) != {want}: flash 40 a prefill chunk, "
+             "none in decode")
+    if not stats["graph"] or stats["qos"]["completed"] != CB_REQUESTS:
+        fail(f"continuous {ARCH}: graph {stats['graph']}, "
+             f"{stats['qos']['completed']} of {CB_REQUESTS} completed")
+    print(f"continuous {ARCH} through the CLI: launches "
+          f"{json.dumps(launches)} == 40 x {stats['prefill_chunks']} "
+          f"prefill chunks, all on mma; peak {peak_gb:.2f} GB")
+    args = serve.parse_args(argv)
+    model = LM(get_arch(ARCH).full, torch.device("cuda", 0))
+    params = model.init(torch.Generator(device=model.device).manual_seed(
+        SEED))
+    reqs = serve._request_mix(model.cfg, args)
+    convoy = convoy_units(reqs, BATCH)
+    pick = {}
+    for r in reqs:
+        pick.setdefault(r.max_new_tokens, r.rid)
+    results = {"cli": dict(emitted=sum(len(v) for v in
+                                       cli["tokens"].values()),
+                           requests=len(reqs), wall_s=cli["wall_s"],
+                           tok_s=cli["tok_s"])}
+    _engine_line("CLI, captured", results["cli"], stats, convoy, card)
+    runs, profiles = {}, {}
+    for name, graph in (("captured", True), ("eager", False)):
+        engine = ServingEngine(
+            model, params, slots=CB_SLOTS, cache_len=CB_CACHE,
+            prefill_chunk_tokens=CB_CHUNK, policy="longest_first",
+            seed=SEED, graph=graph, keep_logits=pick.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.run(serve._request_mix(model.cfg, args))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        emitted = sum(len(v) for v in out.values())
+        results[name] = dict(emitted=emitted, requests=len(reqs),
+                             wall_s=wall, tok_s=emitted / wall)
+        _engine_line(name, results[name], engine.stats(), convoy, card)
+        runs[name] = (out, {rid: engine.kept_logits[rid]
+                            for rid in pick.values()})
+        profiles[name] = profile_engine_step(torch, engine, name, card)
+        del engine
+        torch.cuda.empty_cache()
+    for rid, toks in cli["tokens"].items():
+        for name, (out, _) in runs.items():
+            if not np.array_equal(out[rid], toks):
+                fail(f"continuous {ARCH}: request {rid} tokens differ "
+                     f"between the CLI's captured run and the {name} run")
+    print(f"continuous {ARCH}: the CLI's, the captured and the eager runs "
+          f"emit the same tokens for all {len(reqs)} requests")
+    gaps = []
+    for gen, rid in sorted(pick.items()):
+        req = reqs[rid]
+        for name, (out, kept) in runs.items():
+            if not torch.equal(torch.argmax(kept[rid], -1).to(torch.int32),
+                               torch.as_tensor(out[rid])):
+                fail(f"continuous {ARCH} {name}: request {rid}'s tokens "
+                     "are not the argmax of the engine's logits")
+        _, solo = solo_decode(model, params, req.prompt, gen,
+                              cache_len=CB_CACHE, forced=runs[
+                                  "captured"][0][rid], keep_logits=True)
+        eng = runs["captured"][1][rid]
+        gap = float((solo - eng).abs().max())
+        top = float(eng.abs().max())
+        gaps.append(gap / top)
+        print(f"teacher-forced solo decode of request {rid} (gen {gen}) vs "
+              f"the captured engine: largest logit gap {gap:.4e}, largest "
+              f"|logit| {top:.4f}, ratio {gap / top:.4e} (tol {CB_TOL})")
+        if not gap <= CB_TOL * top:
+            fail(f"continuous {ARCH}: request {rid} solo logits differ by "
+                 f"{gap} > {CB_TOL} x {top}")
+    del model, params
+    torch.cuda.empty_cache()
+    return results, profiles, max(gaps), peak_gb
+
+
 def _train_argv(wire: str, arch: str = T_ARCH):
     return ["--arch", arch, "--size", "full", "--pipeline-stages", "2",
             "--pipeline-k", str(T_K), "--batch", str(T_BATCH), "--seq",
@@ -2042,6 +2337,7 @@ def main():
     check_small_moe(torch, dev)
     check_small_moe_split(torch, ops, serve)
     check_small_training(torch, ops, dev)
+    check_small_engines(torch, dev)
     phase("build and kernel checks")
 
     static, split, launches, serve_calls = run_main_path(torch, ops, serve,
@@ -2075,6 +2371,19 @@ def main():
     profile_serving(torch, dev, GR_ARCH, 1)
     torch.cuda.empty_cache()
     phase(f"{GR_ARCH} serving and profile")
+
+    cb, cb_profiles, cb_gap, cb_peak = run_continuous(torch, ops, serve, card)
+    for name, r in cb.items():
+        p = cb_profiles.get(name)
+        print(f"main path continuous {ARCH} {name}: {r['tok_s']:.1f} tok/s"
+              + (f"; decode step {p['busy_ms']:.3f} device ms, idle share "
+                 f"{p['idle']:.3f} traced, {p['idle_untraced']:.3f} against "
+                 f"the untraced {p['untraced_ms']:.3f} ms" if p else "")
+              + f" ({card})")
+    print(f"main path continuous {ARCH}: teacher-forced logit gap "
+          f"{cb_gap:.4e} of the largest |logit| (tol {CB_TOL}); peak "
+          f"{cb_peak:.2f} GB")
+    phase("continuous serving")
 
     rows, train_launches, train_calls = run_training_path(
         torch, ops, train, protocol, dev, wc,

@@ -1,12 +1,18 @@
-"""Serving CLI: static greedy convoy, or split inference over loopback.
+"""Serving CLI: static convoy, continuous batching, or split inference.
 
-Port of the static and split paths of the JAX package's
-``launch/serve.py``.  Runs on the card unless ``--device cpu`` is given;
-without CUDA and without that flag it raises.
+Port of the JAX package's ``launch/serve.py``.  Runs on the card unless
+``--device cpu`` is given; without CUDA and without that flag it raises.
 
 * static (default): prefill a prompt batch with ``LM.prefill_with_cache``,
-  then ``--gen`` greedy decode steps.  Sampling (``--temperature > 0``)
-  and the continuous-batching engine are not ported yet.
+  then ``--gen`` decode + sample steps (``serving.engine.make_sample_step``:
+  greedy, or ``--temperature > 0`` with the port's sampling keys, the
+  batch row as the request id).
+* ``--continuous``: the continuous-batching engine
+  (``serving.engine.ServingEngine``): a slot arena of ``--slots`` lanes
+  (or ``--slots auto``: ``analysis/autotune.choose_serving_plan`` on
+  measured step costs, which needs ``--arrival-hz``), chunked prefill
+  interleaved with one fixed-shape decode step (one CUDA graph on the
+  card), per-request QoS latency percentiles.  Not with ``--split-cut``.
 * ``--split-cut L``: the UE half (embed + blocks[:L]) ships coded cut
   activations as INFER frames over a real loopback socket
   (``--wire-dtype`` none/int8/fp8) to the BS half, which replies with the
@@ -19,6 +25,10 @@ PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \
     --size full --batch 4 --prompt-len 512 --gen 32
 PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \
     --size full --split-cut 20 --wire-dtype int8
+PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \
+    --size full --continuous --requests 12 --prompt-len 512 \
+    --gen-mix 8,32,128 --slots 8 --policy longest_first \
+    --prefill-chunk-tokens 2048
 PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
     --size full --batch 4 --prompt-len 512 --gen 32
 PYTHONPATH=src python -m repro_torch.launch.serve \
@@ -29,6 +39,7 @@ PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -39,7 +50,10 @@ from repro_torch.configs import get_arch
 from repro_torch.kernels import ops
 from repro_torch.models.lm import LM
 from repro_torch.parallel.wire import validate_wire_dtype
+from repro_torch.serving.engine import (ServingEngine, convoy_units,
+                                        make_sample_step)
 from repro_torch.serving.infer import SplitDecode, run_split_infer
+from repro_torch.serving.scheduler import POLICIES, Request
 
 
 def _sync(device: torch.device):
@@ -48,9 +62,10 @@ def _sync(device: torch.device):
 
 
 def _static_serve(model, params, prompts, args, cache_len) -> dict:
-    """Batched convoy serving: one prefill, ``--gen`` greedy decode steps.
-    Emitted tokens [batch, gen]: the prefill's argmax seeds the first
-    decode, and each decode's argmax is emitted after it runs."""
+    """Batched convoy serving: one prefill, ``--gen`` decode + sample
+    steps.  Emitted tokens [batch, gen]: the prefill's argmax seeds the
+    first decode, and each decode's sampled token is emitted after it
+    runs."""
     dev = model.device
     _sync(dev)
     before = dict(ops.LAUNCHES)
@@ -65,13 +80,15 @@ def _static_serve(model, params, prompts, args, cache_len) -> dict:
                         for k, n in ops.LAUNCHES.items()
                         if n > before.get(k, 0)}
     cache, position = state["cache"], state["position"]
+    step = make_sample_step(model, args.temperature, args.seed)
+    rows = torch.arange(prompts.shape[0], device=dev)
     out = []
     t0 = time.perf_counter()
-    for _ in range(args.gen):
-        logits, cache = model.decode_step(params, tok, cache, position)
+    for i in range(args.gen):
+        nxt, logits, cache = step(params, tok, cache, position, rows, i)
         position += 1
-        tok = torch.argmax(logits, dim=-1, keepdim=True)
-        out.append(tok[:, 0])
+        tok = nxt[:, None]
+        out.append(nxt)
     toks = torch.stack(out, dim=1).to(torch.int32).cpu()
     t_decode = time.perf_counter() - t0
     print(f"prefill: {args.prompt_len} toks x {args.batch} seqs in "
@@ -84,6 +101,126 @@ def _static_serve(model, params, prompts, args, cache_len) -> dict:
             "prefill_launches": prefill_launches,
             "prefill_ms": t_prefill * 1e3,
             "decode_tok_s": args.gen * args.batch / max(t_decode, 1e-9)}
+
+
+def _request_mix(cfg, args) -> list:
+    """Deterministic request set: ``--requests`` prompts of
+    ``--prompt-len`` tokens, generation budgets cycled from ``--gen-mix``
+    through a seeded shuffle (ragged on purpose: the convoy tax)."""
+    rng = np.random.default_rng(args.seed)
+    mix = [int(g) for g in str(args.gen_mix).split(",") if g]
+    gens = np.asarray([mix[i % len(mix)] for i in range(args.requests)])
+    rng.shuffle(gens)
+    return [Request(rid=i,
+                    prompt=rng.integers(0, cfg.vocab, args.prompt_len),
+                    max_new_tokens=int(gens[i]))
+            for i in range(args.requests)]
+
+
+def _measure_serving_inputs(model, params, args, cache_len):
+    """Two-point measurement of the engine's step cost for ``--slots
+    auto``: decode steps at two arena sizes give the per-lane slope and
+    the fixed overhead; one prefill gives the per-token cost."""
+    from repro_torch.analysis.autotune import ServingInputs
+    dev = model.device
+
+    def step_s(slots):
+        eng = ServingEngine(model, params, slots=slots,
+                            cache_len=cache_len, seed=args.seed)
+        for r in range(slots):
+            eng.submit(Request(rid=r, prompt=np.zeros(1, np.int32),
+                               max_new_tokens=cache_len - 1))
+        eng.step_once()                      # admit + first step
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(4):
+            eng._decode_once()
+        return (time.perf_counter() - t0) / 4
+
+    t1, t4 = step_s(1), step_s(4)
+    lane_s = max((t4 - t1) / 3, 1e-9)
+    prompts = torch.zeros((1, args.prompt_len), dtype=torch.int64,
+                          device=dev)
+    times = []
+    for _ in range(2):                       # the first call warms up
+        _sync(dev)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            model.prefill_with_cache(params, {"tokens": prompts}, cache_len,
+                                     torch.float32)
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+    return ServingInputs(
+        decode_lane_s=lane_s, step_overhead_s=max(t1 - lane_s, 0.0),
+        prefill_s_per_token=times[-1] / args.prompt_len,
+        arrival_hz=args.arrival_hz, prompt_tokens=float(args.prompt_len),
+        gen_tokens=float(np.mean([int(g) for g in
+                                  str(args.gen_mix).split(",") if g])),
+        wire_dtype=args.wire_dtype, act_bytes=4.0,
+        d_model=model.cfg.d_model)
+
+
+def _resolve_slots(model, params, args, cache_len):
+    """``--slots`` -> (slot count, ServingPlan evidence | None)."""
+    if str(args.slots) != "auto":
+        n = int(args.slots) or args.batch
+        return n, None
+    if not args.arrival_hz > 0:
+        raise SystemExit("--slots auto needs --arrival-hz (the offered "
+                         "load the serving planner optimizes for)")
+    from repro_torch.analysis.autotune import choose_serving_plan
+    inp = _measure_serving_inputs(model, params, args, cache_len)
+    plan = choose_serving_plan(inp)
+    print(f"serving plan: slots={plan.slots} wire={plan.wire_dtype} "
+          f"p99_ttft={plan.p99_ttft_s * 1e3:.2f} ms "
+          f"({plan.tokens_per_s:.1f} tok/s, rho={plan.rho:.2f})")
+    return plan.slots, plan
+
+
+def _continuous_serve(model, params, args, cache_len) -> dict:
+    """Continuous batching: the slot-arena engine over a ragged request
+    mix.  Returns the emitted tokens by request id, the engine's stats,
+    the plan (``--slots auto``) and the wall."""
+    slots, plan = _resolve_slots(model, params, args, cache_len)
+    requests = _request_mix(model.cfg, args)
+    engine = ServingEngine(
+        model, params, slots=slots, cache_len=cache_len,
+        temperature=args.temperature, seed=args.seed,
+        prefill_chunk_tokens=args.prefill_chunk_tokens,
+        policy=args.policy)
+    _sync(model.device)
+    t0 = time.perf_counter()
+    outputs = engine.run(requests)
+    _sync(model.device)
+    wall = time.perf_counter() - t0
+    stats = engine.stats()
+    emitted = sum(len(v) for v in outputs.values())
+    convoy = convoy_units(requests, args.batch)
+    print(f"continuous: {len(outputs)}/{len(requests)} requests, "
+          f"{emitted} tokens in {wall:.2f}s "
+          f"({emitted / max(wall, 1e-9):.1f} tok/s) on {model.device}, "
+          f"decode step {'one CUDA graph' if stats['graph'] else 'eager'}")
+    print(f"engine units {stats['engine_units']} vs convoy(batch="
+          f"{args.batch}) {convoy} -> modeled speedup "
+          f"{convoy / max(stats['engine_units'], 1):.2f}x; "
+          f"occupancy {stats['occupancy_mean']:.2f}/{slots}; "
+          f"{stats['decode_steps']} decode steps, "
+          f"{stats['prefill_chunks']} prefill chunks")
+    lat = stats["qos"]["latency"]
+    if lat["p50_ttft_s"] is not None:
+        print(f"latency: p50 ttft {lat['p50_ttft_s'] * 1e3:.1f} ms, "
+              f"p99 ttft {lat['p99_ttft_s'] * 1e3:.1f} ms")
+    if args.plan_out:
+        doc = {"mode": "continuous", "slots": slots,
+               "wire_dtype": args.wire_dtype,
+               "plan": plan.to_dict() if plan is not None else None,
+               "stats": stats}
+        with open(args.plan_out, "w") as f:
+            json.dump(doc, f, indent=1)
+        print(f"wrote {args.plan_out}")
+    return {"mode": "continuous", "tokens": outputs, "stats": stats,
+            "plan": plan, "slots": slots, "convoy_units": convoy,
+            "wall_s": wall, "tok_s": emitted / max(wall, 1e-9)}
 
 
 def _split_serve(model, params, prompts, args, cache_len) -> dict:
@@ -119,6 +256,27 @@ def parse_args(argv=None):
     ap.add_argument("--cache-len", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous-batching engine instead of the "
+                         "static convoy loop")
+    ap.add_argument("--requests", type=int, default=24,
+                    help="continuous mode: request count")
+    ap.add_argument("--gen-mix", default="8,32,128",
+                    help="continuous mode: generation budgets, cycled "
+                         "through a seeded shuffle")
+    ap.add_argument("--slots", default="0",
+                    help="continuous mode: slot-arena size (0 = --batch; "
+                         "'auto' runs the serving planner, which needs "
+                         "--arrival-hz)")
+    ap.add_argument("--arrival-hz", type=float, default=0.0,
+                    help="offered request rate for --slots auto")
+    ap.add_argument("--policy", default="fifo", choices=list(POLICIES),
+                    help="continuous mode: admission order")
+    ap.add_argument("--prefill-chunk-tokens", type=int, default=256,
+                    help="continuous mode: prefill-chunk token budget")
+    ap.add_argument("--plan-out", default=None,
+                    help="continuous mode: write the slots, the plan and "
+                         "the engine's stats to this JSON file")
     ap.add_argument("--split-cut", type=int, default=0,
                     help="L>0: split inference — UE runs blocks[:L], "
                          "ships coded INFER frames over loopback")
@@ -133,11 +291,11 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
-    if args.temperature > 0:
-        raise NotImplementedError(
-            "--temperature > 0 is not yet ported (sampling comes with the "
-            "continuous-batching slice); greedy only")
     args.wire_dtype = validate_wire_dtype(args.wire_dtype)
+    if args.split_cut and (args.continuous or args.temperature > 0):
+        raise ValueError("--split-cut serves the static batch greedily, as "
+                         "the reference's split path does: not with "
+                         "--continuous or --temperature > 0")
     spec = get_arch(args.arch)
     cfg = spec.smoke if args.size == "smoke" else spec.full
     model = LM(cfg, device)
@@ -145,6 +303,11 @@ def main(argv=None) -> dict:
         SplitDecode(model, args.split_cut)  # any weight is drawn
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))
     cache_len = args.cache_len or (args.prompt_len + args.gen)
+    if args.continuous:
+        cache_len = args.cache_len or (
+            args.prompt_len + max(int(g) for g in
+                                  str(args.gen_mix).split(",") if g))
+        return _continuous_serve(model, params, args, cache_len)
     rng = np.random.default_rng(args.seed)
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)),

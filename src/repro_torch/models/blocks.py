@@ -179,13 +179,15 @@ def _mlp(p, h, cfg: LMConfig, dt):
     return out
 
 
-def _ffn(p, x, cfg: LMConfig, dt):
+def _ffn(p, x, cfg: LMConfig, dt, dropless: bool = False):
     """Second half-block: norm + (MoE | MLP) with residual.  -> (x, the
-    MoE's aux loss, or None for a dense MLP)."""
+    MoE's aux loss, or None for a dense MLP).  ``dropless``: the MoE's
+    capacity covers every token (``apply_moe``)."""
     h = apply_norm(x, p["ln2"], cfg.norm)
     if "moe" in p:
         out, aux = apply_moe(p["moe"], h, topk=cfg.moe_topk,
-                             cap_factor=cfg.moe_capacity, act=cfg.act)
+                             cap_factor=cfg.moe_capacity, act=cfg.act,
+                             dropless=dropless)
         return x + out, aux
     return x + _mlp(p["mlp"], h, cfg, dt), None
 
@@ -276,30 +278,63 @@ def apply_block_prefill(p, x, cfg: LMConfig, kind: str, *, positions, state):
 # decode (single token with state)
 # --------------------------------------------------------------------------
 
+def _lanes(mask, new, old):
+    """``new`` in the rows of the active lanes (``mask`` [B] bool, None
+    for all), ``old`` in the rest."""
+    if mask is None:
+        return new
+    return torch.where(mask.view((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
 def apply_block_decode(p, x, state, cfg: LMConfig, kind: str, *,
-                       position: int):
+                       position, active=None):
     """x: [B, 1, D] -> [B, 1, D]; updates ``state`` in place: this token's
     K/V at ``position`` ("attn") or at its ring slot ``position % C``
-    ("local"), or the recurrent state ("rglru")."""
+    ("local"), or the recurrent state ("rglru").
+
+    ``position`` is an ``int`` for the whole batch (the static path), or
+    an int64 tensor [B] with one position per row: each row is then one
+    of the continuous-batching engine's lanes, as the reference's
+    vmapped batch-1 step computes it.  A lane's K/V goes to its own
+    index (a gather/scatter over the rows, no host round trip), its MoE
+    routes dropless (as a lone token does), and ``active`` [B] bool keeps
+    the inactive lanes inert: the rows they would write keep their old
+    values bit for bit.  An inactive lane's position may be
+    ``cache_len`` (a finished request), so its write index is clamped."""
     _require(kind)
+    lanes = torch.is_tensor(position)
+    if active is not None and not lanes:
+        raise ValueError("active lanes need a tensor of positions")
     dt = x.dtype
     h = apply_norm(x, p["ln1"], cfg.norm)
     if kind == "rglru":
         out, st = apply_recurrent_decode(p["rec"], h, state, dt=dt)
         for name in ("h", "conv"):
-            state[name].copy_(st[name])
-        return _ffn(p, x + out, cfg, dt)[0]
+            state[name].copy_(_lanes(active, st[name], state[name]))
+        return _ffn(p, x + out, cfg, dt, dropless=lanes)[0]
     q, k, v = _proj_qkv(p["attn"], h, cfg, dt)
-    pos_arr = torch.full((1,), position, device=x.device)
+    pos_arr = (position[:, None] if lanes
+               else torch.full((1,), position, device=x.device))
     q = apply_rope(q, pos_arr, cfg.rope_theta)
     k = apply_rope(k, pos_arr, cfg.rope_theta)
     slots = state["k"].shape[1]
     # the ring holds every token of the window once warm, so the local
     # layer masks only the slots not yet written (the reference's rule)
-    idx, last = ((position % slots, min(position, slots - 1))
-                 if kind == "local" else (position, position))
-    state["k"][:, idx] = k[:, 0].to(state["k"].dtype)
-    state["v"][:, idx] = v[:, 0].to(state["v"].dtype)
+    if not lanes:
+        idx, last = ((position % slots, min(position, slots - 1))
+                     if kind == "local" else (position, position))
+        state["k"][:, idx] = k[:, 0].to(state["k"].dtype)
+        state["v"][:, idx] = v[:, 0].to(state["v"].dtype)
+    else:
+        if kind == "local":
+            idx, last = position % slots, position.clamp(max=slots - 1)
+        else:
+            idx, last = position.clamp(max=slots - 1), position
+        rows = torch.arange(x.shape[0], device=x.device)
+        for name, t in (("k", k), ("v", v)):
+            cache = state[name]
+            cache[rows, idx] = _lanes(active, t[:, 0].to(cache.dtype),
+                                      cache[rows, idx])
     att = decode_attention(q, state["k"], state["v"], position=last)
     x = _attn_out(p["attn"], att, x, cfg, dt)
-    return _ffn(p, x, cfg, dt)[0]
+    return _ffn(p, x, cfg, dt, dropless=lanes)[0]

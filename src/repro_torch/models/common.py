@@ -103,7 +103,8 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0):
 
 
 def _attend_block(q, k, v, mask):
-    """q [B,hq,G,dh], k/v [B,hkv,S,dh], mask [G,S] bool -> [B,hq,G,dh]."""
+    """q [B,hq,G,dh], k/v [B,hkv,S,dh], mask broadcastable to
+    [B,hkv,rep,G,S] bool -> [B,hq,G,dh]."""
     b, hq, g, dh = q.shape
     hkv = k.shape[1]
     rep = hq // hkv
@@ -116,17 +117,23 @@ def _attend_block(q, k, v, mask):
     return out.reshape(b, hq, g, dh).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, *, position: int, window: int = 0):
+def decode_attention(q, k_cache, v_cache, *, position, window: int = 0):
     """Single-token decode: q [B,1,Hq,dh], caches [B,S,Hkv,dh].
 
-    ``position`` is the index of the token being generated; cache entries
-    at kv index > position (or outside the local window) are masked.
+    ``position`` is the index of the token being generated, an ``int``
+    for the whole batch or an int64 tensor [B] of one position per row
+    (the engine's lanes); cache entries at kv index > position (or
+    outside the local window) are masked.
     """
     s = k_cache.shape[1]
     kv_pos = torch.arange(s, device=q.device)
-    mask = kv_pos <= position
+    if torch.is_tensor(position):
+        position = position[:, None]                        # [B, 1]
+    mask = kv_pos <= position                               # [B | 1, S]
     if window > 0:
         mask = mask & (kv_pos > position - window)
+    if mask.dim() == 1:
+        mask = mask[None]
     out = _attend_block(q.transpose(1, 2), k_cache.transpose(1, 2),
-                        v_cache.transpose(1, 2), mask[None, :])
+                        v_cache.transpose(1, 2), mask[:, None, None, None])
     return out.transpose(1, 2)

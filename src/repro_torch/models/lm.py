@@ -86,12 +86,15 @@ def prefill_blocks(cfg: LMConfig, blocks, x, cache):
     return x
 
 
-def decode_blocks(cfg: LMConfig, blocks, x, cache, position: int):
+def decode_blocks(cfg: LMConfig, blocks, x, cache, position, active=None):
     """One token x [B, 1, D] through a block tree; updates each layer's
-    decode state in ``cache`` in place."""
+    decode state in ``cache`` in place.  ``position``: an ``int``, or an
+    int64 tensor [B] of per-lane positions with ``active`` lanes
+    (``apply_block_decode``)."""
     for p, st, kind in zip(layers_of(blocks), layers_of(cache),
                            _kinds(cfg, blocks), strict=True):
-        x = apply_block_decode(p, x, st, cfg, kind, position=position)
+        x = apply_block_decode(p, x, st, cfg, kind, position=position,
+                               active=active)
     return x
 
 
@@ -321,9 +324,13 @@ class LM:
         return self.logits(params, x), {"cache": cache,
                                         "position": int(x.shape[1])}
 
-    def decode_step(self, params, tokens, cache, position: int):
+    def decode_step(self, params, tokens, cache, position, active=None):
         """One serving step: tokens [B, 1] -> (logits [B, V] f32, cache).
-        ``cache`` is updated in place and returned."""
+        ``cache`` is updated in place and returned.  ``position`` is an
+        ``int`` for the batch, or an int64 tensor [B] of per-lane
+        positions, with ``active`` [B] bool marking the lanes whose state
+        the step may change (the serving engine's slots)."""
         x = self._embed(params, tokens, self.dtype)
-        x = decode_blocks(self.cfg, params["blocks"], x, cache, position)
+        x = decode_blocks(self.cfg, params["blocks"], x, cache, position,
+                          active)
         return self.logits(params, x), cache

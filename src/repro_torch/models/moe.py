@@ -92,7 +92,7 @@ def _moe_local(x, router, w1, w3, w2, *, topk: int, capacity: int, act: str):
 
     slot, keep = _slots(idx, e, capacity)
     buf = torch.zeros((e * capacity + 1, d), dtype=dt, device=x.device)
-    buf[slot] = x.repeat_interleave(topk, dim=0)
+    buf[slot] = x[:, None].expand(t, topk, d).reshape(t * topk, d)
     h = buf[:-1].reshape(e, capacity, d)
 
     a = activation(ops.moe_gmm(h, w1.to(dt)), act) * ops.moe_gmm(h, w3.to(dt))
@@ -105,11 +105,20 @@ def _moe_local(x, router, w1, w3, w2, *, topk: int, capacity: int, act: str):
     return picked.reshape(t, topk, d).sum(1), aux
 
 
-def apply_moe(params, x, *, topk: int, cap_factor: float, act: str):
+def apply_moe(params, x, *, topk: int, cap_factor: float, act: str,
+              dropless: bool = False):
     """x: [B, S, D] -> ([B, S, D], aux).  Capacity from all B * S tokens,
-    as the reference computes it without a mesh."""
+    as the reference computes it without a mesh.
+
+    ``dropless`` raises the capacity to at least B * S: a token picks
+    each expert at most once, so no expert then drops one.  The serving
+    engine's batched step routes so, which is what the reference's
+    vmapped lanes compute (each lane routes its one token alone, at
+    capacity ``_capacity(1, ...) = 8``, and never drops it)."""
     b, s, d = x.shape
     cap = _capacity(b * s, topk, params["router"].shape[1], cap_factor)
+    if dropless:
+        cap = max(cap, _capacity(b * s, 1, 1, 1.0))
     out, aux = _moe_local(x.reshape(-1, d), params["router"], params["w1"],
                           params["w3"], params["w2"], topk=topk,
                           capacity=cap, act=act)

@@ -911,3 +911,93 @@ def test_flash_rows_without_keys_take_the_mean_of_v(causal, dt, misaligned):
     assert float((o.float() - op.float()).abs().max()) <= tol
     mean = v.float().mean(dim=2)[0, 0]
     assert float((o[0, 0, 200].float() - mean).abs().max()) <= tol
+
+
+# ------------------------------------- the serving engine's CUDA graph
+
+
+def _engine_model(arch, dev):
+    """A SMOKE model (f32) on the card and the same weights on the CPU."""
+    cfg = get_arch(arch).smoke
+    cpu = LM(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    return (LM(cfg, dev), tree_map(lambda t: t.to(dev), params), cpu,
+            params)
+
+
+def _engine_requests(vocab, specs):
+    from repro_torch.serving.scheduler import Request
+    rng = np.random.default_rng(11)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, p),
+                    max_new_tokens=g) for i, (p, g) in enumerate(specs)]
+
+
+ENGINE_SPECS = [(5, 4), (5, 2), (7, 6), (5, 3), (7, 5)]
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "recurrentgemma-2b",
+                                  "granite-moe-3b-a800m"])
+def test_engine_graph_equals_eager_and_cpu(arch):
+    """The captured step against the eager one on the card (tokens, and
+    one step's logits bit for bit) and against the CPU engine (tokens)."""
+    from repro_torch.serving.engine import ServingEngine
+    dev = cuda_device()
+    card, pcard, cpu, params = _engine_model(arch, dev)
+    runs = {}
+    for name, model, p, graph in (("graph", card, pcard, True),
+                                  ("eager", card, pcard, False),
+                                  ("cpu", cpu, params, False)):
+        eng = ServingEngine(model, p, slots=3, cache_len=16, graph=graph,
+                            keep_logits=(0,))
+        runs[name] = (eng.run(_engine_requests(model.cfg.vocab,
+                                               ENGINE_SPECS)), eng)
+    assert runs["graph"][1].stats()["graph"]
+    for rid, toks in runs["cpu"][0].items():
+        np.testing.assert_array_equal(runs["graph"][0][rid], toks)
+        np.testing.assert_array_equal(runs["eager"][0][rid], toks)
+    assert torch.equal(runs["graph"][1].kept_logits[0],
+                       runs["eager"][1].kept_logits[0])
+
+
+def test_engine_replay_counts_launches_and_keeps_inactive_slots():
+    """granite-moe SMOKE (moe_gmm in decode): a replayed step adds the
+    launches the capture recorded, 3 moe_gmm a layer, and leaves the
+    inactive slots' arena bytes unchanged."""
+    from repro_torch.serving import kv
+    from repro_torch.serving.engine import ServingEngine
+    dev = cuda_device()
+    card, pcard, _cpu, _params = _engine_model("granite-moe-3b-a800m", dev)
+    eng = ServingEngine(card, pcard, slots=3, cache_len=16)
+    for r in _engine_requests(card.cfg.vocab, [(5, 1), (5, 5)]):
+        eng.submit(r)
+    eng.step_once()
+    assert list(eng.active) == [False, True, False]
+    rows = lambda s: [t.clone() for t in tree_leaves(
+        kv.take_slot(eng.cache, eng.axes, s))]
+    before = [rows(s) for s in range(3)]
+    ops.reset_launches()
+    eng.step_once()
+    torch.cuda.synchronize()
+    assert dict(ops.LAUNCHES) == {"moe_gmm": 3 * card.cfg.num_layers}
+    after = [rows(s) for s in range(3)]
+    for s in (0, 2):
+        assert all(torch.equal(a, b) for a, b in zip(before[s], after[s]))
+    assert not all(torch.equal(a, b) for a, b in zip(before[1], after[1]))
+
+
+def test_engine_capture_failure_raises(monkeypatch):
+    """A step that reads a value on the host cannot be captured: the
+    engine raises and does not carry on eagerly."""
+    from repro_torch.serving.engine import ServingEngine
+    dev = cuda_device()
+    card, pcard, _cpu, _params = _engine_model("qwen1.5-4b", dev)
+    orig = card.decode_step
+
+    def syncing(*a, **k):
+        logits, cache = orig(*a, **k)
+        float(logits.sum())
+        return logits, cache
+
+    monkeypatch.setattr(card, "decode_step", syncing)
+    with pytest.raises(RuntimeError, match="does not fall back"):
+        ServingEngine(card, pcard, slots=2, cache_len=16)

@@ -70,7 +70,9 @@ def test_importing_every_module_pulls_in_no_jax():
     assert {"repro_torch.models.recurrent", "repro_torch.kernels.rglru",
             "repro_torch.configs.recurrentgemma_2b", "repro_torch.models.moe",
             "repro_torch.kernels.moe_gmm", "repro_torch.configs.granite_moe_3b",
-            "repro_torch.configs.qwen3_moe_30b"} <= set(mods)
+            "repro_torch.configs.qwen3_moe_30b", "repro_torch.serving.engine",
+            "repro_torch.serving.kv", "repro_torch.serving.scheduler",
+            "repro_torch.runtime.qos"} <= set(mods)
 
 
 def test_source_scan_covers_every_module():
@@ -79,7 +81,11 @@ def test_source_scan_covers_every_module():
     assert {os.path.join("models", "recurrent.py"),
             os.path.join("kernels", "rglru.py"),
             os.path.join("models", "moe.py"),
-            os.path.join("kernels", "moe_gmm.py")} <= names
+            os.path.join("kernels", "moe_gmm.py"),
+            os.path.join("serving", "engine.py"),
+            os.path.join("serving", "kv.py"),
+            os.path.join("serving", "scheduler.py"),
+            os.path.join("runtime", "qos.py")} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),

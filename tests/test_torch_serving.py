@@ -5,7 +5,7 @@ match the reference's halves at 1e-5; INFER frames are byte-identical to
 the reference's for the same activation; the loopback run is honest
 about its wire bytes and its 'none' tokens equal the reference's; a port
 UE completes a run against a reference BS; and the CLI runs on the CPU
-only when asked to.
+only when asked to: static (greedy and sampled), split and continuous.
 """
 import asyncio
 import dataclasses
@@ -223,7 +223,67 @@ def test_cli_refuses_the_cpu_unless_asked():
                     "--prompt-len", "4", "--gen", "2"])
 
 
-def test_cli_sampling_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+def test_cli_static_sampling_repeats_with_the_engines_keys():
+    """--temperature 0.7 on the static path samples with the engine's
+    keys, the batch row as the request id: a rerun gives the same
+    tokens, and so does the chain of ``sample_tokens`` on the same
+    weights."""
+    argv = ["--arch", "qwen1.5-4b", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "6", "--gen", "3", "--seed", "5",
+            "--temperature", "0.7"]
+    first, again = serve.main(argv), serve.main(argv)
+    assert torch.equal(first["tokens"], again["tokens"])
+    from repro_torch.configs import get_arch
+    from repro_torch.serving.engine import sample_tokens
+    cfg = get_arch("qwen1.5-4b").smoke
+    port = LM(cfg, "cpu")
+    params = port.init(torch.Generator().manual_seed(5))
+    prompts = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 6)))
+    with torch.inference_mode():
+        logits, state = port.prefill_with_cache(params, {"tokens": prompts},
+                                                9, torch.float32)
+        tok, out = torch.argmax(logits, -1, keepdim=True), []
+        for i in range(3):
+            logits, _ = port.decode_step(params, tok, state["cache"], 6 + i)
+            tok = sample_tokens(logits, 0.7, 5, torch.arange(2), i)[:, None]
+            out.append(tok[:, 0])
+    assert torch.equal(first["tokens"], torch.stack(out, 1).to(torch.int32))
+
+
+def test_cli_continuous_runs_on_cpu(capsys):
+    """--continuous on qwen SMOKE: every request is served, each equal to
+    its solo decode on the same weights, and the stats are printed."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serving.engine import solo_decode
+    res = serve.main(["--arch", "qwen1.5-4b", "--device", "cpu",
+                      "--continuous", "--requests", "5", "--prompt-len", "6",
+                      "--gen-mix", "2,5", "--slots", "2", "--policy",
+                      "longest_first"])
+    out = capsys.readouterr().out
+    assert "continuous: 5/5 requests" in out and "decode step eager" in out
+    assert "engine units" in out and "p50 ttft" in out
+    stats = res["stats"]
+    assert res["slots"] == 2 and not stats["graph"]
+    assert stats["qos"]["completed"] == 5 and stats["decode_steps"] > 0
+    port = LM(get_arch("qwen1.5-4b").smoke, "cpu")
+    params = port.init(torch.Generator().manual_seed(0))
+    for r in serve._request_mix(port.cfg, serve.parse_args(
+            ["--arch", "qwen1.5-4b", "--requests", "5", "--prompt-len", "6",
+             "--gen-mix", "2,5"])):
+        np.testing.assert_array_equal(
+            res["tokens"][r.rid],
+            solo_decode(port, params, r.prompt, r.max_new_tokens,
+                        cache_len=11))
+
+
+def test_cli_continuous_refusals():
+    """--slots auto needs an offered load (it exits, as the reference's
+    CLI does), and --split-cut serves only the static batch greedily."""
+    with pytest.raises(SystemExit, match="--arrival-hz"):
         serve.main(["--arch", "qwen1.5-4b", "--device", "cpu",
-                    "--temperature", "0.7"])
+                    "--continuous", "--slots", "auto"])
+    for extra in (["--continuous"], ["--temperature", "0.7"]):
+        with pytest.raises(ValueError, match="--split-cut"):
+            serve.main(["--arch", "qwen1.5-4b", "--device", "cpu",
+                        "--split-cut", "1"] + extra)
