@@ -110,6 +110,24 @@ Phases (any failure exits non-zero; nothing is caught):
         prefill chunks, engine units against the convoy's, occupancy,
         TTFT p50 / p99, the capture's ms, and one decode step (8 lanes)
         untraced and under torch.profiler, for each;
+     h. the paper's wireless C2P2SL (after d; no kernel of ours: cuDNN
+        convolutions, GroupNorm and one small matmul, f32 with TF32 off):
+        scipy's version, then Algorithm 1 on the Table I fleet of 8 UEs
+        (seed 0) at batch 512: the plan (l, k, v, b, tau), its
+        bubble-rate history and the simulated C2P2SL / PSL / EPSL / SL
+        batch seconds of the Table I system model; the plan must be
+        feasible (b >= 0 summing to 512, tau >= 0 and > 0 where b > 0,
+        summing to at most the frame, l storage-feasible) and its
+        simulated C2P2SL time no higher than after AO's first iteration
+        and below PSL's.  ResNet-18 (f32, from a torch.Generator seed) is
+        trained 3 steps at batch 512 by each of C2P2SL (the plan's cut
+        and integer split, k = min(plan k, smallest b_i)), PSL, EPSL and
+        SL from the same weights, SGD 0.05 / momentum 0.9: every loss
+        finite, every parameter moved, no kernel of ours launched; after
+        step 1 C2P2SL's parameters equal PSL's within 2e-4, and after step
+        3 EPSL's UE side differs by more; C2P2SL's step 1 at batch 32 equals the
+        CPU's within 1e-3; each scheme's step ms and peak GB beside the
+        card's name and power limit;
      e. serving granite-moe-3b-a800m (32 MoE layers, 40 experts top-8, 24
         heads on 8 kv heads of 64, tied embeddings; batch 4, prompt 512, 32
         greedy tokens) through the serving CLI's entry point: tokens in
@@ -146,6 +164,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -203,6 +222,14 @@ CB_CACHE = PROMPT + 128
 # lane: its GEMV), which sum in another order and flip single roundings
 # through 40 layers.  2e-2 is 2.6 to 5.1 bf16 steps of the largest logit
 CB_TOL = 2e-2
+
+# the wireless C2P2SL path: Algorithm 1 on the Table I fleet of 8 UEs (seed
+# 0) at the paper's batch of 512, then ResNet-18 (f32) trained 3 steps by
+# each scheme from the same weights; C2P2SL's update equals PSL's within
+# the reference's equivalence bound (tests/test_equivalence.py), and one
+# step at SMOKE batch 32 on the card equals the CPU's within W_CARD_TOL
+W_UES, W_STEPS, W_TOL, W_CARD_TOL = 8, 3, 2e-4, 1e-3
+W_SCHEMES = ("C2P2SL", "PSL", "EPSL", "SL")
 
 SERVING_KERNELS = ("wire_encode", "wire_decode", "flash_attention")
 TRAINING_KERNELS = ("wkv6", "wkv6_bwd", "wire_encode", "wire_decode")
@@ -1677,6 +1704,141 @@ def run_c2p2sl(torch, dev):
     torch.cuda.empty_cache()
 
 
+def _max_dist(a, b, side):
+    """Largest |a - b| over the leaves of one side of two parameter
+    snapshots (lists of tensors by side)."""
+    return max(float((u.detach() - v.detach().to(u.device)).abs().max())
+               for u, v in zip(a[side], b[side]))
+
+
+def run_wireless(torch, ops, dev, card):
+    """The paper's Algorithm 1 on the Table I fleet, then ResNet-18 split
+    training of all four schemes on the card from its plan (phase
+    "wireless C2P2SL").  Returns the per-scheme rows."""
+    try:
+        import scipy
+    except ImportError:
+        fail("scipy is missing: the port's core/ao.py solves P3 and P5 "
+             "with scipy.optimize")
+    print(f"scipy {scipy.__version__}")
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.resnet18_cifar10 import FULL, SMOKE
+    from repro_torch.core import algorithm1, resnet18_profile
+    from repro_torch.core.ao import feasible_l
+    from repro_torch.launch import wireless_sl as wsl
+    from repro_torch.models import resnet
+    from repro_torch.sl.split import resnet_split
+    from repro_torch.utils.trees import tree_leaves, tree_map
+    from repro_torch.wireless import sample_fleet
+
+    prof, fleet = resnet18_profile(), sample_fleet(W_UES, seed=SEED)
+    t0 = time.perf_counter()
+    res = algorithm1(prof, fleet, batch=FULL.batch)
+    plan_s = time.perf_counter() - t0
+    plan, frame = res.plan, fleet.channel.frame_s
+    times = wsl.scheme_times(prof, fleet, plan, FULL.batch)
+    first = wsl.scheme_times(prof, fleet, algorithm1(
+        prof, fleet, batch=FULL.batch, max_iters=1).plan, FULL.batch)
+    print(f"wireless plan ({plan_s:.2f} s host): l={plan.l} "
+          f"({prof.layer_names[plan.l - 1]}), k={plan.k}, v={plan.v}, b="
+          f"{plan.b.tolist()}, tau={plan.tau.tolist()}, bubble-rate history "
+          f"{[round(h, 6) for h in res.history]}")
+    print("wireless simulated batch seconds (the Table I system model, not "
+          "the card): " + ", ".join(f"{n} {times[n]:.4f}" for n in W_SCHEMES)
+          + f"; C2P2SL after AO's first iteration {first['C2P2SL']:.4f}")
+    if not ((plan.b >= 0).all() and plan.b.sum() == FULL.batch
+            and (plan.tau >= 0).all() and (plan.tau[plan.b > 0] > 0).all()
+            and plan.tau.sum() <= frame * (1 + 1e-9)
+            and plan.l in feasible_l(prof, fleet, plan.b)):
+        fail(f"Algorithm 1's plan is infeasible: {plan}")
+    # the bubble rate is not monotone over AO's iterations (0.0542 first,
+    # 0.0784 last on this fleet); the simulated makespan it trades is
+    if not times["C2P2SL"] <= first["C2P2SL"] * (1 + 1e-12) \
+            or not times["C2P2SL"] < times["PSL"]:
+        fail(f"the plan's simulated C2P2SL time {times['C2P2SL']} is above "
+             f"its first iteration's {first['C2P2SL']} or PSL's "
+             f"{times['PSL']}")
+
+    alloc = wsl.integer_allocation(plan.b, FULL.batch)
+    k = wsl.train_k(plan.k, alloc)
+    print(f"wireless training: ResNet-18 f32, batch {FULL.batch} split "
+          f"{alloc.tolist()}, cut {plan.l}, C2P2SL k={k}, {W_STEPS} steps a "
+          f"scheme, SGD 0.05 / momentum 0.9")
+    params = resnet.init_resnet18(
+        torch.Generator(device=dev).manual_seed(SEED))
+    init = dict(zip(("ue_params", "bs_params"), map(
+        tree_leaves, resnet_split(plan.l).split_params(params))))
+    rows, snaps, traced = {}, {}, {}
+    ops.reset_launches()
+    for scheme in W_SCHEMES:
+        rows[scheme] = []
+        steps = wsl.train_scheme(scheme, params, plan.l, alloc, k, FULL.batch,
+                                 W_STEPS + 1, SEED, dev)
+        for row, tree in itertools.islice(steps, W_STEPS):
+            rows[scheme].append(row)
+            if row["step"] in (1, W_STEPS):
+                snaps[scheme, row["step"]] = {
+                    side: [t.detach().clone() for t in tree_leaves(tree[side])]
+                    for side in ("ue_params", "bs_params")}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            row, _ = next(steps)          # one more step, traced
+        traced[scheme] = (prof, row["step_ms"])
+        del steps
+        last = snaps[scheme, W_STEPS]
+        if min(float((a - b).abs().max()) for side in init
+               for a, b in zip(last[side], init[side])) == 0.0:
+            fail(f"{scheme}: a parameter tensor did not move in "
+                 f"{W_STEPS} steps")
+        del tree
+    if ops.LAUNCHES:
+        fail(f"the ResNet path has no hand-written kernel, yet launched "
+             f"{dict(ops.LAUNCHES)}")
+    eq = max(_max_dist(snaps["C2P2SL", 1], snaps["PSL", 1], s)
+             for s in ("ue_params", "bs_params"))
+    # at batch 512 one step of EPSL moves the UE side only ~1.7e-4 from
+    # PSL's (lr 0.05); the 3 steps' momentum carries it past W_TOL
+    epsl = [_max_dist(snaps["EPSL", n], snaps["PSL", n], "ue_params")
+            for n in (1, W_STEPS)]
+    print(f"wireless step 1: C2P2SL vs PSL max |diff| {eq:.3e} (tol {W_TOL})"
+          f"; EPSL vs PSL UE side {epsl[0]:.3e} after step 1, {epsl[1]:.3e} "
+          f"after step {W_STEPS} (must exceed {W_TOL})")
+    if not eq <= W_TOL or not epsl[1] > W_TOL:
+        fail(f"C2P2SL vs PSL {eq} (<= {W_TOL} asked), EPSL vs PSL {epsl[1]} "
+             f"after step {W_STEPS} (> {W_TOL} asked)")
+
+    small = wsl.integer_allocation(plan.b, SMOKE.batch)
+    ks = wsl.train_k(plan.k, small)
+    out = {}
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        row, tree = next(wsl.train_scheme(
+            "C2P2SL", tree_map(lambda t: t.to(where), params), plan.l, small,
+            ks, SMOKE.batch, 1, SEED, where))
+        out[name] = (row["loss"], {
+            side: [t.detach().cpu() for t in tree_leaves(tree[side])]
+            for side in ("ue_params", "bs_params")})
+    gap = max(abs(out["card"][0] - out["cpu"][0]),
+              *(_max_dist(out["card"][1], out["cpu"][1], s)
+                for s in ("ue_params", "bs_params")))
+    print(f"wireless SMOKE batch {SMOKE.batch} split {small.tolist()} k={ks}:"
+          f" C2P2SL step 1 card vs CPU max |diff| {gap:.3e} (tol "
+          f"{W_CARD_TOL})")
+    if not gap <= W_CARD_TOL:
+        fail(f"wireless card vs CPU {gap} > {W_CARD_TOL}")
+    for scheme, rs in rows.items():
+        for r in rs:
+            print(f"main path wireless {scheme} step {r['step']}: loss "
+                  f"{r['loss']:.5f}, {r['step_ms']:.1f} ms, peak "
+                  f"{r['peak_gb']:.2f} GB ({card})")
+    for scheme, (prof, wall) in traced.items():
+        report_trace(prof, wall,
+                     f"wireless {scheme} step {W_STEPS + 1} (traced)")
+    del params, snaps
+    torch.cuda.empty_cache()
+    return rows
+
+
 def profile_training_step(torch, res, watch):
     """Where a training step's time goes: one more step of the int8 run
     traced with torch.profiler; ``watch`` maps a label to a substring of
@@ -1701,16 +1863,23 @@ def profile_training_step(torch, res, watch):
         float(mets["loss"])
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    report_trace(prof, wall,
+                 f"training step ({model.cfg.name}, int8, traced)", watch)
+
+
+def report_trace(prof, wall, label, watch=None):
+    """Print a traced step's wall, device busy time, idle share and top
+    kernels; ``watch`` maps a label to a substring of kernel names, whose
+    device time and launches are summed."""
     busy_us, rows, us = _kernel_us(prof.key_averages())
-    found = {label: [e for e in rows if key in e.key]
-             for label, key in watch.items()}
-    print(f"profile training step ({model.cfg.name}, int8, traced): wall "
-          f"{wall:.3f} ms, device busy {busy_us / 1e3:.3f} ms, idle share "
-          f"{1 - busy_us / 1e3 / wall:.3f}, "
-          f"{sum(e.count for e in rows)} device operations; "
-          + "; ".join(f"{label} kernels {sum(us(e) for e in es) / 1e3:.3f} "
-                      f"ms in {sum(e.count for e in es)} launches"
-                      for label, es in found.items()))
+    found = {name: [e for e in rows if key in e.key]
+             for name, key in (watch or {}).items()}
+    print(f"profile {label}: wall {wall:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / 1e3 / wall:.3f}"
+          f", {sum(e.count for e in rows)} device operations"
+          + "".join(f"; {name} kernels {sum(us(e) for e in es) / 1e3:.3f} "
+                    f"ms in {sum(e.count for e in es)} launches"
+                    for name, es in found.items()))
     seen = rows[:8]
     for e in seen + [e for es in found.values() for e in es
                      if e not in seen]:
@@ -2397,6 +2566,9 @@ def main():
                   f"down {r['hop_bytes_down']} B")
     run_c2p2sl(torch, dev)
     phase(f"{T_ARCH} training, profile and c2p2sl step")
+
+    run_wireless(torch, ops, dev, card)
+    phase("wireless C2P2SL")
 
     q_rows, q_launches, q_calls = run_qwen_training(torch, ops, train,
                                                     protocol, dev, wc, card)

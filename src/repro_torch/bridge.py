@@ -1,11 +1,15 @@
 """Carry parameters between the JAX package's trees and the port's.
 
-Both sides keep one layout (``x @ W`` with ``W`` shaped ``[d_in, d_out]``,
-block weights stacked ``[L, ...]`` or, for a heterogeneous stack, a tuple
-of per-layer trees; the same key names; no ``"head"`` leaf where the
-embeddings are tied), so the bridge is a plain copy with no transposes
-that keeps the tree's structure.  The JAX side is handed over as a tree
-of numpy arrays (``jax.tree.map(np.asarray, params)``): the port imports
+For the LMs both sides keep one layout (``x @ W`` with ``W`` shaped
+``[d_in, d_out]``, block weights stacked ``[L, ...]`` or, for a
+heterogeneous stack, a tuple of per-layer trees; the same key names; no
+``"head"`` leaf where the embeddings are tied), so ``params_from_jax`` /
+``params_to_jax`` are a plain copy with no transposes that keeps the
+tree's structure.  ResNet-18's convolution weights are HWIO in the
+reference and OIHW in the port (``models/resnet.py``), so
+``resnet_params_from_jax`` / ``resnet_params_to_jax`` transpose every
+4-D leaf and copy the rest.  The JAX side is handed over as a tree of
+numpy arrays (``jax.tree.map(np.asarray, params)``): the port imports
 nothing of JAX.
 """
 from __future__ import annotations
@@ -41,3 +45,19 @@ def params_to_jax(params):
     """Port params -> dicts and tuples of numpy arrays (bf16 widened to
     f32), the inverse of ``params_from_jax`` for names and shapes."""
     return tree_map(_to_numpy, params)
+
+
+def resnet_params_from_jax(tree, device="cpu"):
+    """The reference's ResNet-18 tree -> the port's: HWIO convolution
+    weights become OIHW."""
+    return tree_map(
+        lambda a: _to_torch(np.transpose(a, (3, 2, 0, 1)) if np.ndim(a) == 4
+                            else a, device), tree)
+
+
+def resnet_params_to_jax(params):
+    """The port's ResNet-18 params -> the reference's numpy tree (OIHW ->
+    HWIO), the inverse of ``resnet_params_from_jax``."""
+    return tree_map(lambda t: np.ascontiguousarray(np.transpose(
+        _to_numpy(t), (2, 3, 1, 0))) if t.dim() == 4 else _to_numpy(t),
+        params)

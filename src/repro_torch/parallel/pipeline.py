@@ -13,9 +13,9 @@ timetable (the 1F1B schedule over the pod axis, ``_tick_loop``) is not
 needed for the result: the loss and the gradients are the schedule's,
 which the reference's own tests hold equal to the unpipelined step.  What
 the timetable buys is overlap between stages on different devices; that
-is the schedule simulator's business (``core/schedule.py``, not ported
-yet).  Interleaved virtual stages (v > 1) and top-k codecs are not
-ported yet and raise.
+is the schedule simulator's business (``core/schedule.py``).
+``PipelineSpec.auto_k`` picks k by the paper's Lemma 1.  Interleaved
+virtual stages (v > 1) and top-k codecs are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.ao import pipeline_k_auto
 from repro_torch.models.common import apply_norm
 from repro_torch.models.lm import run_blocks, unstack
 from repro_torch.parallel import wire
@@ -49,6 +50,19 @@ class PipelineSpec:
             raise NotImplementedError(
                 f"wire_dtype {self.wire_dtype!r}: top-k codecs are not "
                 "ported yet (none | int8 | fp8)")
+
+    @classmethod
+    def auto_k(cls, stage_compute_s: float, link_s: float, *,
+               num_stages: int = 2, virtual_stages: int = 1,
+               k_cap: int = 16):
+        """Spec with k chosen by the paper's Lemma 1 closed form
+        (``core/ao.py::pipeline_k_auto``) from per-stage compute time and
+        inter-stage link time; interleaving (v > 1) divides the k needed
+        to reach the steady state (and raises here, as v > 1 does)."""
+        k = pipeline_k_auto(stage_compute_s, link_s, k_cap=k_cap,
+                            virtual_stages=virtual_stages)
+        return cls(num_stages=num_stages, microbatches=k,
+                   virtual_stages=virtual_stages)
 
 
 def _split_stages(layers: list, num_stages: int, virtual_stages: int = 1):

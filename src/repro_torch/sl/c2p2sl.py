@@ -13,8 +13,10 @@ Port of the JAX package's ``sl/c2p2sl.py``, the paper's faithful runtime
 Gradients accumulate over the k micro-batches, weighted by sample counts,
 and the optimizer runs once per batch: the same update as full-batch
 split learning.  The state is updated IN PLACE (``training/optim.py``).
-``batch_wall_time`` waits for the schedule simulator
-(``core/schedule.py``).
+Computation is real; *time* comes from the event-driven schedule
+simulator (``core/schedule.py``) through ``batch_wall_time``, in seconds
+of the paper's Table I system model, since a host clock on one card
+cannot reproduce a radio network.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.schedule import Plan, simulate_c2p2sl, task_times
 from repro_torch.sl.split import SplitSpec
 from repro_torch.training.optim import Optimizer
 from repro_torch.utils.trees import tree_leaves, tree_unflatten
@@ -158,3 +161,16 @@ def shard_batch(batch_x, batch_y, b: np.ndarray, k: int):
         xs.append(xi)
         ys.append(yi)
     return xs, ys
+
+
+def batch_wall_time(profile, fleet, plan: Plan) -> float:
+    """Simulated wall time of one C²P²SL batch under the plan.
+
+    Honors ``plan.v`` (interleaved virtual stages, AO-selected when
+    ``algorithm1(..., v_cap>1)``): compute is v-independent — gradient
+    accumulation over k micro-batches is identical math at any chunking
+    — so only the simulated schedule time changes.
+    """
+    t = task_times(profile, fleet, plan)
+    ms, _ = simulate_c2p2sl(t, plan.k, virtual_stages=plan.v)
+    return ms

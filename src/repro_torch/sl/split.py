@@ -1,10 +1,12 @@
 """Cut-layer model splitting: UE-side / BS-side submodels.
 
-Port of the LM half of the JAX package's ``sl/split.py``.  An LM cuts at a
-block index: the embedding and blocks[:l] live UE-side, the rest of the
-blocks, the final norm and the head BS-side — the same cut the pipeline
-(``parallel/pipeline.py``) makes.  ``resnet_split`` waits for
-``models/resnet.py``.
+Port of the JAX package's ``sl/split.py``.  ResNet-18 cuts at the Table
+II unit boundaries (``resnet_split``); an LM cuts at a block index: the
+embedding and blocks[:l] live UE-side, the rest of the blocks, the final
+norm and the head BS-side — the same cut the pipeline
+(``parallel/pipeline.py``) makes.  ``split_params`` copies in both: the
+two halves are trained on their own (the optimizers update in place) and
+share no storage with the full tree.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.models import resnet
 from repro_torch.models.common import apply_norm
 from repro_torch.models.lm import run_blocks, unstack
 from repro_torch.utils.trees import tree_map
@@ -28,12 +31,43 @@ class SplitSpec:
     merge_params: Callable      # (ue, bs) -> full
 
 
+def resnet_split(l: int) -> SplitSpec:
+    """Cut ResNet-18 after Table II unit ``l`` (1..5).  The cut activation
+    is NCHW (``models/resnet.py``)."""
+    if not 1 <= l <= 5:
+        raise ValueError(f"cut {l} must be in [1, 5]")
+
+    def ue_fwd(ue_params, images):
+        return resnet.forward_cut(ue_params, images, 0, l)
+
+    def bs_loss(bs_params, acts, labels):
+        return resnet.xent(resnet.forward_cut(bs_params, acts, l, 6), labels)
+
+    keys_ue, keys_bs = _resnet_key_split(l)
+
+    def split_params(params):
+        copy = lambda t: t.detach().clone()
+        return ({k: tree_map(copy, params[k]) for k in keys_ue},
+                {k: tree_map(copy, params[k]) for k in keys_bs})
+
+    def merge_params(ue, bs):
+        return tree_map(torch.Tensor.detach, {**ue, **bs})
+
+    return SplitSpec(ue_fwd, bs_loss, split_params, merge_params)
+
+
+def _resnet_key_split(l: int):
+    all_keys = (["conv1", "g1w", "g1b"], ["stage0"], ["stage1"], ["stage2"],
+                ["stage3"], ["fc_w", "fc_b"])
+    ue, bs = [], []
+    for u, ks in enumerate(all_keys):
+        (ue if u < l else bs).extend(ks)
+    return ue, bs
+
+
 def lm_split(model, l: int) -> SplitSpec:
     """Cut an LM after block ``l``: UE = embed + blocks[:l]; BS = the rest
-    + final norm + head.  Needs a homogeneous stack and an untied head.
-
-    ``split_params`` copies: the two halves are trained on their own and
-    share no storage with the full tree."""
+    + final norm + head.  Needs a homogeneous stack and an untied head."""
     cfg = model.cfg
     if not cfg.homogeneous:
         raise ValueError("lm_split requires a homogeneous layer stack")

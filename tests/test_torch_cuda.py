@@ -913,6 +913,97 @@ def test_flash_rows_without_keys_take_the_mean_of_v(causal, dt, misaligned):
     assert float((o[0, 0, 200].float() - mean).abs().max()) <= tol
 
 
+# ------------------------------------- ResNet-18 split training (f32, no TF32)
+
+RESNET_ALLOC = [3, 2, 1, 2]     # UE 2 sits out three of k = 4 micro-batches
+
+
+def _resnet_inputs(n=8, seed=0):
+    from repro_torch.data.synthetic import image_batches
+    from repro_torch.models import resnet
+    b = next(image_batches(n, seed=seed))
+    params = resnet.init_resnet18(torch.Generator().manual_seed(seed))
+    return (params, torch.from_numpy(b["images"]),
+            torch.from_numpy(b["labels"]).long())
+
+
+def test_resnet_convolution_on_card_is_full_f32():
+    """A 3x3 convolution at stage 2's width in f32 on the card against the
+    CPU in f64: TF32 (10 mantissa bits) would miss 1e-5 by ~100x."""
+    from repro_torch.models import resnet
+    dev = cuda_device()
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 256, 8, 8, generator=g)
+    w = torch.randn(256, 256, 3, 3, generator=g) * 0.03
+    want = resnet._conv(x.double(), w.double(), 2)
+    got = resnet._conv(x.to(dev), w.to(dev), 2).cpu().double()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_resnet_forward_cut_on_card_matches_cpu():
+    from repro_torch.models import resnet
+    dev = cuda_device()
+    params, x, _ = _resnet_inputs()
+    card = tree_map(lambda t: t.to(dev), params)
+    with torch.no_grad():
+        for l in range(1, 6):
+            a = resnet.forward_cut(params, x, 0, l)
+            ag = resnet.forward_cut(card, x.to(dev), 0, l)
+            assert float((ag.cpu() - a).abs().max()) <= 1e-3
+            out = resnet.forward_cut(params, a, l, 6)
+            outg = resnet.forward_cut(card, ag, l, 6)
+            assert float((outg.cpu() - out).abs().max()) <= 1e-3
+
+
+def _resnet_step(scheme, where, params, x, y, l=1, k=4, lr=0.05):
+    from repro_torch.launch.wireless_sl import STEPS
+    from repro_torch.sl.c2p2sl import init_sl_state, shard_batch
+    from repro_torch.sl.split import resnet_split
+    spec = resnet_split(l)
+    opt = sgd(lr, momentum=0.9)
+    st = init_sl_state(spec, tree_map(lambda t: t.to(where), params), opt)
+    tree = {"ue_params": st.ue_params, "bs_params": st.bs_params,
+            "opt_state_ue": st.opt_state_ue,
+            "opt_state_bs": st.opt_state_bs, "step": st.step}
+    kk = k if scheme == "C2P2SL" else 1
+    xs, ys = shard_batch(x.to(where), y.to(where), np.array(RESNET_ALLOC), kk)
+    tree, mets = STEPS[scheme](spec, opt, kk)(tree, xs, ys)
+    return float(mets["loss"]), tree
+
+
+@pytest.mark.parametrize("scheme", ["C2P2SL", "PSL", "EPSL", "SL"])
+def test_resnet_split_step_on_card_matches_cpu(scheme):
+    """One SGD step of each scheme at cut 1 (C²P²SL at k = 4) on the card
+    and on the CPU: loss and every updated parameter within 1e-3.  At lr
+    0.01: SL's four updates in a row on 1-3 images at lr 0.05 drive its
+    last loss to 0 and leave its f32 parameters 2.1e-3 from the same step
+    in f64 on one CPU (2.3e-4 at lr 0.01), so no two f32 devices could
+    agree to 1e-3 there."""
+    dev = cuda_device()
+    params, x, y = _resnet_inputs()
+    lc, tc = _resnet_step(scheme, "cpu", params, x, y, lr=0.01)
+    lg, tg = _resnet_step(scheme, dev, params, x, y, lr=0.01)
+    assert abs(lg - lc) <= 1e-3
+    for side in ("ue_params", "bs_params"):
+        for a, b in zip(tree_leaves(tg[side]), tree_leaves(tc[side])):
+            assert float((a.detach().cpu() - b.detach()).abs().max()) <= 1e-3
+
+
+def test_resnet_c2p2sl_equals_psl_on_card():
+    """k = 4 C²P²SL against k = 1 PSL on the card at 2e-4, the reference's
+    equivalence bound, and EPSL's UE side away from it."""
+    dev = cuda_device()
+    params, x, y = _resnet_inputs()
+    _, tc = _resnet_step("C2P2SL", dev, params, x, y)
+    _, tp = _resnet_step("PSL", dev, params, x, y)
+    _, te = _resnet_step("EPSL", dev, params, x, y)
+    dist = lambda a, b, side: max(float((u - v).detach().abs().max())
+                                  for u, v in zip(
+        tree_leaves(a[side]), tree_leaves(b[side])))
+    assert dist(tc, tp, "ue_params") < 2e-4 and dist(tc, tp, "bs_params") < 2e-4
+    assert dist(te, tp, "ue_params") > 2e-4
+
+
 # ------------------------------------- the serving engine's CUDA graph
 
 

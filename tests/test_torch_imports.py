@@ -72,7 +72,13 @@ def test_importing_every_module_pulls_in_no_jax():
             "repro_torch.kernels.moe_gmm", "repro_torch.configs.granite_moe_3b",
             "repro_torch.configs.qwen3_moe_30b", "repro_torch.serving.engine",
             "repro_torch.serving.kv", "repro_torch.serving.scheduler",
-            "repro_torch.runtime.qos"} <= set(mods)
+            "repro_torch.runtime.qos", "repro_torch.core", "repro_torch.core.ao",
+            "repro_torch.core.costs", "repro_torch.core.schedule",
+            "repro_torch.wireless", "repro_torch.wireless.channel",
+            "repro_torch.wireless.fleet", "repro_torch.models.resnet",
+            "repro_torch.configs.resnet18_cifar10",
+            "repro_torch.sl.baselines",
+            "repro_torch.launch.wireless_sl"} <= set(mods)
 
 
 def test_source_scan_covers_every_module():
@@ -85,7 +91,14 @@ def test_source_scan_covers_every_module():
             os.path.join("serving", "engine.py"),
             os.path.join("serving", "kv.py"),
             os.path.join("serving", "scheduler.py"),
-            os.path.join("runtime", "qos.py")} <= names
+            os.path.join("runtime", "qos.py"),
+            os.path.join("core", "ao.py"), os.path.join("core", "costs.py"),
+            os.path.join("core", "schedule.py"),
+            os.path.join("wireless", "channel.py"),
+            os.path.join("wireless", "fleet.py"),
+            os.path.join("models", "resnet.py"),
+            os.path.join("sl", "baselines.py"),
+            os.path.join("launch", "wireless_sl.py")} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
