@@ -55,7 +55,11 @@ Phases (any failure exits non-zero; nothing is caught):
      compared first), qwen3-moe split at cut 1 ('none' tokens equal the
      static tokens, measured bytes equal billed bytes), and one pipelined
      training step each of an RWKV and a qwen model (loss and updated
-     parameters; the qwen step through the flash backward kernel); the
+     parameters; the qwen step through the flash backward kernel), and
+     one interleaved (S 2, v 2, k 2) int8+topk0.25 step with gradient
+     compression of the qwen model widened to 4 layers (loss, parameters,
+     the EF buffer's live slots; top-k and int8 rounding flips on near-ties
+     counted and printed); the
      continuous-batching engine, its decode step captured as a CUDA
      graph, on the SMOKE qwen, recurrentgemma and granite-moe (16 slots,
      where the naive MoE capacity would drop tokens): greedy tokens equal
@@ -98,6 +102,21 @@ Phases (any failure exits non-zero; nothing is caught):
         beside those of the SIMT backward, the first equal to 5 digits;
         24 encodes and 24 decodes of the [1024, 2560] hop, every decode on
         "warp256"; peak GB beside the card's name and power limit;
+     i. interleaved C2P2SL training of qwen1.5-4b (after f): the same
+        command with --virtual-stages 2 and --wire-dtype int8+topk0.25
+        (4 chunks of 10 layers, 3 hops a micro-batch: int8 forward, top-k
+        with error feedback on the gradient).  Every loss finite, every
+        parameter changed, hop bytes a step 31,948,800 up and 23,642,112
+        down, equal to the bills; 12 hops each way a step; exactly 960 /
+        480 flash launches and 36 encodes and 36 decodes of the [1024,
+        2560] hop (the top-k backward launches no codec kernel); the EF
+        buffer [2, 9, 2, 512, 2560] f32 finite after every step and
+        nonzero in exactly its 12 live slots; the first loss within 5e-2
+        of f's; peak GB; one more step traced.  Then qwen1.5-4b's widths with the depth cut to
+        20 layers (the f32 error-feedback tree of 40 would not fit),
+        the same spec with make_lm_train_step(compress=True), 3 steps:
+        error_fb finite and nonzero, one more encode and decode a
+        parameter leaf a step on f32 [n / 256, 256];
      g. continuous batching of qwen1.5-4b (after e): 12 requests of prompt
         512 with budgets 8 / 32 / 128, 8 slots, longest first, 2048-token
         prefill chunks, cache_len 640, through the serving CLI (the decode
@@ -147,7 +166,9 @@ Phases (any failure exits non-zero; nothing is caught):
      for flash, torch.mul for the int8 decode); the codec at each shape
      the main paths coded (qwen's prefill hop and decode steps, the
      training hop), each row with the launches at its shape; for moe_gmm
-     and flash also the achieved TFLOP/s and the share of the bound; for
+     and flash also the achieved TFLOP/s and the share of the bound; the
+     codec at compress_grads' largest call (f32 [1519360, 256], the
+     embedding's and the head's); for
      WKV6 and the RG-LRU scan the route, ptxas' registers and spills, and
      for WKV6 the f32 call's (SIMT) time in the same run; the flash
      forward with lse and the flash backward at qwen's training call from
@@ -199,6 +220,25 @@ Q_LAUNCHES = {"flash_attention": 2 * Q_LAYERS * T_K * T_STEPS,
               "flash_attention_bwd": Q_LAYERS * T_K * T_STEPS,
               "wire_encode": 2 * T_K * T_STEPS,
               "wire_decode": 2 * T_K * T_STEPS}
+# the interleaved top-k path: qwen1.5-4b, the same batch, k and steps, v 2
+# (4 chunks of 10 layers), int8 forward hops and a top-k 0.25 gradient hop
+# with error feedback: S*v - 1 = 3 hops a micro-batch, 12 a step.  The
+# top-k backward launches no codec kernel; a hop's bytes a step are 3 x
+# the forward bill up, 3 x the backward bill down (4096 rows of 640
+# payload bytes, 640 int16 indices and one f32 scale)
+TK_V, TK_WIRE = 2, "int8+topk0.25"
+TK_HOPS = (2 * TK_V - 1) * T_K
+TK_LAUNCHES = {"flash_attention": 2 * Q_LAYERS * T_K * T_STEPS,
+               "flash_attention_bwd": Q_LAYERS * T_K * T_STEPS,
+               "wire_encode": TK_HOPS * T_STEPS,
+               "wire_decode": TK_HOPS * T_STEPS}
+TK_UP, TK_DOWN = 3 * 10_649_600, 3 * 4096 * (640 + 2 * 640 + 4)
+# the EF buffer [S, ticks, mb, seq, d] of that spec
+TK_EF_SHAPE = (2, 9, T_BATCH // T_K, T_SEQ, 2560)
+# the compressed run (--compress-grads): qwen1.5-4b's widths, its depth cut
+# to 20 layers, since the f32 error-feedback tree adds 4 B a parameter
+# (15.8 GB at 40 layers on a 74.60 GB step); the same spec, batch, steps
+TC_LAYERS = 20
 
 
 # the MoE serving path: granite-moe-3b-a800m, the same batch and lengths;
@@ -1063,6 +1103,135 @@ def check_small_training(torch, ops, dev):
             print(f"small f32 {arch} training step ({wire} hop), card vs "
                   f"CPU: loss {lg:.6f} vs {lc:.6f}, max updated-parameter "
                   f"diff {perr:.2e} (tol 1e-4); launches {launches}")
+    check_small_topk_step(torch, ops, dev)
+
+
+@contextlib.contextmanager
+def hop_decisions(wire, runs):
+    """While the block runs, append to ``runs[-1]`` (a dict the caller
+    appends per run) each forward hop's int8 payload, in call order,
+    under "forward", and each top-k hop's kept indices, by EF slot, under
+    "topk": the codec's decisions, to be compared between a card run and
+    a CPU run."""
+    dense, encode = wire.encode, wire.topk_encode
+    backward = wire.CodedHopEF.backward
+    slot = [None]
+
+    def enc_dense(x, w):
+        q, sc = dense(x, w)
+        runs[-1].setdefault("forward", []).append(q.cpu())
+        return q, sc
+
+    def bwd(ctx, g):
+        slot[0] = ctx.ef.storage_offset() // ctx.ef.numel()
+        return backward(ctx, g)
+
+    def enc(x, w):
+        q, idx, s = encode(x, w)
+        runs[-1].setdefault("topk", {})[slot[0]] = idx.cpu()
+        return q, idx, s
+    wire.encode, wire.topk_encode = enc_dense, enc
+    wire.CodedHopEF.backward = staticmethod(bwd)
+    try:
+        yield
+    finally:
+        wire.encode, wire.topk_encode = dense, encode
+        wire.CodedHopEF.backward = staticmethod(backward)
+
+
+def check_small_topk_step(torch, ops, dev):
+    """The interleaved top-k step with gradient compression on the card
+    against the CPU: the f32 SMOKE qwen widened to 4 layers (S 2 x v 2
+    chunks of one layer), k 2, ``TK_WIRE``, ``compress=True``, one SGD
+    step.  Loss at 1e-4; ``error_fb``'s int8 rounding flips (the two
+    residuals at half a quantum on either side) are counted and printed,
+    any other difference past 1e-6 fails; parameters at 1e-4 once each
+    flip's step (SGD: lr x the residuals' difference) is taken out; the
+    EF buffer live in the same slots, the schedule's, and its elements
+    more than 1e-4 of its largest apart counted and printed, beside the
+    codec decisions the two devices took differently on near-ties
+    (``hop_decisions``: forward hop payload elements a quantum apart,
+    top-k picks).  Exactly the path's
+    launches: 16 flash forwards, 8 backwards, 6 hop encodes and decodes
+    and one more of each a parameter leaf."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import LM
+    from repro_torch.parallel import wire
+    from repro_torch.parallel.pipeline import PipelineSpec, wire_ef_zeros
+    from repro_torch.parallel.steps import make_lm_train_step
+    from repro_torch.training.compress import init_error_fb
+    from repro_torch.training.optim import sgd
+    from repro_torch.utils.trees import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_arch(ARCH).smoke, num_layers=4)
+    spec = PipelineSpec(2, 2, virtual_stages=TK_V, wire_dtype=TK_WIRE)
+    params = LM(cfg, "cpu").init(torch.Generator().manual_seed(SEED),
+                                 master=True)
+    gen = torch.Generator().manual_seed(7)
+    batch = {n: torch.randint(0, cfg.vocab, (4, 40), generator=gen)
+             for n in ("tokens", "labels")}
+    out, runs = {}, []
+    for where in ("cpu", dev):
+        opt = sgd(0.1, momentum=0.9)
+        p = tree_map(lambda t: t.detach().clone().to(where), params)
+        state = {"params": p, "opt_state": opt.init(p), "step": 0,
+                 "wire_ef": wire_ef_zeros(cfg, spec, 4, 40, where),
+                 "error_fb": init_error_fb(p)}
+        step = make_lm_train_step(LM(cfg, where), opt, pipeline=spec,
+                                  compress=True)
+        ops.reset_launches()
+        runs.append({})
+        with hop_decisions(wire, runs):
+            state, mets = step(state, {n: t.to(where)
+                                       for n, t in batch.items()})
+        out[str(where)] = (float(mets["loss"]), state, dict(ops.LAUNCHES))
+    cpu_run, card_run = runs
+    fwd_flips = sum(int((a.int() != b.int()).sum()) for a, b in zip(
+        cpu_run["forward"], card_run["forward"], strict=True))
+    topk_flips = sum(int((cpu_run["topk"][k].sort(-1).values
+                          != card_run["topk"][k].sort(-1).values).sum())
+                     for k in cpu_run["topk"])
+    (lc, sc, _), (lg, sg, launches) = out["cpu"], out[str(dev)]
+    n_leaves = len(tree_leaves(params))
+    want = {"flash_attention": 16, "flash_attention_bwd": 8,
+            "wire_encode": 6 + n_leaves, "wire_decode": 6 + n_leaves}
+    name = f"small f32 {ARCH} (4 layers) S 2 v 2 {TK_WIRE} compressed step"
+    if launches != want:
+        fail(f"{name}: launches {launches} != {want}")
+    # an int8 rounding flip of a compressed gradient moves its parameter
+    # by lr x one quantum: lr times the two residuals' difference
+    flips, fb_err, perr, raw = 0, 0.0, 0.0, 0.0
+    for a, b, ea, eb in zip(tree_leaves(sg["params"]),
+                            tree_leaves(sc["params"]),
+                            tree_leaves(sg["error_fb"]),
+                            tree_leaves(sc["error_fb"])):
+        a, b, ea = a.detach().cpu(), b.detach(), ea.cpu()
+        off = (ea - eb).abs() > 1e-6
+        flips += int(off.sum())
+        if off.any() and float((ea + eb)[off].abs().max()) > 1e-6:
+            fail(f"{name}: error_fb differs beyond an int8 rounding flip")
+        fb_err = max(fb_err, float((ea - eb).abs().masked_fill(off, 0).max()))
+        raw = max(raw, float((a - b).abs().max()))
+        perr = max(perr, float(((a - b) - 0.1 * (ea - eb)).abs().max()))
+    if not (abs(lg - lc) <= 1e-4 * abs(lc) and perr <= 1e-4):
+        fail(f"{name}, card vs CPU: loss {lg} vs {lc}, max parameter diff "
+             f"{raw}, {perr} past the int8 flips' steps")
+    efc, efg = sc["wire_ef"], sg["wire_ef"].cpu()
+    live_c, _ = check_ef_buffer(torch, f"{name} (CPU)", efc, spec)
+    live_g, _ = check_ef_buffer(torch, f"{name} (card)", efg, spec)
+    ef_tol = 1e-4 * float(efc.abs().max())
+    ef_apart = int(((efc - efg).abs() > ef_tol).sum())
+    print(f"{name}, card vs CPU: loss {lg:.6f} vs {lc:.6f}, max "
+          f"updated-parameter diff {raw:.2e}, {perr:.2e} past the int8 "
+          f"flips' steps (tol 1e-4); EF buffer live in "
+          f"{live_g} slots on both, max diff "
+          f"{float((efc - efg).abs().max()):.2e} of largest "
+          f"{float(efc.abs().max()):.2e}, {ef_apart} elements past 1e-4 of "
+          f"it; decisions that differ on near-ties: {fwd_flips} forward hop "
+          f"elements (int8 roundings), {topk_flips} top-k picks; error_fb: "
+          f"{flips} int8 rounding flips, the rest within {fb_err:.2e}; "
+          f"launches {launches}")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1513,31 +1682,44 @@ def run_continuous(torch, ops, serve, card):
     return results, profiles, max(gaps), peak_gb
 
 
-def _train_argv(wire: str, arch: str = T_ARCH):
+def _train_argv(wire: str, arch: str = T_ARCH, v: int = 1):
     return ["--arch", arch, "--size", "full", "--pipeline-stages", "2",
             "--pipeline-k", str(T_K), "--batch", str(T_BATCH), "--seq",
             str(T_SEQ), "--steps", str(T_STEPS), "--seed", str(SEED),
-            "--wire-dtype", wire, "--log-every", "1"]
+            "--wire-dtype", wire, "--log-every", "1"] + (
+                ["--virtual-stages", str(v)] if v > 1 else [])
+
+
+def billed_step_bytes(protocol, spec, d: int, act_bytes: int):
+    """A pipelined step's billed hop bytes (up, down): S*v - 1 hops of
+    the whole batch, up at the forward rate, down at the backward one."""
+    hops = spec.num_stages * spec.virtual_stages - 1
+    n = T_BATCH * T_SEQ * d
+    return tuple(hops * protocol.billed_hop_bytes(
+        n, d, spec.wire_dtype, act_bytes, backward=bwd)
+        for bwd in (False, True))
 
 
 def check_training_run(torch, protocol, dev, res, name, wire):
     """A training CLI run's result: every loss finite, the hop's bytes up
-    and down each step equal to the billed bytes, and every parameter
-    tensor changed from its initial value (drawn again from the run's
-    seed).  Returns (parameter tensors, billed bytes a step)."""
+    and down each step equal to the billed bytes (``billed_step_bytes``),
+    and every parameter tensor changed from its initial value (drawn
+    again from the run's seed).  Returns (parameter tensors, billed bytes
+    a step up, down)."""
     from repro_torch.models.lm import LM
     from repro_torch.utils.trees import tree_leaves
-    model = res["model"]
-    d = model.cfg.d_model
-    billed = protocol.billed_hop_bytes(T_BATCH * T_SEQ * d, d, wire,
-                                       model.dtype.itemsize)
+    model, spec = res["model"], res["pipeline"]
+    if spec.wire_dtype != wire:
+        fail(f"{name}: the run's codec {spec.wire_dtype} != {wire}")
+    up, down = billed_step_bytes(protocol, spec, model.cfg.d_model,
+                                 model.dtype.itemsize)
     for row in res["rows"]:
         if not math.isfinite(row["loss"]):
             fail(f"{name}: step {row['step']} loss {row['loss']}")
-        if row["hop_bytes_up"] != billed or row["hop_bytes_down"] != billed:
+        if (row["hop_bytes_up"], row["hop_bytes_down"]) != (up, down):
             fail(f"{name} step {row['step']}: hop bytes up "
                  f"{row['hop_bytes_up']} down {row['hop_bytes_down']} != "
-                 f"billed {billed}")
+                 f"billed {up} / {down}")
     fresh = LM(model.cfg, dev).init(
         torch.Generator(device=dev).manual_seed(SEED), master=True)
     pairs = zip(tree_leaves(res["state"]["params"]), tree_leaves(fresh))
@@ -1545,7 +1727,7 @@ def check_training_run(torch, protocol, dev, res, name, wire):
     n = len(tree_leaves(fresh))
     if same:
         fail(f"{name}: {same} of {n} parameter tensors did not change")
-    return n, billed
+    return n, up, down
 
 
 def run_training_path(torch, ops, train, protocol, dev, wc, profile_int8):
@@ -1564,12 +1746,12 @@ def run_training_path(torch, ops, train, protocol, dev, wc, profile_int8):
             res = train.main(_train_argv(wire))
         torch.cuda.synchronize()
         rows[wire] = res["rows"]
-        n, billed = check_training_run(torch, protocol, dev, res,
-                                       f"train {wire}", wire)
+        n, up, _down = check_training_run(torch, protocol, dev, res,
+                                          f"train {wire}", wire)
         print(f"train {wire}: losses "
               f"{[round(r['loss'], 5) for r in res['rows']]}, all {n} "
               f"parameter tensors changed, hop bytes per step up == down == "
-              f"billed {billed:.0f}")
+              f"billed {up:.0f}")
         if wire == "int8":
             launches = dict(ops.LAUNCHES)
             routes = dict(rw.ROUTES)
@@ -1607,13 +1789,14 @@ def run_qwen_training(torch, ops, train, protocol, dev, wc, card):
     fa.ROUTES.clear()
     fa.BWD_ROUTES.clear()
     wc.ROUTES.clear()
+    held = torch.cuda.memory_allocated() / 1e9
     with codec_calls(wc) as calls:
         res = train.main(_train_argv("int8", ARCH))
     torch.cuda.synchronize()
     launches, routes = dict(ops.LAUNCHES), dict(fa.ROUTES)
     bwd_routes = dict(fa.BWD_ROUTES)
-    n, billed = check_training_run(torch, protocol, dev, res,
-                                   f"train {ARCH}", "int8")
+    n, billed, _down = check_training_run(torch, protocol, dev, res,
+                                          f"train {ARCH}", "int8")
     d = res["model"].cfg.d_model
     if launches != Q_LAUNCHES:
         fail(f"train {ARCH}: launches {launches} != {Q_LAUNCHES}")
@@ -1639,7 +1822,8 @@ def run_qwen_training(torch, ops, train, protocol, dev, wc, card):
           f"tensors changed, hop bytes per step up == down == billed "
           f"{billed:.0f}; launches {json.dumps(launches, sort_keys=True)}, "
           f"flash routes {routes}, backward routes {bwd_routes}; peak "
-          f"{peak:.2f} GB on {card}")
+          f"{peak:.2f} GB on {card}, {held:.3f} GB of it held by earlier "
+          f"phases")
     profile_training_step(torch, res, {"flash forward": "flash_fwd",
                                        "flash backward dq": "flash_bwd_dq",
                                        "flash backward dkv": "flash_bwd_dkv"})
@@ -1647,6 +1831,238 @@ def run_qwen_training(torch, ops, train, protocol, dev, wc, card):
     del res
     torch.cuda.empty_cache()
     return rows, launches, calls
+
+
+@contextlib.contextmanager
+def recorded_steps(train, record):
+    """While the block runs, the training CLI's step function calls
+    ``record(state, meter)`` after each step (inside the CLI's timed
+    step: one norm and one all-finite test over the EF buffer)."""
+    make = train.make_lm_train_step
+
+    def wrap(*args, **kw):
+        step = make(*args, **kw)
+
+        def recorded(state, batch):
+            state, mets = step(state, batch)
+            record(state, step.meter)
+            return state, mets
+        recorded.meter = step.meter
+        return recorded
+    train.make_lm_train_step = wrap
+    try:
+        yield
+    finally:
+        train.make_lm_train_step = make
+
+
+def ef_live_slots(torch, spec):
+    """The EF buffer's slots the hops write, [(c + 1) mod S, sigma(m) +
+    c] for chunk boundaries c < S*v - 1 (parallel/pipeline.py)."""
+    from repro_torch.parallel.pipeline import _sigma, wire_ef_ticks
+    s, v = spec.num_stages, spec.virtual_stages
+    live = torch.zeros((s, wire_ef_ticks(spec)), dtype=torch.bool)
+    for m in range(spec.microbatches):
+        for c in range(s * v - 1):
+            live[(c + 1) % s, _sigma(m, s, v) + c] = True
+    return live
+
+
+def check_ef_buffer(torch, name, ef, spec):
+    """An EF buffer after a run: finite, nonzero in exactly the live
+    slots of ``spec``'s schedule and zero elsewhere.  Returns the number
+    of live slots and the buffer's norm."""
+    if not bool(torch.isfinite(ef).all()):
+        fail(f"{name}: the EF buffer holds non-finite values")
+    live = (ef.flatten(2).abs().amax(-1) > 0).cpu()
+    want = ef_live_slots(torch, spec)
+    if not torch.equal(live, want):
+        fail(f"{name}: EF slots live {live.int().tolist()}, expected "
+             f"{want.int().tolist()}")
+    return int(want.sum()), float(torch.linalg.vector_norm(ef))
+
+
+def run_qwen_topk_training(torch, ops, train, protocol, dev, wc, card,
+                           v1_first_loss):
+    """C2P2SL training of qwen1.5-4b at full width through the training
+    CLI with v = 2 and the top-k gradient hop (``TK_WIRE``), after the
+    int8 v = 1 run's state is freed: hop bytes a step ``TK_UP`` /
+    ``TK_DOWN``, equal to the bills; 12 hops each way a step; exactly
+    ``TK_LAUNCHES``, every codec call at [1024, 2560] bf16 int8 (the
+    top-k backward launches none), every flash on "mma"; the EF buffer
+    ``TK_EF_SHAPE`` finite after every step and live in exactly its 12
+    slots; the first loss within 5e-2 relative of the v = 1 run's.  Then
+    one more step traced (``profile_training_step``: the top-k kernels'
+    device time on lines of their own).  Returns (rows, launches, codec
+    calls by shape)."""
+    from repro_torch.kernels import flash_attention as fa
+    name = f"train {ARCH} v {TK_V} {TK_WIRE}"
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    fa.ROUTES.clear()
+    fa.BWD_ROUTES.clear()
+    wc.ROUTES.clear()
+    seen, held = [], torch.cuda.memory_allocated() / 1e9
+
+    def record(state, meter):
+        ef = state["wire_ef"]
+        seen.append((bool(torch.isfinite(ef).all()),
+                     float(torch.linalg.vector_norm(ef)), meter.hops_up,
+                     meter.hops_down))
+    with codec_calls(wc) as calls, recorded_steps(train, record):
+        res = train.main(_train_argv(TK_WIRE, ARCH, TK_V))
+    torch.cuda.synchronize()
+    launches, routes = dict(ops.LAUNCHES), dict(fa.ROUTES)
+    bwd_routes = dict(fa.BWD_ROUTES)
+    n, up, down = check_training_run(torch, protocol, dev, res, name,
+                                     TK_WIRE)
+    if (up, down) != (TK_UP, TK_DOWN):
+        fail(f"{name}: billed {up} / {down} != {TK_UP} / {TK_DOWN}")
+    if launches != TK_LAUNCHES:
+        fail(f"{name}: launches {launches} != {TK_LAUNCHES}")
+    if routes != {"mma": TK_LAUNCHES["flash_attention"]} or bwd_routes != {
+            "mma": TK_LAUNCHES["flash_attention_bwd"]}:
+        fail(f"{name}: flash routes {routes}, backward {bwd_routes}")
+    check_codec_calls(wc, name, launches, calls, dict(wc.ROUTES))
+    model = res["model"]
+    want = {(kern, T_BATCH // T_K * T_SEQ, model.cfg.d_model,
+             str(model.dtype).split(".")[-1], "int8"): TK_LAUNCHES[kern]
+            for kern in ("wire_encode", "wire_decode")}
+    if dict(calls) != want:
+        fail(f"{name}: codec calls {dict(calls)} != {want}")
+    for i, (finite, norm, hu, hd) in enumerate(seen, 1):
+        if not finite or (hu, hd) != (TK_HOPS, TK_HOPS):
+            fail(f"{name} step {i}: EF finite {finite} (norm {norm}), hops "
+                 f"up {hu} down {hd} != {TK_HOPS}")
+    ef = res["state"]["wire_ef"]
+    if tuple(ef.shape) != TK_EF_SHAPE or ef.dtype != torch.float32:
+        fail(f"{name}: EF buffer {tuple(ef.shape)} {ef.dtype}")
+    live, ef_norm = check_ef_buffer(torch, name, ef, res["pipeline"])
+    losses = [r["loss"] for r in res["rows"]]
+    if abs(losses[0] - v1_first_loss) > 5e-2 * abs(v1_first_loss):
+        fail(f"{name}: first loss {losses[0]} not within 5e-2 of the v = 1 "
+             f"int8 run's {v1_first_loss}")
+    peak = max(r["peak_gb"] for r in res["rows"])
+    print(f"{name}: losses {[round(x, 5) for x in losses]} (first beside "
+          f"the v = 1 int8 run's {v1_first_loss:.5f}: "
+          f"{abs(losses[0] - v1_first_loss) / abs(v1_first_loss):.2e} "
+          f"relative, tol 5e-2), all {n} parameter tensors changed, hop "
+          f"bytes per step up {up:.0f} down {down:.0f} == billed, {TK_HOPS} "
+          f"hops each way a step; launches "
+          f"{json.dumps(launches, sort_keys=True)}; EF buffer "
+          f"{list(TK_EF_SHAPE)} f32 live in {live} of "
+          f"{TK_EF_SHAPE[0] * TK_EF_SHAPE[1]} slots, norm {ef_norm:.6e} (after steps: "
+          f"{[round(x[1], 6) for x in seen]}); peak {peak:.2f} GB on {card}, "
+          f"{held:.3f} GB of it held by earlier phases")
+    del ef
+    profile_training_step(torch, res, {
+        "flash forward": "flash_fwd", "flash backward": "flash_bwd",
+        "top-k select": "radixFindKthValues", "top-k gather": "TopK",
+        "top-k sort": "SortKV", "top-k scatter": "scatter"})
+    rows = res["rows"]
+    del res, model
+    torch.cuda.empty_cache()
+    return rows, launches, calls
+
+
+def run_qwen_compressed(torch, ops, protocol, dev, wc, card):
+    """qwen1.5-4b's widths with the depth cut to ``TC_LAYERS``, the v = 2
+    top-k spec and ``make_lm_train_step(compress=True)`` (the CLI has no
+    depth flag), 3 AdamW steps as the CLI runs them: losses finite, hop
+    bytes equal to the bills, the EF buffer live in its 12 slots,
+    ``error_fb`` finite and nonzero, and the codec launched once more a
+    parameter leaf a step each way, on f32 [n / 256, 256].  Returns
+    (rows, launches, the codec calls of the gradients, the hops' codec
+    calls)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import TokenTaskConfig, token_batches
+    from repro_torch.models.lm import LM
+    from repro_torch.parallel.pipeline import PipelineSpec, wire_ef_zeros
+    from repro_torch.parallel.steps import make_lm_train_step
+    from repro_torch.training.compress import init_error_fb
+    from repro_torch.training.optim import adamw, cosine_schedule
+    from repro_torch.utils.trees import tree_leaves
+    name = f"train {ARCH} cut to {TC_LAYERS} layers, compressed"
+    cfg = dataclasses.replace(get_arch(ARCH).full, num_layers=TC_LAYERS)
+    spec = PipelineSpec(2, T_K, virtual_stages=TK_V, wire_dtype=TK_WIRE)
+    model = LM(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        master=True)
+    leaves = tree_leaves(params)
+    n_leaves, n_params = len(leaves), sum(p.numel() for p in leaves)
+    del leaves
+    opt = adamw(cosine_schedule(3e-4, warmup=20, total=T_STEPS),
+                grad_clip=1.0)
+    state = {"params": params, "opt_state": opt.init(params), "step": 0,
+             "wire_ef": wire_ef_zeros(cfg, spec, T_BATCH, T_SEQ, dev),
+             "error_fb": init_error_fb(params)}
+    del params
+    step = make_lm_train_step(model, opt, pipeline=spec, compress=True)
+    batches = token_batches(TokenTaskConfig(vocab=cfg.vocab), T_BATCH,
+                            T_SEQ, seed=SEED)
+    up, down = billed_step_bytes(protocol, spec, cfg.d_model,
+                                 model.dtype.itemsize)
+    ops.reset_launches()
+    wc.ROUTES.clear()
+    rows = []
+    with codec_calls(wc) as calls:
+        for i in range(T_STEPS):
+            batch = {n: torch.as_tensor(a, device=dev)
+                     for n, a in next(batches).items()}
+            step.meter.reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, mets = step(state, batch)
+            loss = float(mets["loss"])
+            torch.cuda.synchronize()
+            rows.append((loss, (time.perf_counter() - t0) * 1e3,
+                         torch.cuda.max_memory_allocated() / 1e9))
+            if not math.isfinite(loss):
+                fail(f"{name}: step {i + 1} loss {loss}")
+            if (step.meter.up, step.meter.down) != (up, down):
+                fail(f"{name} step {i + 1}: hop bytes {step.meter.up} / "
+                     f"{step.meter.down} != billed {up} / {down}")
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check_codec_calls(wc, name, launches, calls, dict(wc.ROUTES))
+    hops = TK_HOPS * T_STEPS
+    want = {"flash_attention": 2 * TC_LAYERS * T_K * T_STEPS,
+            "flash_attention_bwd": TC_LAYERS * T_K * T_STEPS,
+            "wire_encode": hops + n_leaves * T_STEPS,
+            "wire_decode": hops + n_leaves * T_STEPS}
+    if launches != want:
+        fail(f"{name}: launches {launches} != {want}")
+    grads = collections.Counter({k: v for k, v in calls.items()
+                                 if k[2] == 256})
+    hop_calls = collections.Counter({k: v for k, v in calls.items()
+                                     if k[2] != 256})
+    for kern in ("wire_encode", "wire_decode"):
+        n = sum(v for k, v in grads.items() if k[0] == kern)
+        if n != n_leaves * T_STEPS or any(k[3] != "float32" for k in grads):
+            fail(f"{name}: {kern} on the gradients {dict(grads)}, expected "
+                 f"{n_leaves} f32 calls a step")
+    fb = tree_leaves(state["error_fb"])
+    if not all(bool(torch.isfinite(t).all()) for t in fb) or not any(
+            bool(t.any()) for t in fb):
+        fail(f"{name}: error_fb not finite or all zero")
+    fb_norm = math.sqrt(sum(float(torch.linalg.vector_norm(t)) ** 2
+                            for t in fb))
+    live, ef_norm = check_ef_buffer(torch, name, state["wire_ef"], spec)
+    print(f"{name}: {n_params / 1e9:.3f} B parameters in {n_leaves} "
+          f"tensors; losses {[round(r[0], 5) for r in rows]}; step ms "
+          f"{[round(r[1], 1) for r in rows]}; peak "
+          f"{max(r[2] for r in rows):.2f} GB on {card}; hop bytes per step "
+          f"{up:.0f} / {down:.0f} == billed; error_fb norm {fb_norm:.6e}; "
+          f"EF buffer live in {live} slots, norm {ef_norm:.6e}; launches "
+          f"{json.dumps(launches, sort_keys=True)}; the gradients' codec "
+          f"calls by (kernel, rows, d, dtype, wire): "
+          + "; ".join(f"{k}: {v}" for k, v in sorted(grads.items())))
+    del state, fb, step
+    torch.cuda.empty_cache()
+    return rows, launches, grads, hop_calls
 
 
 def run_c2p2sl(torch, dev):
@@ -1863,8 +2279,10 @@ def profile_training_step(torch, res, watch):
         float(mets["loss"])
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    report_trace(prof, wall,
-                 f"training step ({model.cfg.name}, int8, traced)", watch)
+    spec = res["pipeline"]
+    report_trace(prof, wall, f"training step ({model.cfg.name}, "
+                 f"{spec.wire_dtype}, v {spec.virtual_stages}, traced)",
+                 watch)
 
 
 def report_trace(prof, wall, label, watch=None):
@@ -1969,7 +2387,7 @@ def codec_cells(serve_calls, train_calls):
     return cells
 
 
-def time_codec(torch, wc, dev, serve_calls, train_calls):
+def time_codec(torch, wc, dev, serve_calls, train_calls, grads_calls):
     """Encode and decode at each shape the main paths coded (``codec_cells``),
     int8: device time from cold data (``cold_ms``: the bound assumes
     device memory, and back-to-back calls at these sizes would find their
@@ -1979,7 +2397,10 @@ def time_codec(torch, wc, dev, serve_calls, train_calls):
     ``torch.mul(q, s, out=o)`` (bit-equal to the decode: the library
     yardstick; fp8 has none, torch does not promote float8 with f32).
     ``launches`` counts every call at that shape, both wires; the max abs
-    errors are measured on the row's inputs (bit-exact: 0)."""
+    errors are measured on the row's inputs (bit-exact: 0).  The
+    ``_grads`` rows time ``compress_grads``' largest call (``grads_calls``,
+    f32 [n / 256, 256]: the embedding's and the head's), whose 1.6 GB
+    input no L2 holds, back to back."""
     gen = torch.Generator(device=dev).manual_seed(4)
     d = 2560
     out = []
@@ -2036,6 +2457,62 @@ def time_codec(torch, wc, dev, serve_calls, train_calls):
               f"between events, {out[-1]['bound_ms'] / out[-1]['ms']:.3f} of "
               f"its bound, torch.mul {out[-1]['library_ms']} ms; fp8 decode "
               f"{cold_ms(wc.decode_cuda, (q8, s8, dt), io):.4f} ms")
+    out += time_codec_grads(torch, wc, dev, grads_calls)
+    return out
+
+
+def time_codec_grads(torch, wc, dev, grads_calls):
+    """Encode and decode at the largest f32 [rows, 256] call of the
+    gradient compression, int8, beside the plain versions, the bound
+    (the f32 view, the payload and the scales moved once) and, for the
+    decode, ``torch.mul``; launches are the calls at that shape."""
+    rows = max(r for (_k, r, _d, _dt, _w) in grads_calls)
+    by = {k[0]: v for k, v in grads_calls.items() if k[1] == rows}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((rows, 256), generator=gen, device=dev)
+    q, s = wc.encode_cuda(x, "int8")
+    qp, sp = wc.encode_plain(x, "int8")
+    y = wc.decode_cuda(q, s, torch.float32)
+    yp = wc.decode_plain(q, s, torch.float32)
+    torch.cuda.synchronize()
+    enc_err = max(float((q.float() - qp.float()).abs().max()),
+                  float((s - sp).abs().max()))
+    dec_err = float((y - yp).abs().max())
+    del qp, sp, yp
+    n = rows * 256
+    io = n * (4 + 1) + rows * 4
+    common = {"route": "cuda", "source": "src/repro_torch/csrc/wire_codec.cu",
+              "shape": [rows, 256], "dtype": "float32", "wire": "int8"}
+    out = []
+    b_ms, b_by = bound(io, 7 * n, F32_OPS_S)
+    out.append({
+        "name": "wire_encode_grads", **common,
+        "replaces": "src/repro/kernels/wire_codec.py:90",
+        "launches": by.get("wire_encode", 0), "max_abs_err": enc_err,
+        "ms": device_ms(lambda: wc.encode_cuda(x, "int8"), iters=10),
+        "plain_ms": device_ms(lambda: wc.encode_plain(x, "int8"), iters=3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    o = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    b_ms, b_by = bound(io, 2 * n, F32_OPS_S)
+    out.append({
+        "name": "wire_decode_grads", **common,
+        "kernel_route": wc.decode_route(256, q.data_ptr(), y.data_ptr()),
+        "replaces": "src/repro/kernels/wire_codec.py:118",
+        "launches": by.get("wire_decode", 0), "max_abs_err": dec_err,
+        "ms": device_ms(lambda: wc.decode_cuda(q, s, torch.float32),
+                        iters=10),
+        "plain_ms": device_ms(lambda: wc.decode_plain(q, s, torch.float32),
+                              iters=3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(lambda: torch.mul(q, s, out=o), iters=10)})
+    print(f"codec at [{rows}, 256] float32/int8 (compress_grads' largest "
+          f"call; launches {by}): encode {out[0]['ms']:.4f} ms, "
+          f"{out[0]['bound_ms'] / out[0]['ms']:.3f} of its bound; decode "
+          f"[{out[1]['kernel_route']}] {out[1]['ms']:.4f} ms, "
+          f"{out[1]['bound_ms'] / out[1]['ms']:.3f} of its bound, torch.mul "
+          f"{out[1]['library_ms']:.4f} ms")
+    del x, q, s, y, o
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2580,9 +3057,24 @@ def main():
               f"{r['hop_bytes_down']} B")
     phase(f"{ARCH} training and profile")
 
+    tk_rows, tk_launches, tk_calls = run_qwen_topk_training(
+        torch, ops, train, protocol, dev, wc, card, q_rows[0]["loss"])
+    for r in tk_rows:
+        print(f"main path train {ARCH} v {TK_V} {TK_WIRE} step {r['step']}: "
+              f"loss {r['loss']:.5f}, {r['step_ms']:.1f} ms, "
+              f"{r['tokens_per_s']:.0f} tokens/s, peak {r['peak_gb']:.2f} "
+              f"GB, hop up {r['hop_bytes_up']} B, down "
+              f"{r['hop_bytes_down']} B ({card})")
+    tc_rows, tc_launches, tc_grads, tc_calls = run_qwen_compressed(
+        torch, ops, protocol, dev, wc, card)
+    phase(f"{ARCH} interleaved top-k and compressed training")
+
     kernels = time_kernels(torch, wc, fa, rw, rg, dev, launches, rg_launches,
-                           (train_launches, q_launches),
-                           (serve_calls, train_calls + q_calls),
+                           (train_launches, q_launches, tk_launches,
+                            tc_launches),
+                           (serve_calls,
+                            train_calls + q_calls + tk_calls + tc_calls,
+                            tc_grads),
                            flash_err, wkv_err, rglru_err, ptxas)
     kernels += time_moe(torch, mg, fa, dev, gr_prefill, gr_launches, gmm_err,
                         flash_err[GR_HEADS[2]])

@@ -1,8 +1,9 @@
 """Wire byte model of the hop and the serving planner, from the JAX
 package's ``analysis/autotune.py``.
 
-The pieces the serving audit bills with (``wire_block_for``,
-``wire_bytes_per_element``) and the continuous-batching engine's slot
+The pieces the hop audits bill with (``wire_block_for``,
+``wire_bytes_per_element`` forward, ``wire_bytes_per_element_bwd`` and
+``wire_link_scale_bwd`` backward) and the continuous-batching engine's slot
 planner (``ServingInputs``, ``serving_wall``, ``ServingPlan``,
 ``choose_serving_plan``), numpy only; the training planner is listed in
 ROADMAP.md.  The codec grammar and block rule are the port's own
@@ -38,6 +39,35 @@ def wire_bytes_per_element(wire_dtype: str, act_bytes: float,
     if base == "none":
         return float(act_bytes)
     return 1.0 + 4.0 / max(1, int(block))
+
+
+def wire_bytes_per_element_bwd(wire_dtype: str, act_bytes: float,
+                               block: int = WIRE_BLOCK,
+                               d_model=None) -> float:
+    """Wire bytes one activation-GRADIENT element costs on the backward
+    hop.  Dense codecs are direction-symmetric; a ``+topk<frac>`` codec
+    ships ``frac*d`` base-quantized values, their int16 indices (int32
+    above 32767 columns) and one fp32 per-row scale:
+    ``frac*(1 + idx_bytes) + 4/d`` bytes/element.  Unknown ``d_model``
+    assumes int16 indices and drops the amortized-scale term.  At a
+    degenerate block (dense codec >= raw, ``wire.codec_net_loss``) the
+    hop goes raw both ways, so the dense bytes are billed."""
+    _base, frac = parse_wire_dtype(wire_dtype)
+    dense = wire_bytes_per_element(wire_dtype, act_bytes, block)
+    if frac is None or dense >= float(act_bytes):
+        return dense
+    d = None if d_model is None or int(d_model) <= 0 else int(d_model)
+    idx_bytes = 2.0 if d is None or d <= 32767 else 4.0
+    scale_amort = 4.0 / d if d else 0.0
+    return frac * (1.0 + idx_bytes) + scale_amort
+
+
+def wire_link_scale_bwd(wire_dtype: str, act_bytes: float,
+                        block: int = WIRE_BLOCK, d_model=None) -> float:
+    """Multiplier on the uncompressed BACKWARD link time under a codec
+    (smaller than the forward's under a ``+topk`` codec)."""
+    return wire_bytes_per_element_bwd(wire_dtype, act_bytes, block,
+                                      d_model) / float(act_bytes)
 
 
 # ---------------------------------------------------------------------------

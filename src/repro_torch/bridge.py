@@ -8,7 +8,11 @@ heterogeneous stack, a tuple of per-layer trees; the same key names; no
 tree's structure.  ResNet-18's convolution weights are HWIO in the
 reference and OIHW in the port (``models/resnet.py``), so
 ``resnet_params_from_jax`` / ``resnet_params_to_jax`` transpose every
-4-D leaf and copy the rest.  The JAX side is handed over as a tree of
+4-D leaf and copy the rest.  ``train_state_from_jax`` /
+``train_state_to_jax`` carry a whole LM training state: the parameters,
+the optimizer state, the step and, where the run keeps them, the top-k
+hop's error-feedback buffer ``wire_ef`` and the gradient compressor's
+``error_fb`` tree.  The JAX side is handed over as a tree of
 numpy arrays (``jax.tree.map(np.asarray, params)``): the port imports
 nothing of JAX.
 """
@@ -61,3 +65,23 @@ def resnet_params_to_jax(params):
     return tree_map(lambda t: np.ascontiguousarray(np.transpose(
         _to_numpy(t), (2, 3, 1, 0))) if t.dim() == 4 else _to_numpy(t),
         params)
+
+
+_STATE_TREES = ("params", "opt_state", "wire_ef", "error_fb")
+
+
+def train_state_from_jax(state, device="cpu") -> dict:
+    """The reference's train state (numpy leaves) -> the port's: every
+    tree of ``_STATE_TREES`` it holds, and the step as an int."""
+    out = {k: params_from_jax(state[k], device)
+           for k in _STATE_TREES if k in state}
+    out["step"] = int(np.asarray(state["step"]))
+    return out
+
+
+def train_state_to_jax(state) -> dict:
+    """The port's train state -> numpy trees and an int32 step, the
+    inverse of ``train_state_from_jax``."""
+    out = {k: params_to_jax(state[k]) for k in _STATE_TREES if k in state}
+    out["step"] = np.asarray(state["step"], np.int32)
+    return out

@@ -4,15 +4,20 @@ Port of the JAX package's ``launch/train.py`` for the flags that apply:
 the synthetic affine-chain token task, AdamW (cosine schedule, warm-up 20,
 global-norm clip 1.0) on f32 master weights with bf16 compute, and either
 gradient accumulation over ``--microbatches`` or the S-stage pipeline
-(``--pipeline-stages``, ``--pipeline-k``) with a coded hop between stages
-(``--wire-dtype`` none | int8 | fp8, activations up and gradients down).
-Runs on the card unless ``--device cpu`` is given; without CUDA and
-without that flag it raises.  Prints one JSON line per logged step: loss,
-step ms, tokens/s, peak device GB and the hop's wire bytes up and down.
+(``--pipeline-stages``, ``--pipeline-k``, ``--virtual-stages`` v
+interleaved chunks a stage) with a coded hop between model chunks
+(``--wire-dtype`` none | int8 | fp8, activations up and gradients down, or
+``<base>+topk<frac>``: the gradient hop top-k with error feedback, whose
+buffer the CLI builds), and ``--compress-grads`` (int8 gradients with
+error feedback before the update).  k, v and the codec are plain values:
+the reference's planner (``auto``) is not ported.  Runs on the card unless
+``--device cpu`` is given; without CUDA and without that flag it raises.
+Prints one JSON line per logged step: loss, step ms, tokens/s, peak device
+GB and the hop's wire bytes up and down.
 
-PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \
-    --size full --pipeline-stages 2 --pipeline-k 4 --wire-dtype int8 \
-    --batch 8 --seq 512 --steps 3 --log-every 1
+PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-4b \
+    --size full --pipeline-stages 2 --virtual-stages 2 --pipeline-k 4 \
+    --wire-dtype int8+topk0.25 --batch 8 --seq 512 --steps 3 --log-every 1
 """
 from __future__ import annotations
 
@@ -27,9 +32,10 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_arch
 from repro_torch.data.synthetic import TokenTaskConfig, token_batches
 from repro_torch.models.lm import LM
-from repro_torch.parallel.pipeline import PipelineSpec
+from repro_torch.parallel.pipeline import PipelineSpec, wire_ef_zeros
 from repro_torch.parallel.steps import make_lm_train_step
 from repro_torch.parallel.wire import validate_wire_dtype
+from repro_torch.training.compress import init_error_fb
 from repro_torch.training.optim import adamw, cosine_schedule
 
 
@@ -48,8 +54,17 @@ def parse_args(argv=None):
                          "pipeline with a coded hop between stages")
     ap.add_argument("--pipeline-k", type=int, default=None,
                     help="micro-batches of the pipeline (default 4)")
+    ap.add_argument("--virtual-stages", "--pipeline-v",
+                    dest="virtual_stages", type=int, default=None,
+                    help="v > 1: interleaved virtual stages, v round-robin "
+                         "model chunks a stage (default 1)")
     ap.add_argument("--wire-dtype", default="none",
-                    help="codec of the stage hop: none | int8 | fp8")
+                    help="codec of the stage hop: none | int8 | fp8 | "
+                         "<base>+topk<frac> (e.g. int8+topk0.25: the "
+                         "gradient hop top-k with error feedback)")
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="int8 block-quantized gradients with error "
+                         "feedback before the optimizer update")
     ap.add_argument("--log-every", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -62,16 +77,19 @@ def pipeline_spec(args):
     """``PipelineSpec`` from the flags, or None without a pipeline."""
     wire = validate_wire_dtype(args.wire_dtype)
     if args.pipeline_stages <= 1:
-        if args.pipeline_k is not None or wire != "none":
-            raise SystemExit("--pipeline-k and --wire-dtype need "
-                             "--pipeline-stages > 1")
+        if args.pipeline_k is not None or args.virtual_stages is not None \
+                or wire != "none":
+            raise SystemExit("--pipeline-k, --virtual-stages and "
+                             "--wire-dtype need --pipeline-stages > 1")
         return None
     if args.microbatches != 1:
         raise SystemExit("--microbatches (gradient accumulation) and "
                          "--pipeline-stages are mutually exclusive: the "
                          "pipeline micro-batches with --pipeline-k")
     return PipelineSpec(num_stages=args.pipeline_stages,
-                        microbatches=args.pipeline_k or 4, wire_dtype=wire)
+                        microbatches=args.pipeline_k or 4,
+                        virtual_stages=args.virtual_stages or 1,
+                        wire_dtype=wire)
 
 
 def main(argv=None) -> dict:
@@ -87,12 +105,20 @@ def main(argv=None) -> dict:
     opt = adamw(cosine_schedule(args.lr, warmup=20, total=args.steps),
                 grad_clip=1.0)
     state = {"params": params, "opt_state": opt.init(params), "step": 0}
+    if args.compress_grads:
+        state["error_fb"] = init_error_fb(params)
+    if pipeline is not None:
+        ef = wire_ef_zeros(cfg, pipeline, args.batch, args.seq, device)
+        if ef is not None:       # top-k wire codec: EF rides the state
+            state["wire_ef"] = ef
     step_fn = make_lm_train_step(model, opt, microbatches=args.microbatches,
-                                 pipeline=pipeline)
+                                 pipeline=pipeline,
+                                 compress=args.compress_grads)
     meter = step_fn.meter
     if pipeline is not None:
         print(f"pipeline: S={pipeline.num_stages} k={pipeline.microbatches} "
-              f"wire={pipeline.wire_dtype} on {device}", flush=True)
+              f"v={pipeline.virtual_stages} wire={pipeline.wire_dtype} "
+              f"on {device}", flush=True)
     batches = token_batches(TokenTaskConfig(vocab=cfg.vocab), args.batch,
                             args.seq, seed=args.seed)
     cuda = device.type == "cuda"

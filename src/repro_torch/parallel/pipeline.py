@@ -1,21 +1,30 @@
 """C²P²SL's micro-batch pipeline of the block stack, on one card.
 
-Port of the JAX package's ``parallel/pipeline.py``.  The first L/S layers
-are stage 0 (the UE-side model), the next L/S stage 1, and so on; each
-batch is split into k micro-batches that stream through the stages, with
-the cut activation crossing each stage boundary through the coded hop
-(``parallel/wire.py::CodedHop``: ``PipelineSpec.wire_dtype`` none, int8
-or fp8, the gradient coded the same way on the way back).  Gradients
-accumulate over the k micro-batches.
+Port of the JAX package's ``parallel/pipeline.py``.  The layer stack
+splits into S·v model chunks of L/(S·v) consecutive layers; chunk c lives
+on stage c mod S (round-robin, ``_split_stages``), so with v = 1 the first
+L/S layers are stage 0 (the UE-side model), the next L/S stage 1, and so
+on.  Each batch is split into k micro-batches; each micro-batch runs the
+chunks c = 0 … S·v−1 in order, and at S > 1 the cut activation crosses
+each of the S·v − 1 chunk boundaries through the coded hop (``parallel/wire.py``:
+``PipelineSpec.wire_dtype`` none, int8 or fp8, the gradient coded the same
+way on the way back, or ``<base>+topk<frac>``, whose gradient hop is top-k
+with error feedback).  Gradients accumulate over the k micro-batches.
 
-On one card the stages run one after the other, so the reference's tick
-timetable (the 1F1B schedule over the pod axis, ``_tick_loop``) is not
-needed for the result: the loss and the gradients are the schedule's,
-which the reference's own tests hold equal to the unpipelined step.  What
-the timetable buys is overlap between stages on different devices; that
-is the schedule simulator's business (``core/schedule.py``).
-``PipelineSpec.auto_k`` picks k by the paper's Lemma 1.  Interleaved
-virtual stages (v > 1) and top-k codecs are not ported yet and raise.
+On one card the chunks run one after the other, so the reference's tick
+timetable (the interleaved 1F1B schedule over the pod axis,
+``_tick_loop``) is not needed for the result: the loss and the gradients
+are the schedule's, which the reference's own tests hold equal to the
+unpipelined step.  What the timetable buys is overlap between stages on
+different devices; that is the schedule simulator's business
+(``core/schedule.py``).  The timetable still names the error-feedback
+slots: chunk c of micro-batch m runs at tick ``_sigma(m) + c`` on stage
+c mod S, and the hop after it keeps its residual in slot
+``[(c + 1) mod S, _sigma(m) + c]`` of the ``[S, ticks, mb, seq, d]``
+buffer (``wire_ef_zeros``), the receiving stage's slot at that tick, as
+the reference's backward rule runs on the receiving device.  The other
+slots see no gradient and stay zero.  ``PipelineSpec.auto_k`` picks k by
+the paper's Lemma 1.
 """
 from __future__ import annotations
 
@@ -34,22 +43,16 @@ class PipelineSpec:
     num_stages: int = 2          # S: UE-side / BS-side (extensible)
     microbatches: int = 4        # k
     virtual_stages: int = 1      # v: interleaved model chunks per stage
-    wire_dtype: str = "none"     # hop codec: none | int8 | fp8
+    wire_dtype: str = "none"     # hop codec: none | int8 | fp8 | +topk
 
     def __post_init__(self):
         object.__setattr__(self, "wire_dtype",
                            wire.validate_wire_dtype(self.wire_dtype))
-        if self.num_stages < 1 or self.microbatches < 1:
-            raise ValueError(f"num_stages={self.num_stages} and "
-                             f"microbatches={self.microbatches} must be >= 1")
-        if self.virtual_stages != 1:
-            raise NotImplementedError(
-                f"virtual_stages={self.virtual_stages}: interleaved "
-                "scheduling is not ported yet (v = 1 only)")
-        if wire.parse_wire_dtype(self.wire_dtype)[1] is not None:
-            raise NotImplementedError(
-                f"wire_dtype {self.wire_dtype!r}: top-k codecs are not "
-                "ported yet (none | int8 | fp8)")
+        if min(self.num_stages, self.microbatches, self.virtual_stages) < 1:
+            raise ValueError(
+                f"num_stages={self.num_stages}, microbatches="
+                f"{self.microbatches} and virtual_stages="
+                f"{self.virtual_stages} must be >= 1")
 
     @classmethod
     def auto_k(cls, stage_compute_s: float, link_s: float, *,
@@ -58,7 +61,7 @@ class PipelineSpec:
         """Spec with k chosen by the paper's Lemma 1 closed form
         (``core/ao.py::pipeline_k_auto``) from per-stage compute time and
         inter-stage link time; interleaving (v > 1) divides the k needed
-        to reach the steady state (and raises here, as v > 1 does)."""
+        to reach the steady state."""
         k = pipeline_k_auto(stage_compute_s, link_s, k_cap=k_cap,
                             virtual_stages=virtual_stages)
         return cls(num_stages=num_stages, microbatches=k,
@@ -82,9 +85,40 @@ def _split_stages(layers: list, num_stages: int, virtual_stages: int = 1):
              for j in range(virtual_stages)] for s in range(num_stages)]
 
 
+def _sigma(m: int, num_stages: int, virtual_stages: int) -> int:
+    """Pipeline-entry tick of micro-batch m (interleaved spacing): groups
+    of S micro-batches enter back to back, groups S·v ticks apart; v = 1
+    gives ``sigma(m) = m``."""
+    return (m // num_stages) * num_stages * virtual_stages \
+        + (m % num_stages)
+
+
+def wire_ef_ticks(spec: PipelineSpec) -> int:
+    """Tick count of one batch's schedule — the EF buffer's slot axis."""
+    return _sigma(spec.microbatches - 1, spec.num_stages,
+                  spec.virtual_stages) + spec.num_stages * spec.virtual_stages
+
+
+def wire_ef_zeros(cfg, spec: PipelineSpec, batch: int, seq: int,
+                  device=None):
+    """Zero error-feedback buffer of a top-k wire codec: f32 [S, ticks,
+    mb, seq, d_model], one residual slot per (stage, tick) of the static
+    schedule, with ``mb = ceil(batch / k)`` as ``make_pipelined_loss``
+    pads a ragged batch.  None when the codec carries no top-k, or at
+    S = 1, where there is no hop."""
+    if spec.num_stages <= 1 or not wire.has_topk(spec.wire_dtype):
+        return None
+    k = spec.microbatches
+    mb = (batch + (-batch) % k) // k
+    return torch.zeros((spec.num_stages, wire_ef_ticks(spec), mb, seq,
+                        cfg.d_model), dtype=torch.float32, device=device)
+
+
 def make_pipelined_loss(model, spec: PipelineSpec):
     """``loss_fn(params, batch) -> (loss, metrics)`` with the block stack
-    run as the S-stage, k-micro-batch pipeline.
+    run as the S-stage, v-chunk, k-micro-batch pipeline; under a top-k
+    codec at S > 1, ``loss_fn(params, batch, wire_ef)``, whose backward
+    updates the EF buffer ``wire_ef`` in place (``loss_fn.needs_wire_ef``).
 
     A batch whose size is not a multiple of k is padded with zero rows to
     ``k * ceil(b / k)``, as the reference does; the pad rows are dropped
@@ -95,25 +129,37 @@ def make_pipelined_loss(model, spec: PipelineSpec):
     if not cfg.homogeneous:
         raise ValueError(f"pipeline mode needs a homogeneous layer stack; "
                          f"{cfg.name} has a mixed pattern")
-    k, n_stages = spec.microbatches, spec.num_stages
+    k, n_stages, v = spec.microbatches, spec.num_stages, spec.virtual_stages
+    needs_ef = n_stages > 1 and wire.has_topk(spec.wire_dtype)
     meter = wire.HopMeter()
 
-    def loss_fn(params, batch):
+    def _loss(params, batch, wire_ef):
         x = model._embed(params, batch["tokens"], model.dtype)
         b, seq, d = x.shape
         pad_rows = (-b) % k
         if pad_rows:
             x = torch.cat([x, x.new_zeros((pad_rows, seq, d))])
         xs = x.reshape(k, (b + pad_rows) // k, seq, d)
-        stages = [chunks[0] for chunks in _split_stages(
-            unstack(params["blocks"], x.dtype), n_stages)]
+        if needs_ef:
+            want = (n_stages, wire_ef_ticks(spec)) + tuple(xs.shape[1:])
+            if wire_ef is None or tuple(wire_ef.shape) != want:
+                raise ValueError(
+                    f"wire_ef {None if wire_ef is None else tuple(wire_ef.shape)}"
+                    f" != expected {want} ([S, ticks, mb, seq, d] — build "
+                    "it with pipeline.wire_ef_zeros for this spec and "
+                    "batch shape)")
+        staged = _split_stages(unstack(params["blocks"], x.dtype), n_stages, v)
+        chunks = [staged[c % n_stages][c // n_stages]
+                  for c in range(n_stages * v)]
         outs, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
         for m in range(k):
-            h = xs[m]
-            for s, stage in enumerate(stages):
-                if s > 0:
-                    h = wire.coded_hop(h, spec.wire_dtype, meter)
-                h, a = run_blocks(cfg, stage, h)
+            h, t0 = xs[m], _sigma(m, n_stages, v)
+            for c, chunk in enumerate(chunks):
+                if c > 0 and n_stages > 1:   # S = 1: the chain stays local
+                    ef = wire_ef[c % n_stages, t0 + c - 1] if needs_ef \
+                        else None
+                    h = wire.coded_hop(h, spec.wire_dtype, meter, ef)
+                h, a = run_blocks(cfg, chunk, h)
                 aux = aux + a
             outs.append(h)
         h = torch.cat(outs)[:b]
@@ -122,5 +168,12 @@ def make_pipelined_loss(model, spec: PipelineSpec):
         aux = aux / k
         return loss + 0.01 * aux, {"xent": loss, "aux": aux}
 
+    if needs_ef:
+        def loss_fn(params, batch, wire_ef):
+            return _loss(params, batch, wire_ef)
+    else:
+        def loss_fn(params, batch):
+            return _loss(params, batch, None)
     loss_fn.meter = meter
+    loss_fn.needs_wire_ef = needs_ef
     return loss_fn

@@ -1,17 +1,23 @@
-"""Quantized wire codec for the cut-activation hop (dense forward codec).
+"""Quantized wire codec for the cut-activation hop.
 
-Port of the dense half of the JAX package's ``parallel/wire.py``: the
-codec grammar, the degenerate-block net-loss rule and
-``encode``/``decode``/``roundtrip``.  ``encode`` and ``decode`` go through
-``kernels.ops``: the CUDA kernels for a tensor on the card, their plain
-versions for a tensor on the CPU (the port has no "jnp off-TPU" rule).
+Port of the JAX package's ``parallel/wire.py``: the codec grammar, the
+degenerate-block net-loss rule, the dense ``encode``/``decode``/
+``roundtrip`` and the top-k gradient codec (``topk_encode``/
+``topk_decode``).  ``encode`` and ``decode`` go through ``kernels.ops``:
+the CUDA kernels for a tensor on the card, their plain versions for a
+tensor on the CPU (the port has no "jnp off-TPU" rule).  Top-k is
+``torch.topk`` and gathers, as the reference computes it with
+``jax.lax.top_k`` outside any Pallas kernel; its kept row is quantized by
+the plain block quantizer.
 
 ``CodedHop`` is the one-card counterpart of the reference's
 ``coded_ppermute``: the cut activation goes through encode -> decode, and
 its gradient through the same codec on the way back (the straight-through
-wire transpose), with the wire bytes of each direction counted in a
-``HopMeter``.  Top-k sparsification with error feedback on the gradient
-hop is not ported yet.
+wire transpose).  ``CodedHopEF`` is that of ``coded_ppermute_ef``, the hop
+of a ``+topk`` codec: the dense base codec forward, and backward the
+top-k of the cotangent plus the residual of its (stage, tick) slot, the
+slot's new residual written back in place.  Each direction's wire bytes
+are counted in a ``HopMeter``.
 
 Codec grammar (``parse_wire_dtype``):
 
@@ -26,6 +32,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.wire_codec import wire_block  # noqa: F401
+from repro_torch.training.compress import dequantize_blocks, quantize_blocks
 
 WIRE_DTYPES = ("none", "int8", "fp8")   # base codecs
 
@@ -71,6 +78,12 @@ def parse_wire_dtype(wire_dtype):
 
 def format_wire_dtype(base: str, frac) -> str:
     return base if frac is None else f"{base}+topk{frac:g}"
+
+
+def has_topk(wire_dtype) -> bool:
+    """True when the codec sparsifies the gradient hop (needs the EF
+    buffer threaded through the pipeline)."""
+    return parse_wire_dtype(wire_dtype)[1] is not None
 
 
 def validate_wire_dtype(wire_dtype) -> str:
@@ -136,6 +149,54 @@ def roundtrip(x: torch.Tensor, wire_dtype: str):
 
 
 # ---------------------------------------------------------------------------
+# Top-k sparsified gradient codec.
+# ---------------------------------------------------------------------------
+
+
+def topk_count(d: int, frac: float) -> int:
+    """Entries kept per row of ``d`` under a top-k fraction (>= 1)."""
+    return max(1, min(int(d), int(round(frac * d))))
+
+
+def topk_index_dtype(d: int) -> torch.dtype:
+    """int16 wire indices whenever they fit (d <= 32767)."""
+    return torch.int16 if int(d) <= 32767 else torch.int32
+
+
+def topk_encode(x: torch.Tensor, wire_dtype: str):
+    """f32 [..., d] -> (payload [..., kk], indices [..., kk] int16/int32,
+    fp32 per-row scale [..., 1]) keeping the ``frac*d`` largest-magnitude
+    entries per row in descending order, base-quantized against the row
+    absmax.  Ties may pick other entries than ``jax.lax.top_k``, which
+    prefers the lower index; ``torch.topk`` promises no order among
+    equal magnitudes."""
+    base, frac = parse_wire_dtype(wire_dtype)
+    if frac is None:
+        raise ValueError(
+            f"wire_dtype {wire_dtype!r} has no top-k fraction — use the "
+            "dense encode/decode")
+    d = x.shape[-1]
+    kk = topk_count(d, frac)
+    xf = x.to(torch.float32)
+    idx = torch.topk(xf.abs(), kk, dim=-1).indices
+    vals = torch.gather(xf, -1, idx)
+    q, scale = quantize_blocks(vals, base)   # one "block" = the kept row
+    return q, idx.to(topk_index_dtype(d)), scale
+
+
+def topk_decode(q: torch.Tensor, idx: torch.Tensor, scale: torch.Tensor,
+                d: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """Scatter the kept entries back into dense [..., d] rows.  An add,
+    not a set: indices are unique in a row, and an all-zero payload whose
+    indices collide still decodes to exact zeros."""
+    vals = dequantize_blocks(q, scale)
+    out = torch.zeros(tuple(q.shape[:-1]) + (int(d),), dtype=torch.float32,
+                      device=q.device)
+    out.scatter_add_(-1, idx.to(torch.int64), vals)
+    return out.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
 # The coded hop between pipeline stages, with its backward.
 # ---------------------------------------------------------------------------
 
@@ -188,12 +249,58 @@ class CodedHop(torch.autograd.Function):
         return dx, None, None
 
 
+class CodedHopEF(torch.autograd.Function):
+    """The hop of a ``+topk`` codec: the dense base codec forward, exactly
+    ``CodedHop``'s; backward, ``corrected = g + ef`` ships
+    ``topk_decode(topk_encode(corrected))`` at the cotangent's dtype, and
+    the slot ``ef`` (f32, the cotangent's shape) takes the dropped mass
+    ``corrected - decoded`` in place, once per backward.  At a degenerate
+    block (``codec_net_loss``) both directions go raw and the slot keeps
+    its residual."""
+
+    @staticmethod
+    def forward(ctx, x, ef, wire_dtype: str, meter):
+        base, _ = parse_wire_dtype(wire_dtype)
+        ctx.wire_dtype, ctx.meter, ctx.ef = wire_dtype, meter, ef
+        y, nbytes = _wire_roundtrip(x, base)
+        if meter is not None:
+            meter.up += nbytes
+            meter.hops_up += 1
+        return x.view_as(x) if y is x else y
+
+    @staticmethod
+    def backward(ctx, g):
+        ef, d = ctx.ef, g.shape[-1]
+        if codec_net_loss(d, g.element_size()):
+            dx, nbytes = g, g.numel() * g.element_size()
+        else:
+            corrected = g.to(torch.float32) + ef
+            q, idx, scale = topk_encode(corrected, ctx.wire_dtype)
+            dec = topk_decode(q, idx, scale, d, torch.float32)
+            ef.copy_(corrected - dec)
+            dx = dec.to(g.dtype)
+            nbytes = sum(t.numel() * t.element_size() for t in (q, idx, scale))
+        if ctx.meter is not None:
+            ctx.meter.down += nbytes
+            ctx.meter.hops_down += 1
+        return dx, None, None, None
+
+
 def coded_hop(x: torch.Tensor, wire_dtype: str = "none",
-              meter: HopMeter | None = None) -> torch.Tensor:
-    """One stage-to-stage hop of ``x`` [..., d] under ``wire_dtype``."""
+              meter: HopMeter | None = None,
+              ef: torch.Tensor | None = None) -> torch.Tensor:
+    """One stage-to-stage hop of ``x`` [..., d] under ``wire_dtype``.  A
+    ``+topk`` codec needs ``ef``, the f32 error-feedback slot of this hop
+    (``x``'s shape), which its backward updates in place."""
     base, frac = parse_wire_dtype(wire_dtype)
-    if frac is not None:
-        raise NotImplementedError(
-            f"wire_dtype {wire_dtype!r}: top-k with error feedback on the "
-            "gradient hop is not ported yet (dense none/int8/fp8 only)")
-    return CodedHop.apply(x, base, meter)
+    if frac is None:
+        return CodedHop.apply(x, base, meter)
+    if ef is None:
+        raise ValueError(
+            f"wire_dtype {wire_dtype!r} sparsifies the gradient hop with "
+            "error feedback — pass the hop's f32 residual slot (build the "
+            "buffer with pipeline.wire_ef_zeros)")
+    if tuple(ef.shape) != tuple(x.shape) or ef.dtype != torch.float32:
+        raise ValueError(f"ef slot {tuple(ef.shape)} {ef.dtype} != the "
+                         f"hop's {tuple(x.shape)} float32")
+    return CodedHopEF.apply(x, ef, format_wire_dtype(base, frac), meter)

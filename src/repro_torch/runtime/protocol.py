@@ -200,11 +200,15 @@ def decode_act_payload(frame: Frame, device) -> torch.Tensor:
 
 
 def billed_hop_bytes(n_elements: int, d_model: int, wire_dtype: str,
-                     act_bytes: float) -> float:
-    """What the planner bills this forward hop:
-    ``autotune.wire_bytes_per_element`` x elements at the effective block
-    for this width — the number a frame's measured ``payload_nbytes``
-    must match."""
+                     act_bytes: float, *, backward: bool = False) -> float:
+    """What the planner bills this hop: ``autotune.wire_bytes_per_element``
+    (or ``_bwd``) x elements at the effective block for this width — the
+    number the measured bytes must match (the discrete ``round(frac*d)``
+    top-k count is the only divergence from the continuous ``frac``)."""
     block = autotune.wire_block_for(int(d_model))
-    per = autotune.wire_bytes_per_element(wire_dtype, act_bytes, block)
+    if backward:
+        per = autotune.wire_bytes_per_element_bwd(
+            wire_dtype, act_bytes, block, d_model=int(d_model))
+    else:
+        per = autotune.wire_bytes_per_element(wire_dtype, act_bytes, block)
     return float(per) * int(n_elements)

@@ -1,14 +1,26 @@
-"""Per-block absmax quantizer shared by the wire codec.
+"""Per-block absmax quantizer and gradient compression with error feedback.
 
-Port of the block quantizer of the JAX package's ``training/compress.py``
-(``qmax_for``, ``payload_dtype``, ``quantize_blocks``,
-``dequantize_blocks``).  These are the plain PyTorch versions the wire
-codec kernels (``kernels/wire_codec.py``) are held to bit for bit.
-The error-feedback gradient compression waits for the training slice.
+Port of the JAX package's ``training/compress.py``.  ``quantize_blocks``
+and ``dequantize_blocks`` are the plain PyTorch versions the wire codec
+kernels (``kernels/wire_codec.py``) are held to bit for bit, and the top-k
+gradient hop quantizes its kept entries with them (``parallel/wire.py``).
+
+``compress_grads`` is EF-SGD on the gradients: each tensor, plus its
+residual, is quantized per 256-element block to int8 with an fp32 scale,
+and the quantization error is fed back into the next step's gradient
+(``parallel/steps.py::make_lm_train_step(compress=True)``, ``launch/train.py
+--compress-grads``).  ``quantize`` / ``dequantize`` go through
+``kernels.ops.wire_encode`` / ``wire_decode`` on the padded ``[-1, 256]``
+f32 view: the codec kernels at block 256 on the card, their plain versions
+on the CPU.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.utils.trees import tree_leaves, tree_map, tree_unflatten
+
+BLOCK = 256
 
 # Largest representable magnitude per payload dtype: int8 keeps the
 # symmetric [-127, 127] range; fp8 uses e4m3 (max 448).
@@ -65,3 +77,86 @@ def quantize_blocks(blocks: torch.Tensor, wire_dtype: str = "int8"):
 def dequantize_blocks(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Inverse of ``quantize_blocks`` (fp32 output)."""
     return q.to(torch.float32) * scale
+
+
+def _pad_len(n: int) -> int:
+    return (BLOCK - n % BLOCK) % BLOCK
+
+
+def quantize(g: torch.Tensor, wire_dtype: str = "int8"):
+    """fp32 tensor -> (payload [n/256, 256], fp32 scales [n/256, 1],
+    original shape), the flat tensor zero-padded to a multiple of 256."""
+    from repro_torch.kernels import ops
+    flat = g.reshape(-1).to(torch.float32)
+    pad = _pad_len(flat.shape[0])
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    q, scale = ops.wire_encode(flat.reshape(-1, BLOCK), wire_dtype)
+    return q.reshape(-1, BLOCK), scale.reshape(-1, 1), tuple(g.shape)
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
+    """Inverse of ``quantize``: f32 tensor of ``shape``."""
+    from repro_torch.kernels import ops
+    flat = ops.wire_decode(q.reshape(-1, 1, BLOCK), scale.reshape(-1, 1, 1),
+                           torch.float32).reshape(-1)
+    n = 1
+    for s in shape:
+        n *= s
+    return flat[:n].reshape(shape)
+
+
+def _compress_one(g: torch.Tensor, e: torch.Tensor):
+    """One leaf: ((q, scale, shape), deq(Q(g + e)), (g + e) - deq(...))."""
+    corrected = g.to(torch.float32) + e
+    q, s, shp = quantize(corrected)
+    deq = dequantize(q, s, shp)
+    return (q, s, shp), deq, corrected - deq
+
+
+def compress_grads(grads, error_fb):
+    """Apply EF: g' = Q(g + e); new e = (g + e) - deq(Q(g + e)).
+
+    Returns (quantized tree, new error-feedback tree); the quantized tree
+    holds (q, scale, shape) triples, what would travel the wire."""
+    out = [_compress_one(g, e) for g, e in zip(
+        tree_leaves(grads), tree_leaves(error_fb), strict=True)]
+    return (tree_unflatten(grads, [o[0] for o in out]),
+            tree_unflatten(grads, [o[2] for o in out]))
+
+
+def compress_grads_(grads, error_fb) -> None:
+    """``compress_grads`` then ``decompress_grads``, one leaf at a time
+    and in place: each gradient becomes its decompressed value and each
+    residual its new value, with one encode and one decode a leaf (the
+    decode the residual needs is the decompressed gradient, bit for bit).
+    A second f32 tree of either would not fit beside AdamW's state at
+    full width."""
+    for g, e in zip(tree_leaves(grads), tree_leaves(error_fb), strict=True):
+        _, deq, new_e = _compress_one(g, e)
+        e.copy_(new_e)
+        g.copy_(deq)
+        del deq, new_e
+
+
+def decompress_grads(qtree):
+    is_triple = lambda x: isinstance(x, tuple) and len(x) == 3 \
+        and isinstance(x[2], tuple)
+    return _map_over(lambda t: dequantize(*t), qtree, is_triple)
+
+
+def init_error_fb(params):
+    """Zero f32 residuals shaped like the parameters."""
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+
+
+def _map_over(fn, tree, is_leaf):
+    """``tree_map`` that stops at the nodes ``is_leaf`` accepts."""
+    if is_leaf(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_over(fn, v, is_leaf) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_over(fn, v, is_leaf) for v in tree)
+    return fn(tree)

@@ -17,8 +17,10 @@ from repro_torch.kernels import rglru as rg
 from repro_torch.kernels import rwkv6 as rw
 from repro_torch.kernels import wire_codec as wc
 from repro_torch.models.lm import LM
+from repro_torch.parallel import wire
 from repro_torch.parallel.pipeline import PipelineSpec
 from repro_torch.parallel.steps import make_lm_train_step
+from repro_torch.training import compress
 from repro_torch.training.optim import sgd
 from repro_torch.serving.infer import run_split_infer
 from repro_torch.utils.trees import tree_leaves, tree_map
@@ -911,6 +913,199 @@ def test_flash_rows_without_keys_take_the_mean_of_v(causal, dt, misaligned):
     assert float((o.float() - op.float()).abs().max()) <= tol
     mean = v.float().mean(dim=2)[0, 0]
     assert float((o[0, 0, 200].float() - mean).abs().max()) <= tol
+
+
+# ------------------------------------- top-k hop, interleaving, compression
+
+
+def _residual_flips(a, b, atol):
+    """Elements of two f32 residuals more than ``atol`` apart; each must
+    be an int8 rounding flip (the two at half a quantum on either side,
+    ``a = -b``).  Returns their count."""
+    off = (a - b).abs() > atol
+    err = float((a + b)[off].abs().max()) if off.any() else 0.0
+    assert err <= atol, (int(off.sum()), err)
+    return int(off.sum())
+
+
+class _HopDecisions:
+    """The hops' codec decisions of one run, replayed in another: each
+    forward hop's decoded activation in call order, and each top-k hop's
+    kept indices by EF slot.  A card-vs-CPU step then compares the
+    arithmetic, not the side of an int8 rounding boundary or of a top-k
+    near-tie on which each device's f32 roundings land (the codec is
+    discontinuous: one activation a quantum off moves the loss by ~1e-5
+    at the smoke width).  ``flips`` counts the replayed decisions the
+    replaying run would have taken otherwise."""
+
+    def __init__(self, monkeypatch):
+        from repro_torch.training.compress import quantize_blocks
+        self.replay, self.fwd, self.payloads, self.idx = False, [], [], {}
+        self.flips = {"forward payload elements": 0, "top-k picks": 0}
+        roundtrip, encode = wire._wire_roundtrip, wire.topk_encode
+        dense, backward = wire.encode, wire.CodedHopEF.backward
+        slot = [None]
+
+        def enc_dense(x, w):
+            q, sc = dense(x, w)
+            if not self.replay:
+                self.payloads.append(q.cpu())
+            else:
+                self.flips["forward payload elements"] += int(
+                    (self.payloads.pop(0).int() != q.cpu().int()).sum())
+            return q, sc
+
+        def rt(x, w):
+            y, n = roundtrip(x, w)
+            if not self.replay:
+                self.fwd.append(y.detach().cpu())
+                return y, n
+            return self.fwd.pop(0).to(y.device), n
+
+        def bwd(ctx, g):
+            slot[0] = ctx.ef.storage_offset() // ctx.ef.numel()
+            return backward(ctx, g)
+
+        def enc(x, w):
+            q, idx, s = encode(x, w)
+            if not self.replay:
+                self.idx[slot[0]] = idx.cpu()
+                return q, idx, s
+            want = self.idx[slot[0]].to(x.device)
+            self.flips["top-k picks"] += int((want.sort(-1).values
+                                              != idx.sort(-1).values).sum())
+            vals = torch.gather(x.to(torch.float32), -1, want.long())
+            q, s = quantize_blocks(vals, wire.parse_wire_dtype(w)[0])
+            return q, want, s
+        monkeypatch.setattr(wire, "encode", enc_dense)
+        monkeypatch.setattr(wire, "_wire_roundtrip", rt)
+        monkeypatch.setattr(wire, "topk_encode", enc)
+        monkeypatch.setattr(wire.CodedHopEF, "backward", staticmethod(bwd))
+
+
+def test_compress_grads_on_card_bit_equal_to_plain():
+    """``compress_grads`` / ``decompress_grads`` / ``compress_grads_`` go
+    through the codec kernels on f32 [n/256, 256] (padded) views: bit for
+    bit their plain versions on the CPU, one encode and one decode a leaf
+    in place."""
+    dev = cuda_device()
+    rng = np.random.default_rng(3)
+    shapes = [(2048, 2560), (3, 100), (7,), (256,)]
+    grads = [torch.from_numpy((rng.standard_normal(s) * rng.uniform(1e-3, 10))
+                              .astype(np.float32)) for s in shapes]
+    efs = [torch.from_numpy((rng.standard_normal(s) * 1e-3)
+                            .astype(np.float32)) for s in shapes]
+    cq, ce = compress.compress_grads(grads, efs)
+    gq, ge = compress.compress_grads([g.to(dev) for g in grads],
+                                     [e.to(dev) for e in efs])
+    for (q, sc, shp), (q2, sc2, shp2) in zip(cq, gq):
+        assert shp == shp2 and torch.equal(q, q2.cpu())
+        assert torch.equal(sc, sc2.cpu())
+    for a, b in zip(ce, ge):
+        assert torch.equal(a, b.cpu())
+    for a, b in zip(compress.decompress_grads(cq),
+                    compress.decompress_grads(gq)):
+        assert torch.equal(a, b.cpu())
+    g2, e2 = [g.to(dev) for g in grads], [e.to(dev) for e in efs]
+    ops.reset_launches()
+    compress.compress_grads_(g2, e2)
+    assert dict(ops.LAUNCHES) == {"wire_encode": 4, "wire_decode": 4}
+    for a, b, c, d in zip(g2, compress.decompress_grads(cq), e2, ce):
+        assert torch.equal(a.cpu(), b) and torch.equal(c.cpu(), d)
+
+
+@pytest.mark.parametrize("dt", ["bfloat16", "float32"])
+def test_topk_hop_on_card_matches_cpu(dt):
+    """The EF hop at the training hop's shape: the dense forward bit for
+    bit (the codec kernels), and the top-k gradient and the slot's new
+    residual bit for bit on rows without a tie at the cut (torch.topk on
+    either device picks among equal magnitudes as it likes), the kept
+    magnitudes equal on every row; the backward launches no codec."""
+    dev = cuda_device()
+    g0 = torch.Generator().manual_seed(5)
+    x = (torch.randn((2, 512, 2560), generator=g0) * 3).to(TORCH_DT[dt])
+    g = torch.randn((2, 512, 2560), generator=g0).to(TORCH_DT[dt])
+    ef = torch.randn((2, 512, 2560), generator=g0) * 1e-2
+    out = {}
+    for where in ("cpu", dev):
+        xt = x.to(where).requires_grad_(True)
+        slot = ef.clone().to(where)
+        ops.reset_launches()
+        y = wire.coded_hop(xt, "int8+topk0.25", None, slot)
+        fwd = dict(ops.LAUNCHES)
+        (gx,) = torch.autograd.grad(y, xt, g.to(where))
+        out[str(where)] = (y.detach().cpu(), gx.cpu(), slot.cpu(), fwd,
+                           dict(ops.LAUNCHES))
+    (yc, gc, sc, _, _), (yg, gg, sg, fwd, both) = out["cpu"], out[str(dev)]
+    assert fwd == both == {"wire_encode": 1, "wire_decode": 1}
+    assert torch.equal(yc, yg)
+    corrected = (g.float() + ef).abs().sort(dim=-1, descending=True).values
+    kk = wire.topk_count(2560, 0.25)
+    free = corrected[..., kk - 1] != corrected[..., kk]
+    assert int(free.sum()) >= free.numel() // 2
+    assert torch.equal(gc[free], gg[free]) and torch.equal(sc[free], sg[free])
+    assert torch.equal(gc.abs().sort(dim=-1).values,
+                       gg.abs().sort(dim=-1).values)
+
+
+def test_small_interleaved_topk_compressed_step_on_card_matches_cpu(
+        monkeypatch):
+    """One S 2, v 2, k 2 ``int8+topk0.25`` step with ``compress=True`` of
+    the f32 smoke qwen at 4 layers on the card, and on the CPU with the
+    card's hop decisions replayed (``_HopDecisions``; how many it
+    overrode is printed): loss at 1e-4; ``error_fb`` at 1e-6 but for the
+    compressor's int8 rounding flips; parameters at 1e-4 once each
+    flip's step (SGD: lr x the residuals' difference, one quantum) is
+    taken out; the EF buffer live in the same slots, at 1e-4 of its
+    largest value but for the top-k rows' int8 rounding flips; exactly
+    the path's launches (16 flash forwards, 8 backwards, 6 hop encodes
+    and decodes and one more of each a parameter leaf)."""
+    import dataclasses
+
+    from repro_torch.parallel.pipeline import wire_ef_zeros
+    dev = cuda_device()
+    cfg = dataclasses.replace(get_arch("qwen1.5-4b").smoke, num_layers=4)
+    spec = PipelineSpec(2, 2, virtual_stages=2, wire_dtype="int8+topk0.25")
+    params = LM(cfg, "cpu").init(torch.Generator().manual_seed(0),
+                                 master=True)
+    gen = torch.Generator().manual_seed(2)
+    batch = {n: torch.randint(0, cfg.vocab, (4, 40), generator=gen)
+             for n in ("tokens", "labels")}
+    decisions = _HopDecisions(monkeypatch)
+    out = {}
+    for where in (dev, "cpu"):          # the CPU replays the card's hops
+        decisions.replay = where == "cpu"
+        opt = sgd(0.1, momentum=0.9)
+        p = tree_map(lambda t: t.clone().to(where), params)
+        state = {"params": p, "opt_state": opt.init(p), "step": 0,
+                 "wire_ef": wire_ef_zeros(cfg, spec, 4, 40, where),
+                 "error_fb": compress.init_error_fb(p)}
+        step = make_lm_train_step(LM(cfg, where), opt, pipeline=spec,
+                                  compress=True)
+        ops.reset_launches()
+        state, mets = step(state, {n: t.to(where) for n, t in batch.items()})
+        out[str(where)] = (float(mets["loss"]), state, dict(ops.LAUNCHES))
+    print(f"card decisions the CPU would have taken otherwise: "
+          f"{decisions.flips}")
+    (lc, sc, _), (lg, sg, launches) = out["cpu"], out[str(dev)]
+    n_leaves = len(tree_leaves(params))
+    assert launches == {"flash_attention": 16, "flash_attention_bwd": 8,
+                        "wire_encode": 6 + n_leaves,
+                        "wire_decode": 6 + n_leaves}
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    # an int8 rounding flip of a compressed gradient moves its parameter
+    # by lr x one quantum, lr times the two residuals' difference
+    for a, b, ea, eb in zip(tree_leaves(sg["params"]),
+                            tree_leaves(sc["params"]),
+                            tree_leaves(sg["error_fb"]),
+                            tree_leaves(sc["error_fb"])):
+        _residual_flips(ea.cpu(), eb, 1e-6)
+        moved = (a.detach().cpu() - b.detach()) - 0.1 * (ea.cpu() - eb)
+        assert float(moved.abs().max()) <= 1e-4
+    efc, efg = sc["wire_ef"], sg["wire_ef"].cpu()
+    assert torch.equal(efc.flatten(2).abs().amax(-1) > 0,
+                       efg.flatten(2).abs().amax(-1) > 0)
+    _residual_flips(efg, efc, 1e-4 * float(efc.abs().max()))
 
 
 # ------------------------------------- ResNet-18 split training (f32, no TF32)

@@ -378,5 +378,7 @@ def test_batch_wall_time_and_auto_k_match_reference():
         want = RefPipelineSpec.auto_k(comp, link, num_stages=3, k_cap=cap)
         assert (got.num_stages, got.microbatches, got.virtual_stages) \
             == (want.num_stages, want.microbatches, want.virtual_stages)
-    with pytest.raises(NotImplementedError):
-        PipelineSpec.auto_k(1.0, 2.0, virtual_stages=2)
+    got = PipelineSpec.auto_k(1.0, 2.0, virtual_stages=2)
+    want = RefPipelineSpec.auto_k(1.0, 2.0, virtual_stages=2)
+    assert (got.microbatches, got.virtual_stages) \
+        == (want.microbatches, want.virtual_stages)

@@ -207,10 +207,13 @@ def test_split_stages_match_reference():
                 np.testing.assert_array_equal(
                     np.stack([t["w"].numpy() for t in got[s][j]]),
                     want[s, j])
-    with pytest.raises(NotImplementedError):
-        pipeline.PipelineSpec(2, 4, virtual_stages=2)
-    with pytest.raises(NotImplementedError):
-        pipeline.PipelineSpec(2, 4, wire_dtype="int8+topk0.25")
+    for s_, v_, w in ((2, 2, "none"), (2, 1, "int8+topk0.25"),
+                      (2, 2, "fp8+topk0.5")):
+        got = pipeline.PipelineSpec(2, 4, virtual_stages=v_, wire_dtype=w)
+        want = ref_pipeline.PipelineSpec(2, 4, virtual_stages=v_,
+                                         wire_dtype=w)
+        assert (got.virtual_stages, got.wire_dtype) == \
+            (want.virtual_stages, want.wire_dtype)
 
 
 # ------------------------------------------------------------ coded hop
@@ -241,8 +244,8 @@ def test_coded_hop_matches_reference_coded_ppermute(wire_dtype):
         assert (err <= quantum + 1e-6).all(), float((err - quantum).max())
     nbytes = 2 * 6 * 64 + 2 * 6 * 4
     assert (meter.up, meter.down) == (nbytes, nbytes)
-    with pytest.raises(NotImplementedError):
-        wire.coded_hop(xt, "int8+topk0.5")
+    with pytest.raises(ValueError, match="error feedback"):
+        wire.coded_hop(xt, "int8+topk0.5")      # a top-k hop needs its slot
 
 
 def test_bridge_round_trip_of_rwkv_params_and_adamw_state(setup):
