@@ -59,7 +59,11 @@ Phases (any failure exits non-zero; nothing is caught):
      one interleaved (S 2, v 2, k 2) int8+topk0.25 step with gradient
      compression of the qwen model widened to 4 layers (loss, parameters,
      the EF buffer's live slots; top-k and int8 rounding flips on near-ties
-     counted and printed); the
+     counted and printed); the streaming runtime (run_streaming) of
+     the qwen model widened to 4 layers, cut 2, 3 UEs, 3 rounds, 'none'
+     and int8+topk0.25, the CPU replaying the card's codec decisions
+     (losses within 1e-5, parameters within 1e-5 but for one element in
+     10^4 and the key bias, held to AdamW's reach); the
      continuous-batching engine, its decode step captured as a CUDA
      graph, on the SMOKE qwen, recurrentgemma and granite-moe (16 slots,
      where the naive MoE capacity would drop tokens): greedy tokens equal
@@ -147,6 +151,22 @@ Phases (any failure exits non-zero; nothing is caught):
         3 EPSL's UE side differs by more; C2P2SL's step 1 at batch 32 equals the
         CPU's within 1e-3; each scheme's step ms and peak GB beside the
         card's name and power limit;
+     j. the streaming C2P2SL runtime (after i), through run_streaming:
+        qwen1.5-4b in bf16 (no f32 master), cut 20, 2 UE clients of 2 x
+        512, 3 rounds, AdamW 1e-3; (a) int8 on the unshaped loopback,
+        (b) int8+topk0.25 with the link shaped to 1e8 B/s both ways and a
+        LinkEstimator fed by the measured hops.  Every round's loss
+        finite and seen by each client, every parameter moved, every
+        hop's payload bytes equal to the bill (2,662,400 up; 2,662,400 /
+        1,970,176 down), exactly 600 / 240 flash launches on "mma" and
+        12 + 12 / 6 + 6 codec calls at [1024, 2560] bf16 a run, the QoS
+        snapshot's rounds, frames and stragglers, (b)'s top-k residuals
+        finite and nonzero after every round and its estimator fed both
+        directions by measured hops alone; round ms, peak GB and each
+        client's hop seconds.  Then the runtime's CLI at the reference's
+        example on the card, and split serving at cut 20 int8 through a
+        QoSMonitor and a LinkShaper (gen + 1 frames, the unshaped
+        tokens);
      e. serving granite-moe-3b-a800m (32 MoE layers, 40 experts top-8, 24
         heads on 8 kv heads of 64, tied embeddings; batch 4, prompt 512, 32
         greedy tokens) through the serving CLI's entry point: tokens in
@@ -185,6 +205,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import itertools
 import json
 import math
@@ -239,6 +260,36 @@ TK_EF_SHAPE = (2, 9, T_BATCH // T_K, T_SEQ, 2560)
 # to 20 layers, since the f32 error-feedback tree adds 4 B a parameter
 # (15.8 GB at 40 layers on a 74.60 GB step); the same spec, batch, steps
 TC_LAYERS = 20
+# the streaming C2P2SL path: the runtime (runtime/driver.py run_streaming)
+# training qwen1.5-4b FULL cut at 20, 2 UE clients of 2 sequences of 512,
+# 3 rounds, AdamW 1e-3, the model drawn from seed 0 in bf16 with no f32
+# master copy.  Run (a) int8 on the unshaped loopback, run (b) int8+topk0.25
+# with the link shaped to S_BW both ways and a LinkEstimator fed by the
+# measured hops.  A client-round runs 20 flash forwards below the cut with
+# no graph kept, the same 20 again under autograd and once more in their
+# backward (one checkpoint a block), and the BS side's 20 + 20, beside 20
+# backwards a side.  The hops code [2 x 512, 2560] bf16: an int8 ACT up
+# (2 encode / decode calls a client-round with the dense int8 GRAD, 1 with
+# the top-k one, which launches no codec kernel)
+S_CUT, S_CLIENTS, S_BPC, S_ROUNDS, S_LR, S_BW = 20, 2, 2, 3, 1e-3, 1e8
+S_CLIENT_ROUNDS = S_CLIENTS * S_ROUNDS
+S_FLASH = {"flash_attention": (S_CUT + 2 * S_CUT + 2 * (Q_LAYERS - S_CUT))
+           * S_CLIENT_ROUNDS,
+           "flash_attention_bwd": Q_LAYERS * S_CLIENT_ROUNDS}
+S_RUNS = {"int8": {**S_FLASH, "wire_encode": 2 * S_CLIENT_ROUNDS,
+                   "wire_decode": 2 * S_CLIENT_ROUNDS},
+          TK_WIRE: {**S_FLASH, "wire_encode": S_CLIENT_ROUNDS,
+                    "wire_decode": S_CLIENT_ROUNDS}}
+# the bills a client-hop: n = 2 x 512 x 2560 elements, int8 1 + 4/256 B an
+# element either way; top-k 640 of 2560 a row: 640 payload bytes, 640
+# int16 indices and one f32 scale
+S_ROWS = S_BPC * T_SEQ
+S_BILL_INT8 = S_ROWS * 2560 + S_ROWS * 10 * 4
+S_BILL_TOPK = S_ROWS * (640 + 2 * 640 + 4)
+# the runtime's CLI at the reference docstring's example (its own small
+# model, f32)
+S_CLI = ["--clients", "4", "--steps", "20", "--wire-dtype", TK_WIRE,
+         "--bw-Bps", "2e6"]
 
 
 # the MoE serving path: granite-moe-3b-a800m, the same batch and lengths;
@@ -1232,6 +1283,158 @@ def check_small_topk_step(torch, ops, dev):
           f"elements (int8 roundings), {topk_flips} top-k picks; error_fb: "
           f"{flips} int8 rounding flips, the rest within {fb_err:.2e}; "
           f"launches {launches}")
+
+
+@contextlib.contextmanager
+def stream_decisions(torch, replay):
+    """While the block runs, record (``replay`` None) or replay (``replay``
+    the dict a recording run filled) the streaming runtime's codec
+    decisions, keyed by (direction, client, round): each ACT frame's
+    dense payload and each GRAD frame's top-k picks and payload.  A
+    replaying run keeps its own arithmetic (scales, the EF residual from
+    the replayed picks) and counts the decisions it would have taken
+    otherwise.  Yields (record, flips)."""
+    from repro_torch.parallel import wire
+    from repro_torch.runtime.bs import BSDispatcher
+    from repro_torch.runtime.ue import UEClient
+    from repro_torch.training.compress import quantize_blocks
+    record = {} if replay is None else replay
+    flips = {"payload elements": 0, "top-k picks": 0}
+    key = [None]
+    act_frame, grad_frame = UEClient._act_frame, BSDispatcher._grad_frame
+    dense, topk = wire.encode, wire.topk_encode
+
+    def act(self, acts, labels, step, dl):
+        key[0] = ("up", self.client_id, step)
+        return act_frame(self, acts, labels, step, dl)
+
+    def grad(self, cid, step, g, loss):
+        key[0] = ("down", cid, step)
+        return grad_frame(self, cid, step, g, loss)
+
+    def enc(x, w):
+        q, sc = dense(x, w)
+        if replay is None:
+            record[key[0]] = q.cpu()
+            return q, sc
+        want = record.pop(key[0])
+        flips["payload elements"] += int(
+            (want.float() != q.cpu().float()).sum())
+        return want.to(q.device), sc
+
+    def enc_topk(x, w):
+        q, idx, sc = topk(x, w)
+        if replay is None:
+            record[key[0]] = (q.cpu(), idx.cpu())
+            return q, idx, sc
+        want_q, want_idx = record.pop(key[0])
+        flips["top-k picks"] += int((want_idx.sort(-1).values
+                                     != idx.cpu().sort(-1).values).sum())
+        idx = want_idx.to(x.device)
+        q, sc = quantize_blocks(
+            torch.gather(x.to(torch.float32), -1, idx.long()),
+            wire.parse_wire_dtype(w)[0])
+        flips["payload elements"] += int(
+            (want_q.float() != q.cpu().float()).sum())
+        return want_q.to(x.device), idx, sc
+
+    UEClient._act_frame, BSDispatcher._grad_frame = act, grad
+    wire.encode, wire.topk_encode = enc, enc_topk
+    try:
+        yield record, flips
+    finally:
+        UEClient._act_frame, BSDispatcher._grad_frame = act_frame, grad_frame
+        wire.encode, wire.topk_encode = dense, topk
+
+
+def flat_leaves(tree, prefix="") -> dict:
+    """A parameter tree's leaves by dotted path."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_leaves(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree.detach()}
+
+
+def check_small_streaming(torch, ops, dev):
+    """The streaming runtime on the card against the same run on the CPU:
+    the f32 SMOKE qwen widened to 4 layers, cut 2, 3 clients of 2
+    sequences of 32, 3 rounds, AdamW 1e-3, for 'none' and ``TK_WIRE``,
+    from one set of weights.  The CPU run replays the card's codec
+    decisions (``stream_decisions``), whose near-ties each device's f32
+    roundings may land either side of; the flips are counted and printed.
+    Losses and each client's losses within 1e-5; parameters within 1e-5
+    but for one element in 10^4, those and the attention's key bias held
+    to AdamW's reach (2 lr a round): AdamW divides each element's step
+    by its own running size, so where that size is at the rounding
+    noise's scale (the key bias: the softmax cancels any shift common to
+    a row's keys, and only RoPE's rotation of it reaches the loss) or the
+    first moment nearly cancels, each device's f32 roundings become
+    steps of their own (ROADMAP Queue 3, fault 13).  The card run
+    launches exactly its flash and codec kernels."""
+    import asyncio
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.driver import run_streaming
+    from repro_torch.utils.trees import tree_map
+    cfg = dataclasses.replace(get_arch(ARCH).smoke, num_layers=4)
+    params = LM(cfg, "cpu").init(torch.Generator().manual_seed(SEED))
+    n, rounds, lr = 3, 3, 1e-3
+    for wire in ("none", TK_WIRE):
+        out, record = {}, None
+        for where in (dev, "cpu"):       # the CPU replays the card's hops
+            ops.reset_launches()
+            with stream_decisions(torch, record) as (record, flips):
+                res = asyncio.run(run_streaming(
+                    cfg, cut=2, n_clients=n, steps=rounds,
+                    batch_per_client=2, seq=32, wire_dtype=wire, lr=lr,
+                    params=tree_map(lambda t: t.clone().to(where), params),
+                    device=where))
+            out[str(where)] = (res, dict(ops.LAUNCHES))
+        (rg, launches), (rc, _) = out[str(dev)], out["cpu"]
+        coded = wire != "none"
+        want = {"flash_attention": (2 + 4 + 4) * n * rounds,
+                "flash_attention_bwd": 4 * n * rounds}
+        if coded:
+            want.update(wire_encode=n * rounds, wire_decode=n * rounds)
+        if launches != want:
+            fail(f"small streaming {wire}: launches {launches} != {want}")
+        name = f"small f32 {ARCH} (4 layers) streaming, 3 UEs, {wire}"
+        lerr = max(abs(a - b) for a, b in zip(rg["losses"], rc["losses"]))
+        lerr = max([lerr] + [abs(a - b) for c in rc["client_losses"]
+                             for a, b in zip(rg["client_losses"][c],
+                                             rc["client_losses"][c])])
+        bound = 2 * rounds * lr          # AdamW moves an element <= ~lr
+        got = [{h: flat_leaves(r["params"][h]) for h in ("ue", "bs")}
+               for r in (rg, rc)]
+        n_el, outliers, worst, kb_err, per_leaf = 0, 0, (0.0, ""), 0.0, {}
+        for half in ("ue", "bs"):
+            for path, a in got[0][half].items():
+                d = (a.cpu() - got[1][half][path]).abs()
+                n_el += d.numel()
+                if path == "blocks.attn.kb":
+                    kb_err = max(kb_err, float(d.max()))
+                    continue
+                off = int((d > 1e-5).sum())
+                outliers += off
+                worst = max(worst, (float(d.max()), f"{half}.{path}"))
+                if off:
+                    per_leaf[f"{half}.{path}"] = (off, d.numel(),
+                                                  float(d.max()))
+        ok = (lerr <= 1e-5 and outliers <= n_el // 10 ** 4
+              and worst[0] <= bound and kb_err <= bound)
+        print(f"{name}, card vs CPU: losses within {lerr:.2e} (tol 1e-5); "
+              f"parameters: {outliers} of {n_el} elements past 1e-5 (at "
+              f"most {n_el // 10 ** 4}: one in 10^4), by leaf {per_leaf}, "
+              f"the largest {worst[0]:.2e} ({worst[1]}), the key biases "
+              f"{kb_err:.2e} (both within {bound:g}, AdamW's reach); "
+              f"decisions the CPU would have taken otherwise: {flips}; "
+              f"launches {launches}")
+        if not ok:
+            fail(f"{name}: card and CPU apart past the bounds above")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -2255,6 +2458,243 @@ def run_wireless(torch, ops, dev, card):
     return rows
 
 
+def run_streaming_path(torch, ops, serve, dev, wc, card, split_int8):
+    """The streaming C2P2SL runtime training qwen1.5-4b at full width and
+    depth, once the qwen training phases' state is freed: run (a) int8 on
+    the unshaped loopback, run (b) ``TK_WIRE`` with the link shaped to
+    ``S_BW`` both ways and a LinkEstimator as the re-planner (module
+    constants above).  Each run: every round's loss finite and seen by
+    every client, every parameter tensor moved from the seed's draw,
+    every hop's measured payload bytes equal to its bill (``S_BILL_*``),
+    exactly ``S_RUNS[wire]`` launches on route "mma" (flash) and
+    "warp256" (decode), every codec call at [1024, 2560] bf16, the QoS
+    snapshot's 3 rounds, 6 frames in and straggler rounds summing to 3.
+    Run (b): each client's top-k residual finite and nonzero after every
+    round, the estimator holding samples of both directions and never fed
+    ``observe_bandwidth``.  Then the runtime's CLI at the reference's
+    example (``S_CLI``) on the card, and split serving at cut 20 int8
+    through a QoSMonitor and a LinkShaper at ``S_BW``: gen + 1 frames
+    counted, the unshaped run's tokens (``split_int8``).  Returns
+    (launches and codec calls of the two full runs, and the split run's
+    launches and codec calls)."""
+    import asyncio
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime import bs as bs_mod
+    from repro_torch.runtime import driver
+    from repro_torch.runtime.qos import QoSMonitor
+    from repro_torch.serving.infer import SplitDecode
+    from repro_torch.training.replan import LinkEstimator
+    from repro_torch.utils.trees import tree_leaves
+    from repro_torch.wireless.channel import LinkShaper
+    cfg = get_arch(ARCH).full
+    launches_all, calls_all = collections.Counter(), collections.Counter()
+    for wire, want in S_RUNS.items():
+        shaped = wire == TK_WIRE
+        name = f"streaming {ARCH} cut {S_CUT}, {S_CLIENTS} UEs, {wire}" + (
+            f", shaped {S_BW:g} B/s" if shaped else ", unshaped")
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        for routes in (fa.ROUTES, fa.BWD_ROUTES, wc.ROUTES):
+            routes.clear()
+        qos, stamps, efs, scripted = QoSMonitor(), [], [], []
+        record_round = qos.record_round
+
+        def stamp_round(straggler, record_round=record_round):
+            stamps.append(time.perf_counter())
+            record_round(straggler)
+        qos.record_round = stamp_round
+        est = LinkEstimator() if shaped else None
+        if est is not None:
+            observe_bw = est.observe_bandwidth
+            est.observe_bandwidth = (
+                lambda *a, f=observe_bw, **k: scripted.append(a) or f(*a, **k))
+        grad_frame = bs_mod.BSDispatcher._grad_frame
+
+        def watched(self, cid, step, g, loss):
+            out = grad_frame(self, cid, step, g, loss)
+            ef = self.ef.get(cid)
+            if ef is not None:
+                efs.append((step, cid, bool(torch.isfinite(ef).all()),
+                            float(torch.linalg.vector_norm(ef))))
+            return out
+        bs_mod.BSDispatcher._grad_frame = watched
+        t_start = []
+        try:
+            with codec_calls(wc) as calls:
+                res = asyncio.run(driver.run_streaming(
+                    cfg, cut=S_CUT, n_clients=S_CLIENTS, steps=S_ROUNDS,
+                    batch_per_client=S_BPC, seq=T_SEQ, seed=SEED,
+                    wire_dtype=wire, lr=S_LR,
+                    shaper=LinkShaper(S_BW) if shaped else None,
+                    replanner=est, qos=qos, device=dev,
+                    on_started=lambda d, c: t_start.append(
+                        time.perf_counter())))
+        finally:
+            bs_mod.BSDispatcher._grad_frame = grad_frame
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches = dict(ops.LAUNCHES)
+        round_ms = [(b - a) * 1e3 for a, b in zip(t_start + stamps, stamps)]
+        if launches != want:
+            fail(f"{name}: launches {launches} != {want}")
+        if dict(fa.ROUTES) != {"mma": want["flash_attention"]} or dict(
+                fa.BWD_ROUTES) != {"mma": want["flash_attention_bwd"]}:
+            fail(f"{name}: flash routes {dict(fa.ROUTES)}, backward "
+                 f"{dict(fa.BWD_ROUTES)}: not all on mma")
+        check_codec_calls(wc, name, launches, calls, dict(wc.ROUTES))
+        shape_calls = {(k, S_ROWS, cfg.d_model, cfg.dtype, "int8"):
+                       want[k] for k in ("wire_encode", "wire_decode")}
+        if dict(calls) != shape_calls:
+            fail(f"{name}: codec calls {dict(calls)} != {shape_calls}")
+        losses = res["losses"]
+        if len(losses) != S_ROUNDS or not all(map(math.isfinite, losses)):
+            fail(f"{name}: round losses {losses}")
+        for cid, cl in res["client_losses"].items():
+            if len(cl) != S_ROUNDS or not all(map(math.isfinite, cl)):
+                fail(f"{name}: client {cid} saw losses {cl}")
+        bills = {"uplink": S_BILL_INT8,
+                 "downlink": S_BILL_TOPK if shaped else S_BILL_INT8}
+        for direction, rows in res["wire_honesty"].items():
+            got = [(r["measured_bytes"], r["billed_bytes"], r["ok"])
+                   for r in rows]
+            if got != [(bills[direction], bills[direction], True)]:
+                fail(f"{name}: {direction} hops {got}, expected every one "
+                     f"{bills[direction]} B measured == billed")
+        q = res["qos"]
+        stragglers = sum(c["straggler_rounds"] for c in q["clients"].values())
+        if (q["rounds"], q["totals"]["frames_in"], stragglers) != (
+                S_ROUNDS, S_CLIENT_ROUNDS, S_ROUNDS):
+            fail(f"{name}: QoS rounds {q['rounds']}, frames in "
+                 f"{q['totals']['frames_in']}, straggler rounds {stragglers}")
+        if shaped:
+            if len(efs) != S_CLIENT_ROUNDS or not all(
+                    f and norm > 0 for _s, _c, f, norm in efs):
+                fail(f"{name}: top-k residuals after each round {efs}")
+            sizes = [b for b, _s in est.samples]
+            if scripted or not (min(sizes) < S_BILL_INT8 <= max(sizes)):
+                fail(f"{name}: estimator samples of {sorted(set(sizes))} B "
+                     f"(both directions expected), observe_bandwidth "
+                     f"called {len(scripted)} times")
+        hop_s = {d: {c: [round(x, 4) for x in v] for c, v in per.items()}
+                 for d, per in res["hop_seconds"].items()}
+        ue, bs = res["params"]["ue"], res["params"]["bs"]
+        del res
+        gc.collect()
+        fresh = LM(cfg, dev).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+        f_ue, f_bs = SplitDecode(LM(cfg, dev), S_CUT).split_params(fresh)
+        pairs = list(zip(tree_leaves(ue) + tree_leaves(bs),
+                         tree_leaves(f_ue) + tree_leaves(f_bs)))
+        same = sum(bool(torch.equal(a, b)) for a, b in pairs)
+        if same:
+            fail(f"{name}: {same} of {len(pairs)} parameter tensors did not "
+                 f"change")
+        del fresh, f_ue, f_bs, pairs, ue, bs
+        print(f"{name}: losses {[round(x, 5) for x in losses]}, every "
+              f"client saw each round's loss, all parameter tensors moved; "
+              f"hop bytes a client-hop up {bills['uplink']} down "
+              f"{bills['downlink']} == billed; launches "
+              f"{json.dumps(launches, sort_keys=True)}, flash routes mma, "
+              f"decode routes {dict(wc.ROUTES)}; QoS {S_ROUNDS} rounds, "
+              f"{S_CLIENT_ROUNDS} frames in, stragglers by client "
+              f"{ {c: v['straggler_rounds'] for c, v in q['clients'].items()} }"
+              f"; round ms {[round(x, 1) for x in round_ms]}; peak "
+              f"{peak:.2f} GB ({held:.3f} GB held before the run) on {card}")
+        print(f"{name}: hop seconds by client {json.dumps(hop_s)}")
+        if shaped:
+            print(f"{name}: top-k residual norms after each round "
+                  f"{[(s, c, round(n, 6)) for s, c, _f, n in efs]}; "
+                  f"LinkEstimator from {len(est.samples)} measured hops "
+                  f"(sizes {sorted(set(int(b) for b in sizes))} B): bw "
+                  f"{est.bw_Bps:.6g} B/s, overhead {est.overhead_s} s, "
+                  f"beside the shaper's {S_BW:g} B/s; observe_bandwidth "
+                  f"never called")
+        launches_all.update(launches)
+        calls_all.update(calls)
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    cli = driver.main(S_CLI)
+    torch.cuda.synchronize()
+    if not all(map(math.isfinite, cli["losses"])) or not all(
+            r["ok"] for rows in cli["wire_honesty"].values() for r in rows):
+        fail(f"streaming CLI {S_CLI}: losses {cli['losses']}, honesty "
+             f"{cli['wire_honesty']}")
+    print(f"streaming CLI {' '.join(S_CLI)} on {dev}: "
+          f"{(time.perf_counter() - t0):.2f} s, launches "
+          f"{json.dumps(dict(ops.LAUNCHES), sort_keys=True)}, link hints "
+          f"{cli['link_hints']}")
+    del cli
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    wc.ROUTES.clear()
+    with codec_calls(wc) as s_calls:
+        split = serve.main(["--arch", ARCH, "--size", "full", "--batch",
+                            str(BATCH), "--prompt-len", str(PROMPT),
+                            "--gen", str(GEN), "--seed", str(SEED),
+                            "--split-cut", str(CUT), "--wire-dtype", "int8",
+                            "--bw-Bps", f"{S_BW:g}"])
+    torch.cuda.synchronize()
+    s_launches = dict(ops.LAUNCHES)
+    check_codec_calls(wc, "shaped split serving", s_launches, s_calls,
+                      dict(wc.ROUTES))
+    frames = split["qos"]["clients"]["0"]["frames_in"]
+    if frames != GEN + 1 or split["frames"] != GEN + 1 \
+            or not split["rel"] <= 0.01:
+        fail(f"shaped split serving: {frames} frames counted, "
+             f"{split['frames']} audited, measured "
+             f"{split['measured_payload_bytes']} B vs billed "
+             f"{split['billed_payload_bytes']} B")
+    if not torch.equal(split["tokens"], split_int8):
+        fail("shaped split serving: tokens differ from the unshaped run's")
+    print(f"split serving {ARCH} cut {CUT} int8 through a QoSMonitor and a "
+          f"LinkShaper at {S_BW:g} B/s: {frames} frames counted (gen + 1), "
+          f"the unshaped run's tokens, prefill {split['prefill_ms']:.2f} ms, "
+          f"decode {split['decode_tok_s']:.1f} tok/s; QoS totals "
+          f"{json.dumps(split['qos']['totals'], sort_keys=True)}")
+    return launches_all, calls_all, s_launches, s_calls
+
+
+def live_cuda_tensors(torch, label, top=8):
+    """Print the CUDA tensors Python still reaches (gc), largest first,
+    beside ``memory_allocated`` and the allocator's live blocks by stream:
+    who holds memory between phases."""
+    seen, rows = set(), []
+    for obj in gc.get_objects():
+        try:
+            t = obj if isinstance(obj, torch.Tensor) else None
+        except ReferenceError:
+            continue
+        if t is None or not t.is_cuda:
+            continue
+        key = (t.untyped_storage().data_ptr(), t.untyped_storage().nbytes())
+        if key in seen:
+            continue
+        seen.add(key)
+        rows.append((key[1], tuple(t.shape), str(t.dtype).split(".")[-1]))
+    rows.sort(reverse=True)
+    largest = [(f"{b / 1e6:.1f} MB", sh, dt) for b, sh, dt in rows[:top]]
+    by_stream = collections.Counter()
+    for seg in torch.cuda.memory_snapshot():
+        for blk in seg["blocks"]:
+            if blk["state"] == "active_allocated":
+                by_stream[seg["stream"]] += blk["size"]
+    print(f"{label}: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
+          f"{sum(r[0] for r in rows) / 1e9:.3f} GB in {len(rows)} storages "
+          f"Python reaches; largest {largest}; live blocks on "
+          f"{len(by_stream)} streams, MB by stream "
+          f"{sorted(round(b / 1e6, 1) for b in by_stream.values())}")
+
+
 def profile_training_step(torch, res, watch):
     """Where a training step's time goes: one more step of the int8 run
     traced with torch.profiler; ``watch`` maps a label to a substring of
@@ -2941,9 +3381,13 @@ def main():
     marks = [t_all]
 
     def phase(name):
-        """Seconds since the previous phase ended (host clock)."""
+        """Seconds since the previous phase ended (host clock), and the
+        device memory still allocated at its end."""
         marks.append(time.perf_counter())
-        print(f"phase {name}: {marks[-1] - marks[-2]:.1f} s")
+        gc.collect()
+        torch.cuda.synchronize()
+        print(f"phase {name}: {marks[-1] - marks[-2]:.1f} s; "
+              f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2984,6 +3428,7 @@ def main():
     check_small_moe_split(torch, ops, serve)
     check_small_training(torch, ops, dev)
     check_small_engines(torch, dev)
+    check_small_streaming(torch, ops, dev)
     phase("build and kernel checks")
 
     static, split, launches, serve_calls = run_main_path(torch, ops, serve,
@@ -3046,6 +3491,7 @@ def main():
 
     run_wireless(torch, ops, dev, card)
     phase("wireless C2P2SL")
+    live_cuda_tensors(torch, "before the qwen training phases")
 
     q_rows, q_launches, q_calls = run_qwen_training(torch, ops, train,
                                                     protocol, dev, wc, card)
@@ -3069,12 +3515,19 @@ def main():
         torch, ops, protocol, dev, wc, card)
     phase(f"{ARCH} interleaved top-k and compressed training")
 
+    st_launches, st_calls, ss_launches, ss_calls = run_streaming_path(
+        torch, ops, serve, dev, wc, card, split["int8"]["tokens"])
+    launches = dict(collections.Counter(launches) + collections.Counter(
+        ss_launches))
+    serve_calls = serve_calls + ss_calls
+    phase("streaming C2P2SL")
+
     kernels = time_kernels(torch, wc, fa, rw, rg, dev, launches, rg_launches,
                            (train_launches, q_launches, tk_launches,
-                            tc_launches),
+                            tc_launches, st_launches),
                            (serve_calls,
-                            train_calls + q_calls + tk_calls + tc_calls,
-                            tc_grads),
+                            train_calls + q_calls + tk_calls + tc_calls
+                            + st_calls, tc_grads),
                            flash_err, wkv_err, rglru_err, ptxas)
     kernels += time_moe(torch, mg, fa, dev, gr_prefill, gr_launches, gmm_err,
                         flash_err[GR_HEADS[2]])

@@ -12,7 +12,10 @@ reference and OIHW in the port (``models/resnet.py``), so
 ``train_state_to_jax`` carry a whole LM training state: the parameters,
 the optimizer state, the step and, where the run keeps them, the top-k
 hop's error-feedback buffer ``wire_ef`` and the gradient compressor's
-``error_fb`` tree.  The JAX side is handed over as a tree of
+``error_fb`` tree.  ``streaming_state_from_jax`` /
+``streaming_state_to_jax`` carry the streaming runtime's state: the
+``{"ue", "bs"}`` parameter halves and the BS's per-client f32 top-k
+error-feedback residuals.  The JAX side is handed over as a tree of
 numpy arrays (``jax.tree.map(np.asarray, params)``): the port imports
 nothing of JAX.
 """
@@ -84,4 +87,24 @@ def train_state_to_jax(state) -> dict:
     inverse of ``train_state_from_jax``."""
     out = {k: params_to_jax(state[k]) for k in _STATE_TREES if k in state}
     out["step"] = np.asarray(state["step"], np.int32)
+    return out
+
+
+def streaming_state_from_jax(state, device="cpu") -> dict:
+    """The reference streaming runtime's ``{"params": {"ue", "bs"},
+    "ef": {client: residual}}`` (numpy leaves; ``ef`` optional) -> the
+    port's."""
+    out = {"params": params_from_jax(state["params"], device)}
+    if "ef" in state:
+        out["ef"] = {int(c): _to_torch(e, device)
+                     for c, e in state["ef"].items() if e is not None}
+    return out
+
+
+def streaming_state_to_jax(state) -> dict:
+    """The port's streaming state -> numpy trees, the inverse of
+    ``streaming_state_from_jax``."""
+    out = {"params": params_to_jax(state["params"])}
+    if "ef" in state:
+        out["ef"] = {int(c): _to_numpy(e) for c, e in state["ef"].items()}
     return out

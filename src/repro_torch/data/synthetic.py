@@ -1,17 +1,19 @@
 """Deterministic synthetic data (the port's numpy copy).
 
-Port of ``token_batches`` and ``image_batches`` of the JAX package's
-``data/synthetic.py``: the affine-chain language next = (a*tok + c) mod V
-with noise epsilon, and 10-class blob images (a class-dependent spatial
-pattern plus noise), the stand-in for CIFAR-10 in the paper's
-experiments.  Pure numpy, so the same seed gives the same batches as the
-reference.
+Port of ``token_batches``, ``image_batches`` and ``lm_batch_for`` of the
+JAX package's ``data/synthetic.py``: the affine-chain language next =
+(a*tok + c) mod V with noise epsilon, 10-class blob images (a
+class-dependent spatial pattern plus noise), the stand-in for CIFAR-10
+in the paper's experiments, and one uniform token batch for an LM
+config.  Pure numpy, so the same seed gives the same batches as the
+reference; ``lm_batch_for`` hands them over as tensors.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,3 +65,21 @@ def image_batches(batch: int, *, num_classes: int = 10, size: int = 32,
                 np.exp(-4.0 * r2)
         imgs += noise * rng.standard_normal(imgs.shape).astype(np.float32)
         yield {"images": imgs, "labels": labels}
+
+
+def lm_batch_for(cfg, batch: int, seq: int, seed: int = 0, device="cpu"):
+    """One batch matching an LMConfig's input structure: the reference's
+    numpy stream (int32 tokens and labels, then f32 patch embeddings or
+    audio frames for those families), as tensors on ``device``."""
+    rng = np.random.default_rng(seed)
+    out = {
+        "tokens": rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32),
+        "labels": rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32),
+    }
+    if cfg.family == "vlm":
+        out["patch_embeds"] = rng.standard_normal(
+            (batch, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        out["frames"] = rng.standard_normal(
+            (batch, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}

@@ -16,7 +16,9 @@ Port of the JAX package's ``launch/serve.py``.  Runs on the card unless
 * ``--split-cut L``: the UE half (embed + blocks[:L]) ships coded cut
   activations as INFER frames over a real loopback socket
   (``--wire-dtype`` none/int8/fp8) to the BS half, which replies with the
-  greedy token; prints the measured-vs-billed wire audit.  Homogeneous
+  greedy token; prints the measured-vs-billed wire audit and the BS's
+  QoS counts.  ``--bw-Bps`` shapes both directions with a
+  ``wireless.LinkShaper``.  Homogeneous
   stacks with an untied head only: a hybrid (recurrentgemma-2b) or tied
   embeddings (granite-moe-3b-a800m) raise ``ValueError``, as the
   reference's ``SplitDecode`` does.
@@ -50,10 +52,12 @@ from repro_torch.configs import get_arch
 from repro_torch.kernels import ops
 from repro_torch.models.lm import LM
 from repro_torch.parallel.wire import validate_wire_dtype
+from repro_torch.runtime.qos import QoSMonitor
 from repro_torch.serving.engine import (ServingEngine, convoy_units,
                                         make_sample_step)
 from repro_torch.serving.infer import SplitDecode, run_split_infer
 from repro_torch.serving.scheduler import POLICIES, Request
+from repro_torch.wireless.channel import LinkShaper
 
 
 def _sync(device: torch.device):
@@ -224,14 +228,17 @@ def _continuous_serve(model, params, args, cache_len) -> dict:
 
 
 def _split_serve(model, params, prompts, args, cache_len) -> dict:
-    """Split inference over the loopback socket; prints the wire audit."""
-
+    """Split inference over the loopback socket (shaped when
+    ``--bw-Bps`` > 0); prints the wire audit and the QoS counts."""
+    shaper = LinkShaper(args.bw_Bps) if args.bw_Bps > 0 else None
+    qos = QoSMonitor()
     _sync(model.device)
     t0 = time.perf_counter()
     res = run_split_infer(model, params, cut=args.split_cut, prompts=prompts,
                           gen=args.gen, cache_len=cache_len,
-                          wire_dtype=args.wire_dtype)
+                          wire_dtype=args.wire_dtype, shaper=shaper, qos=qos)
     wall = time.perf_counter() - t0
+    res["qos"] = qos.snapshot()
     rel = abs(res["measured_payload_bytes"] - res["billed_payload_bytes"]) \
         / max(res["billed_payload_bytes"], 1e-9)
     print(f"split-infer: cut={args.split_cut} wire={args.wire_dtype} "
@@ -242,6 +249,8 @@ def _split_serve(model, params, prompts, args, cache_len) -> dict:
     print(f"prefill (UE half + uplink + BS half + token reply): "
           f"{res['prefill_ms']:.2f} ms; decode {res['decode_tok_s']:.1f} "
           f"tok/s; wall {wall * 1e3:.2f} ms")
+    print(f"qos: {json.dumps(res['qos']['totals'], sort_keys=True)}"
+          + (f"; link shaped by {shaper}" if shaper else ""))
     print("sample:", res["tokens"][0, :16].tolist())
     return dict(res, mode="split", rel=rel, wall_ms=wall * 1e3)
 
@@ -282,6 +291,9 @@ def parse_args(argv=None):
                          "ships coded INFER frames over loopback")
     ap.add_argument("--wire-dtype", default="none",
                     help="codec of the INFER uplink: none | int8 | fp8")
+    ap.add_argument("--bw-Bps", type=float, default=0.0,
+                    help="split mode: emulated link rate both ways; 0 = "
+                         "unshaped loopback")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the kernels' plain versions)")

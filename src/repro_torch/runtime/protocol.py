@@ -17,7 +17,17 @@ reference needs ``ml_dtypes`` for ``bfloat16`` and ``float8_e4m3fn``;
 the port needs nothing beyond torch).
 
 Sections named in ``PAYLOAD_SECTIONS`` are codec payload (what the
-planner bills as hop bytes); everything else is aux traffic.
+planner bills as hop bytes); everything else (``labels``, the token
+reply) is aux traffic.
+
+The payload codecs code on the tensor's device (the codec kernels on the
+card, their plain versions on the CPU), where the reference codes on the
+host with numpy: the same bytes, since the port's plain quantizer equals
+the reference's host codec bit for bit.  The activation hop ships the
+dense base codec; the gradient hop of a ``+topk<frac>`` codec ships the
+top-k of the gradient plus the sender's per-client f32 error-feedback
+residual (``encode_grad_payload``); 'none' and the degenerate-block
+net-loss fallback ship raw.
 """
 from __future__ import annotations
 
@@ -33,9 +43,10 @@ from repro_torch.parallel import wire
 MAGIC = b"C2P2"
 VERSION = 1
 
-# frame types, numbered as the reference numbers them (2-4, the training
-# runtime's ACT/GRAD/STATS, come with the training slice)
 HELLO = 1     # client -> server: join (meta: wire_dtype, shapes)
+ACT = 2       # client -> server: coded cut activations + labels
+GRAD = 3      # server -> client: coded cut-activation gradient
+STATS = 4     # either direction: QoS/telemetry snapshot
 BYE = 5       # client -> server: clean shutdown
 INFER = 6     # serving: UE->BS coded cut activation (phase=prefill/decode),
               # BS->UE sampled token reply (phase=tok, aux section, un-billed)
@@ -171,14 +182,14 @@ async def read_frame(reader) -> Frame:
 
 
 # ---------------------------------------------------------------------------
-# Activation payload codec (forward hop).
+# Activation / gradient payload codecs.
 # ---------------------------------------------------------------------------
 
 
 def encode_act_payload(x: torch.Tensor, wire_dtype: str):
-    """Cut activation [..., d] -> (arrays, meta fields) for an INFER
-    frame, coded on x's device.  Dense base codec; 'none' and the
-    net-loss condition ship raw."""
+    """Cut activation [..., d] -> (arrays, meta fields) for an ACT or
+    INFER frame, coded on x's device.  Dense base codec (the forward hop
+    never sparsifies); 'none' and the net-loss condition ship raw."""
     base, _frac = wire.parse_wire_dtype(wire_dtype)
     meta = {"codec": str(wire_dtype), "shape": list(x.shape),
             "dtype": dtype_name(x.dtype)}
@@ -191,12 +202,51 @@ def encode_act_payload(x: torch.Tensor, wire_dtype: str):
 
 
 def decode_act_payload(frame: Frame, device) -> torch.Tensor:
-    """The activation of an INFER frame, decoded on ``device``."""
+    """The activation of an ACT or INFER frame, decoded on ``device``."""
     out_dtype = _dtype(frame.meta["dtype"])
     if frame.meta["kind"] == "raw":
         return frame.arrays["raw"].to(device).to(out_dtype)
     return wire.decode(frame.arrays["q"].to(device),
                        frame.arrays["scale"].to(device), out_dtype)
+
+
+def encode_grad_payload(g: torch.Tensor, wire_dtype: str, ef=None):
+    """Cut-activation gradient [..., d] -> (arrays, meta, new_ef), coded
+    on g's device.
+
+    A ``+topk<frac>`` codec sparsifies this reverse hop with per-client
+    error feedback: ``corrected = g + ef`` (f32; the sender keeps one
+    residual per client) ships its top-k, and the new residual is
+    ``corrected - decoded``, the mass not shipped.  At a degenerate block
+    (``wire.codec_net_loss``) it ships raw and the residual passes through
+    unchanged.  Dense codecs are direction-symmetric and carry no EF."""
+    _base, frac = wire.parse_wire_dtype(wire_dtype)
+    d = g.shape[-1]
+    meta = {"codec": str(wire_dtype), "shape": list(g.shape),
+            "dtype": dtype_name(g.dtype)}
+    if frac is None:
+        arrays, m = encode_act_payload(g, wire_dtype)
+        return arrays, dict(meta, kind=m["kind"]), ef
+    if wire.codec_net_loss(d, g.element_size()):
+        return {"raw": g}, dict(meta, kind="raw"), ef
+    corrected = g.to(torch.float32)
+    if ef is not None:
+        corrected = corrected + ef
+    q, idx, scale = wire.topk_encode(corrected, wire_dtype)
+    dec = wire.topk_decode(q, idx, scale, d, torch.float32)
+    return ({"q": q, "idx": idx, "scale": scale}, dict(meta, kind="topk"),
+            corrected - dec)
+
+
+def decode_grad_payload(frame: Frame, device) -> torch.Tensor:
+    """The gradient of a GRAD frame, decoded on ``device``."""
+    kind = frame.meta["kind"]
+    if kind != "topk":
+        return decode_act_payload(frame, device)
+    out_dtype = _dtype(frame.meta["dtype"])
+    a = {k: frame.arrays[k].to(device) for k in ("q", "idx", "scale")}
+    return wire.topk_decode(a["q"], a["idx"], a["scale"],
+                            frame.meta["shape"][-1], out_dtype)
 
 
 def billed_hop_bytes(n_elements: int, d_model: int, wire_dtype: str,

@@ -1,8 +1,9 @@
 """QoS monitor for the streaming runtime (stdlib only).
 
 Copy of the JAX package's ``runtime/qos.py``: the port imports nothing
-of it.  The streaming runtime that feeds ``QoSMonitor`` is not ported
-yet (ROADMAP.md); ``ServingQoS`` is the continuous-batching engine's.
+of it.  ``QoSMonitor`` is fed by the streaming runtime's dispatcher
+(``runtime/bs.py``) and the split-serving server (``serving/infer.py``);
+``ServingQoS`` is the continuous-batching engine's.
 
 Per-UE counters the in-process simulator cannot express — measured
 arrival rates, queue occupancy, backpressure and straggler behaviour of

@@ -240,14 +240,19 @@ class ServingEngine:
 
     def _capture(self) -> None:
         """Capture ``_device_step`` as one CUDA graph: eager warm-up steps
-        on a side stream with every lane inactive (so they leave the
-        arena as it was), then the capture.  The launches the capture
-        records are taken back out of the counts and added at each
-        replay.  Raises when the capture fails."""
+        on the capture's side stream with every lane inactive (so they
+        leave the arena as it was), then the capture.  The warm-up takes
+        ``torch.cuda.graph``'s one stream for the process, not a stream of
+        its own: cuBLAS keeps a workspace for every stream it has run on,
+        for the life of the process.  The launches the capture records
+        are taken back out of the counts and added at each replay.
+        Raises when the capture fails."""
         dev = self.device
         with torch.inference_mode():
             self._regs.zero_()
-            side = torch.cuda.Stream(dev)
+            graph = torch.cuda.CUDAGraph()
+            capture = torch.cuda.graph(graph)
+            side = capture.capture_stream
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 for _ in range(_WARMUP_STEPS):
@@ -255,10 +260,9 @@ class ServingEngine:
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
             before = [collections.Counter(c) for c in _COUNTERS]
-            graph = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
             try:
-                with torch.cuda.graph(graph):
+                with capture:
                     out = self._device_step()
             except RuntimeError as e:
                 raise RuntimeError(

@@ -14,9 +14,10 @@ Port of the JAX package's ``serving/infer.py``:
   encodes on its device before the payload leaves it (the encode kernel
   on the card), the BS decodes on its device (the decode kernel), and the
   BS audits every uplink's measured payload bytes against
-  ``protocol.billed_hop_bytes``.
-
-The reference's link shaper and QoS monitor hooks are not ported yet.
+  ``protocol.billed_hop_bytes``.  A ``shaper`` (``wireless.LinkShaper``
+  or anything with ``delay_s(nbytes)``) delays every frame both sides
+  send; a ``qos`` (``runtime.qos.QoSMonitor``) counts the uplink frames
+  the BS receives.
 """
 from __future__ import annotations
 
@@ -131,14 +132,16 @@ class BSInferServer:
     honesty per uplink frame."""
 
     def __init__(self, split: SplitDecode, bs_params, *, cache_len: int,
-                 wire_dtype: str = "none", host: str = "127.0.0.1",
-                 port: int = 0):
+                 wire_dtype: str = "none", shaper=None, qos=None,
+                 host: str = "127.0.0.1", port: int = 0):
         _require_dense(wire_dtype)
         self.split = split
         self.bs_params = bs_params
         self.device = split.model.device
         self.cache_len = int(cache_len)
         self.wire_dtype = str(wire_dtype)
+        self.shaper = shaper
+        self.qos = qos
         self.host, self.port = host, int(port)
         self._server = None
         # (measured payload bytes, billed bytes) per uplink frame
@@ -156,9 +159,12 @@ class BSInferServer:
             await self._server.wait_closed()
 
     async def _reply_tok(self, writer, cid, step, tok):
-        writer.write(protocol.pack_frame(
+        frame = protocol.pack_frame(
             protocol.INFER, cid, step, meta={"phase": "tok"},
-            arrays={"tok": tok}))
+            arrays={"tok": tok})
+        if self.shaper is not None:
+            await asyncio.sleep(self.shaper.delay_s(len(frame)))
+        writer.write(frame)
         await writer.drain()
 
     def _audit_uplink(self, frame) -> None:
@@ -170,6 +176,9 @@ class BSInferServer:
         billed = protocol.billed_hop_bytes(
             n_elements, shape[-1], frame.meta["codec"], act_bytes)
         self.audit.append((frame.payload_nbytes, billed))
+        if self.qos is not None:
+            self.qos.record_arrival(frame.client, frame.wire_nbytes,
+                                    frame.payload_nbytes, frame.aux_nbytes)
 
     async def _handle(self, reader, writer):
         hello = await protocol.read_frame(reader)
@@ -215,7 +224,7 @@ class UEInferClient:
     activation per decode step and feeds the returned token back."""
 
     def __init__(self, client_id: int, split: SplitDecode, ue_params, *,
-                 cache_len: int, wire_dtype: str = "none"):
+                 cache_len: int, wire_dtype: str = "none", shaper=None):
         _require_dense(wire_dtype)
         self.client_id = int(client_id)
         self.split = split
@@ -223,12 +232,15 @@ class UEInferClient:
         self.device = split.model.device
         self.cache_len = int(cache_len)
         self.wire_dtype = str(wire_dtype)
+        self.shaper = shaper
         self.sent_payload_bytes = 0
         # host clock at the start of run(), the first token reply (the
         # prefill's round trip) and the last reply
         self.t_start = self.t_first = self.t_done = None
 
     async def _send(self, writer, payload: bytes):
+        if self.shaper is not None:
+            await asyncio.sleep(self.shaper.delay_s(len(payload)))
         writer.write(payload)
         await writer.drain()
 
@@ -286,14 +298,15 @@ class UEInferClient:
 
 
 async def _run_split_infer(model, params, *, cut, prompts, gen,
-                           cache_len, wire_dtype="none"):
+                           cache_len, wire_dtype="none", shaper=None,
+                           qos=None):
     split = SplitDecode(model, cut)
     ue_params, bs_params = split.split_params(params)
     server = BSInferServer(split, bs_params, cache_len=cache_len,
-                           wire_dtype=wire_dtype)
+                           wire_dtype=wire_dtype, shaper=shaper, qos=qos)
     host, port = await server.start()
     client = UEInferClient(0, split, ue_params, cache_len=cache_len,
-                           wire_dtype=wire_dtype)
+                           wire_dtype=wire_dtype, shaper=shaper)
     try:
         tokens = await client.run(host, port, prompts, gen)
     finally:
@@ -311,9 +324,12 @@ async def _run_split_infer(model, params, *, cut, prompts, gen,
 
 
 def run_split_infer(model, params, *, cut: int, prompts, gen: int,
-                    cache_len: int, wire_dtype: str = "none") -> dict:
+                    cache_len: int, wire_dtype: str = "none", shaper=None,
+                    qos=None) -> dict:
     """Serve ``prompts`` for ``gen`` greedy tokens through the split
-    UE->BS loopback; returns tokens + the wire-honesty audit sums."""
+    UE->BS loopback (``shaper`` delaying every frame, ``qos`` counting the
+    uplink); returns tokens + the wire-honesty audit sums."""
     return asyncio.run(_run_split_infer(
         model, params, cut=cut, prompts=prompts, gen=gen,
-        cache_len=cache_len, wire_dtype=wire_dtype))
+        cache_len=cache_len, wire_dtype=wire_dtype, shaper=shaper,
+        qos=qos))

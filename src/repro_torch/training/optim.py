@@ -7,7 +7,9 @@ reference is functional (``update`` returns new trees); the port updates
 the parameters and the optimizer state IN PLACE and returns the same
 objects, which saves a second copy of both (at rwkv6-3b's width the f32
 parameters, AdamW's m and v and the gradients fill 52 GB of the card).
-Parameters must be f32 (the master weights).
+Parameters are f32 master weights, or the compute dtype where a run keeps
+no master copy (the streaming runtime, as the reference's does); m and v
+are f32 either way.
 """
 from __future__ import annotations
 
@@ -43,10 +45,13 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.95,
 
     @torch.no_grad()
     def update(grads, state, params, step):
-        gs = [g.to(torch.float32) for g in tree_leaves(grads)]
+        # each gradient leaf is widened to f32 where it is used, so a
+        # bf16 tree never has a second, f32 copy of itself alive at once
+        gs = tree_leaves(grads)
         scale = None
         if grad_clip > 0:
-            gsq = sum(torch.sum(torch.square(g)) for g in gs)
+            gsq = sum(torch.sum(torch.square(g.to(torch.float32)))
+                      for g in gs)
             scale = torch.clamp_max(grad_clip * torch.rsqrt(gsq + 1e-12), 1.0)
         t = int(step) + 1
         lr_t = float(lr_fn(int(step)))
@@ -54,6 +59,7 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.95,
         for p, g, m, v in zip(tree_leaves(params), gs,
                               tree_leaves(state["m"]),
                               tree_leaves(state["v"])):
+            g = g.to(torch.float32)
             if scale is not None:
                 g = g * scale
             m.mul_(b1).add_(g, alpha=1.0 - b1)

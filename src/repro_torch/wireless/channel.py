@@ -142,10 +142,10 @@ class LinkShaper:
     """Serialization-delay model for the streaming runtime's loopback
     transport: ``delay_s(nbytes) = latency_s + nbytes / bw_Bps``.
 
-    A streaming runtime (the JAX package's ``runtime/``, not ported yet)
-    sleeps this long before writing each frame, so a loopback socket
-    behaves like a link sustaining ``bw_Bps`` — the dispatcher's
-    `LinkEstimator` then *measures* the emulated channel
+    The streaming runtime (``runtime/``) and split serving
+    (``serving/infer.py``) sleep this long before writing each frame, so
+    a loopback socket behaves like a link sustaining ``bw_Bps`` — the
+    dispatcher's ``LinkEstimator`` then *measures* the emulated channel
     from frame timestamps instead of reading a scripted
     ``BandwidthTrace``.  Deliberately mutable (``set_rate``): tests and
     fleet-churn scenarios re-tune the rate mid-run and assert the

@@ -1108,6 +1108,198 @@ def test_small_interleaved_topk_compressed_step_on_card_matches_cpu(
     _residual_flips(efg, efc, 1e-4 * float(efc.abs().max()))
 
 
+# ------------------------------------- the streaming runtime (runtime/)
+
+
+class _StreamDecisions:
+    """The streaming runtime's codec decisions of one run, replayed in
+    another, keyed by (direction, client, round): each ACT frame's dense
+    payload and each GRAD frame's top-k picks and payload (the reply
+    keeps its own scales, and its EF residual follows from the replayed
+    picks).  ``flips`` counts the decisions the replaying run would have
+    taken otherwise."""
+
+    def __init__(self, monkeypatch):
+        from repro_torch.runtime.bs import BSDispatcher
+        from repro_torch.runtime.ue import UEClient
+        self.replay, self.rec = False, {}
+        self.flips = {"payload elements": 0, "top-k picks": 0}
+        key = [None]
+        act_frame, grad_frame = UEClient._act_frame, BSDispatcher._grad_frame
+        dense, topk = wire.encode, wire.topk_encode
+
+        def act(client, acts, labels, step, dl):
+            key[0] = ("up", client.client_id, step)
+            return act_frame(client, acts, labels, step, dl)
+
+        def grad(disp, cid, step, g, loss):
+            key[0] = ("down", cid, step)
+            return grad_frame(disp, cid, step, g, loss)
+
+        def enc(x, w):
+            q, sc = dense(x, w)
+            if not self.replay:
+                self.rec[key[0]] = q.cpu()
+                return q, sc
+            want = self.rec.pop(key[0])
+            self.flips["payload elements"] += int(
+                (want.float() != q.cpu().float()).sum())
+            return want.to(q.device), sc
+
+        def enc_topk(x, w):
+            q, idx, sc = topk(x, w)
+            if not self.replay:
+                self.rec[key[0]] = (q.cpu(), idx.cpu())
+                return q, idx, sc
+            want_q, want_idx = self.rec.pop(key[0])
+            self.flips["top-k picks"] += int(
+                (want_idx.sort(-1).values != idx.sort(-1).values).sum())
+            q, sc = compress.quantize_blocks(
+                torch.gather(x.to(torch.float32), -1, want_idx.long()),
+                wire.parse_wire_dtype(w)[0])
+            self.flips["payload elements"] += int(
+                (want_q.float() != q.float()).sum())
+            return want_q, want_idx, sc
+
+        monkeypatch.setattr(UEClient, "_act_frame", act)
+        monkeypatch.setattr(BSDispatcher, "_grad_frame", grad)
+        monkeypatch.setattr(wire, "encode", enc)
+        monkeypatch.setattr(wire, "topk_encode", enc_topk)
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree.detach().cpu()}
+
+
+@pytest.mark.parametrize("wire_dtype", ["none", "int8+topk0.25"])
+def test_small_streaming_run_on_card_matches_cpu(wire_dtype, monkeypatch):
+    """``run_streaming`` of the f32 smoke qwen at 4 layers, cut 2, 3 UEs,
+    3 rounds on the card, and on the CPU with the card's codec decisions
+    replayed (``_StreamDecisions``; how many it overrode is printed):
+    losses and each client's losses within 1e-5, every parameter within
+    1e-5 but for one element in 10^4 and the key bias, which are held to
+    AdamW's reach of 2 lr a round (AdamW divides each element's step by
+    its own running size, so where that is at the rounding noise's scale
+    each device's f32 roundings become steps of their own; ROADMAP Queue
+    3, fault 13); exactly the run's flash and codec launches."""
+    import asyncio
+    import dataclasses
+
+    from repro_torch.runtime.driver import run_streaming
+    dev = cuda_device()
+    cfg = dataclasses.replace(get_arch("qwen1.5-4b").smoke, num_layers=4)
+    params = LM(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    decisions = _StreamDecisions(monkeypatch)
+    n, rounds, lr, out = 3, 3, 1e-3, {}
+    for where in (dev, "cpu"):          # the CPU replays the card's hops
+        decisions.replay = where == "cpu"
+        ops.reset_launches()
+        res = asyncio.run(run_streaming(
+            cfg, cut=2, n_clients=n, steps=rounds, batch_per_client=2,
+            seq=32, wire_dtype=wire_dtype, lr=lr, device=where,
+            params=tree_map(lambda t: t.clone().to(where), params)))
+        out[str(where)] = (res, dict(ops.LAUNCHES))
+    print(f"card decisions the CPU would have taken otherwise: "
+          f"{decisions.flips}")
+    (rg, launches), (rc, _) = out[str(dev)], out["cpu"]
+    want = {"flash_attention": 10 * n * rounds,
+            "flash_attention_bwd": 4 * n * rounds}
+    if wire_dtype != "none":
+        want.update(wire_encode=n * rounds, wire_decode=n * rounds)
+    assert launches == want
+    np.testing.assert_allclose(rg["losses"], rc["losses"], atol=1e-5, rtol=0)
+    for c in rc["client_losses"]:
+        np.testing.assert_allclose(rg["client_losses"][c],
+                                   rc["client_losses"][c], atol=1e-5, rtol=0)
+    n_el, outliers = 0, 0
+    for half in ("ue", "bs"):
+        pg, pc = _flat(rg["params"][half]), _flat(rc["params"][half])
+        for path, a in pg.items():
+            d = (a - pc[path]).abs()
+            n_el += d.numel()
+            assert float(d.max()) <= 2 * rounds * lr, path
+            if path != "blocks.attn.kb":
+                outliers += int((d > 1e-5).sum())
+    print(f"parameter elements past 1e-5: {outliers} of {n_el}")
+    assert outliers <= n_el // 10 ** 4
+
+
+def test_grad_frame_topk_residual_on_card_matches_cpu():
+    """Three rounds of one client's ``int8+topk0.25`` gradient hop at the
+    full-width shape [2, 512, 2560] bf16, from a small random f32
+    residual and then each round from one residual:
+    the card's picks, payload, scales, decoded gradient and new f32
+    residual bit for bit the CPU's on rows without a tie at the cut
+    (bf16 gradients tie often; ``torch.topk`` picks among equal
+    magnitudes as it likes on either device; the other rows are counted),
+    the kept magnitudes equal on every row, and no codec kernel
+    launched."""
+    from repro_torch.runtime import protocol
+    dev = cuda_device()
+    g0 = torch.Generator().manual_seed(9)
+    kk = wire.topk_count(2560, 0.25)
+    ef, tied = torch.randn((2, 512, 2560), generator=g0) * 1e-2, 0
+    for step in range(3):
+        g = torch.randn((2, 512, 2560), generator=g0).to(torch.bfloat16)
+        corrected = g.float() + ef
+        mags = corrected.abs().sort(dim=-1, descending=True).values
+        free = mags[..., kk - 1] != mags[..., kk]
+        tied += int((~free).sum())
+        assert int(free.sum()) >= free.numel() // 2
+        ac, mc, ef_c = protocol.encode_grad_payload(g, "int8+topk0.25", ef)
+        ops.reset_launches()
+        ag, mg_, ef_g = protocol.encode_grad_payload(
+            g.to(dev), "int8+topk0.25", ef.to(dev))
+        assert dict(ops.LAUNCHES) == {}
+        by_c = ac["idx"].long().argsort(-1)     # kept entries by column
+        by_g = ag["idx"].cpu().long().argsort(-1)
+        for k in ("idx", "q"):
+            assert torch.equal(torch.gather(ac[k], -1, by_c)[free],
+                               torch.gather(ag[k].cpu(), -1, by_g)[free])
+        assert torch.equal(ac["scale"][free], ag["scale"].cpu()[free])
+        assert torch.equal(ef_c[free], ef_g.cpu()[free])
+        assert bool(torch.isfinite(ef_g).all())
+        dec_c = protocol.decode_grad_payload(protocol.unpack_frame(
+            protocol.pack_frame(protocol.GRAD, 0, step, mc, ac)[4:]), "cpu")
+        dec_g = protocol.decode_grad_payload(protocol.unpack_frame(
+            protocol.pack_frame(protocol.GRAD, 0, step, mg_, ag)[4:]), dev)
+        assert torch.equal(dec_c[free], dec_g.cpu()[free])
+        assert torch.equal(dec_c.abs().sort(-1).values,
+                           dec_g.cpu().abs().sort(-1).values)
+        ef = ef_c
+    print(f"rows with a tie at the cut, held to their kept magnitudes: "
+          f"{tied}")
+
+
+@pytest.mark.parametrize("dt", ["bfloat16", "float32"])
+def test_encode_grad_payload_int8_on_card_is_the_plain_codec(dt):
+    """The dense int8 GRAD frame coded on the card is bit-identical to the
+    plain codec's frame (one encode launch), and decodes on the card to
+    the plain decode's values (one decode launch, route warp256)."""
+    from repro_torch.runtime import protocol
+    dev = cuda_device()
+    g = (torch.randn((2, 512, 2560), generator=torch.Generator().manual_seed(
+        3)) * 2).to(TORCH_DT[dt])
+    ac, mc, _ = protocol.encode_grad_payload(g, "int8")
+    ops.reset_launches()
+    ag, mg_, _ = protocol.encode_grad_payload(g.to(dev), "int8")
+    assert dict(ops.LAUNCHES) == {"wire_encode": 1}
+    fc = protocol.pack_frame(protocol.GRAD, 1, 2, mc, ac)
+    fg = protocol.pack_frame(protocol.GRAD, 1, 2, mg_, ag)
+    assert fc == fg
+    wc.ROUTES.clear()
+    out = protocol.decode_grad_payload(protocol.unpack_frame(fg[4:]), dev)
+    assert dict(ops.LAUNCHES) == {"wire_encode": 1, "wire_decode": 1}
+    assert dict(wc.ROUTES) == {"warp256": 1}
+    assert torch.equal(out.cpu(), protocol.decode_grad_payload(
+        protocol.unpack_frame(fc[4:]), "cpu"))
+
+
 # ------------------------------------- ResNet-18 split training (f32, no TF32)
 
 RESNET_ALLOC = [3, 2, 1, 2]     # UE 2 sits out three of k = 4 micro-batches

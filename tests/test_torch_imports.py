@@ -78,7 +78,11 @@ def test_importing_every_module_pulls_in_no_jax():
             "repro_torch.wireless.fleet", "repro_torch.models.resnet",
             "repro_torch.configs.resnet18_cifar10",
             "repro_torch.sl.baselines",
-            "repro_torch.launch.wireless_sl"} <= set(mods)
+            "repro_torch.launch.wireless_sl",
+            "repro_torch.runtime.ue", "repro_torch.runtime.bs",
+            "repro_torch.runtime.driver", "repro_torch.training.replan",
+            "repro_torch.training.fault",
+            "repro_torch.analysis.roofline"} <= set(mods)
 
 
 def test_source_scan_covers_every_module():
@@ -98,6 +102,12 @@ def test_source_scan_covers_every_module():
             os.path.join("wireless", "fleet.py"),
             os.path.join("models", "resnet.py"),
             os.path.join("sl", "baselines.py"),
+            os.path.join("runtime", "ue.py"),
+            os.path.join("runtime", "bs.py"),
+            os.path.join("runtime", "driver.py"),
+            os.path.join("training", "replan.py"),
+            os.path.join("training", "fault.py"),
+            os.path.join("analysis", "roofline.py"),
             os.path.join("launch", "wireless_sl.py")} <= names
 
 
