@@ -17,7 +17,7 @@ Phases (any failure exits non-zero; nothing is caught):
      (recurrentgemma's 10 q heads on one kv head, window 2048, at S = 512
      and at S = 3072 where the window bites), query rows without any key
      (Sq 256 against Skv 128 under window 16: the mean of V) on both
-     routes, flash and RG-LRU refusing autograd; the RG-LRU scan within
+     routes; the RG-LRU scan within
      2e-4 (f32) / 1e-2 (bf16) of its plain version relative to the largest
      value ([4, 512, 2560] with and without h0, ragged [3, 300, 200], S =
      1, 63, 64, 65 and 0, [1, 4096, 2560] (64 chunks chained by
@@ -47,15 +47,28 @@ Phases (any failure exits non-zero; nothing is caught):
      bytes off 16), each on its backward route (bf16 on the tensor-core
      route "mma", f32 and the misaligned q on "simt"), the forward's
      log-sum-exp beside the plain one, and two backward calls on the same
-     inputs bit for bit; RG-LRU and moe_gmm refusing autograd.  Small f32
-     models on the card are held to the same
+     inputs bit for bit; the three backward kernels of the hybrid and MoE
+     training paths against their plain versions (check_rglru_bwd,
+     check_moe_gmm_bwd, check_flash_bwd256: the RG-LRU backward at
+     [2, 4096, 2560] f32, S = 1, 65 and 0, R = 200 and 130, with and
+     without h0, with dh_last, log a in (-20, 0) and bf16, within 2e-4 /
+     1e-2 of the largest value, the path's call twice bit for bit; the
+     grouped matmul's backward at granite's training shapes (capacity
+     256) in bf16 and f32, C = 8 and 130 and misaligned views, within
+     2e-4 / 1e-2; the flash backward at dh 256 on "simt", [2, 10, 4096,
+     256] bf16 on one kv head with window 2048 and [1, 10, 300, 256] f32
+     with window 100, within FLASH_TOL and the element gate, twice bit
+     for bit).  Small f32 models on the card are held to the same
      models on the CPU: a qwen prefill, a recurrentgemma prefill of a
      12-token prompt (window 8: the ring wraps) and 8 decode steps, a
      granite-moe prefill and 8 decode steps (the router's top-k expert ids
      compared first), qwen3-moe split at cut 1 ('none' tokens equal the
      static tokens, measured bytes equal billed bytes), and one pipelined
-     training step each of an RWKV and a qwen model (loss and updated
-     parameters; the qwen step through the flash backward kernel), and
+     training step each of an RWKV, a qwen and a granite-moe model (loss
+     and updated parameters; the qwen step through the flash backward
+     kernel, granite's through the grouped matmul's backward too) and
+     one accumulated (k 2) step of a recurrentgemma model (the RG-LRU
+     backward), each with its exact launches, and
      one interleaved (S 2, v 2, k 2) int8+topk0.25 step with gradient
      compression of the qwen model widened to 4 layers (loss, parameters,
      the EF buffer's live slots; top-k and int8 rounding flips on near-ties
@@ -175,6 +188,19 @@ Phases (any failure exits non-zero; nothing is caught):
         moe_gmm on the "wgmma" route and every decode one on
         "wgmma_small_c", every flash on "mma", and --split-cut refused
         with ValueError; prefill ms, decode tok/s and peak GB;
+     k. C2P2SL training of granite-moe-3b-a800m (after j) through the
+        training CLI at f's spec (S 2, k 4, int8, batch 8 x 512, 3 steps;
+        capacity 256 a micro-batch): every loss and aux finite, every
+        parameter changed (the router through the aux), hop bytes equal
+        to the bills at d = 1536, exactly GT_LAUNCHES (2304 moe_gmm, all
+        on "wgmma", 1152 moe_gmm_bwd, 768 / 384 flash on "mma", 24 + 24
+        codec calls at [1024, 1536]), peak GB, one more step traced;
+     l. training of recurrentgemma-2b (after k) through the training CLI
+        with --microbatches 2 at batch 4 x 4096 (past the window of 2048),
+        3 steps: every loss finite, every parameter changed, exactly
+        RT_LAUNCHES (216 rglru_scan, 108 rglru_scan_bwd, 96 flash on "mma",
+        48 flash backwards at dh 256 on "simt"), peak GB, one more step
+        traced;
   5. timings: torch.profiler traces of one prefill and four decode steps
      of qwen, one prefill and one decode step each of recurrentgemma and
      granite-moe, and one training step of each of rwkv6-3b and qwen1.5-4b
@@ -182,8 +208,11 @@ Phases (any failure exits non-zero; nothing is caught):
      total, the flash forward's, and the backward's dq and dK/dV kernels'
      apart); per kernel its device time, its
      plain version's, its bound and the library yardstick where one
-     PyTorch call computes the same function (torch.bmm for moe_gmm, SDPA
-     for flash, torch.mul for the int8 decode); the codec at each shape
+     PyTorch call computes the same function (torch.bmm for moe_gmm and,
+     twice, for its backward, SDPA for flash and, with the window as a
+     boolean mask, for the dh-256 backward, torch.mul for the int8
+     decode); the three backward kernels of k and l at their calls
+     (time_backwards); the codec at each shape
      the main paths coded (qwen's prefill hop and decode steps, the
      training hop), each row with the launches at its shape; for moe_gmm
      and flash also the achieved TFLOP/s and the share of the bound; the
@@ -301,6 +330,28 @@ GR_GMM = (40, 512, 1536, 512)                   # E, C, D, F of w1 and w3
 GR_GMM_DECODE = (40, 8, 1536, 512)
 GR_HEADS = (24, 8, 64)                          # q heads, kv heads, dh
 QM_ARCH = "qwen3-moe-30b-a3b"                   # its SMOKE config splits
+# the MoE training path: granite-moe-3b-a800m FULL through the training CLI
+# at the rwkv / qwen spec (S 2 cut at 16, k 4, int8 hop, batch 8 x 512, 3
+# steps); a micro-batch of 2 x 512 tokens gives the capacity
+# _capacity(1024, 8, 40, 1.25) = 256.  Each block's forward runs twice
+# under its activation checkpoint (three grouped products and one flash
+# each), its backward once
+GT_LAUNCHES = {"moe_gmm": 2 * 3 * GR_LAYERS * T_K * T_STEPS,
+               "moe_gmm_bwd": 3 * GR_LAYERS * T_K * T_STEPS,
+               "flash_attention": 2 * GR_LAYERS * T_K * T_STEPS,
+               "flash_attention_bwd": GR_LAYERS * T_K * T_STEPS,
+               "wire_encode": 2 * T_K * T_STEPS,
+               "wire_decode": 2 * T_K * T_STEPS}
+GT_GMM = (40, 256, 1536, 512)                   # E, C, D, F of w1 and w3
+# the hybrid training path: recurrentgemma-2b FULL, 4 x 4096 tokens (past
+# the window of 2048), k 2 by gradient accumulation, 3 steps: 18 RG-LRU
+# and 8 local-attention blocks, each forward twice under its checkpoint
+RT_BATCH, RT_SEQ, RT_K = 4, 4096, 2
+RT_LAUNCHES = {"rglru_scan": 2 * 18 * RT_K * T_STEPS,
+               "rglru_scan_bwd": 18 * RT_K * T_STEPS,
+               "flash_attention": 2 * 8 * RT_K * T_STEPS,
+               "flash_attention_bwd": 8 * RT_K * T_STEPS}
+RT_SCAN = (RT_BATCH // RT_K, RT_SEQ, 2560)      # one micro-batch's scan
 # the continuous-batching path: qwen1.5-4b, 12 requests of prompt 512 with
 # budgets 8 / 32 / 128 (seeded shuffle), 8 slots, longest first, chunks of
 # up to 2048 prompt tokens; cache_len = prompt + the largest budget
@@ -954,20 +1005,154 @@ def check_small_model(torch, dev):
     print(f"small f32 model, card vs CPU prefill logits: max err {err:.3e}")
 
 
-def check_refuses_autograd(torch, ops, dev):
-    """The RG-LRU and grouped-matmul kernels have no backward: under
-    autograd they must raise instead of returning a tensor that drops the
-    gradients."""
-    t = torch.randn(1, 2, 16, 64, device=dev, requires_grad=True)
-    for name, call in (("rglru_scan", lambda: ops.rglru_scan(t[0], t[0])),
-                       ("moe_gmm", lambda: ops.moe_gmm(t[0], t[0]))):
-        try:
-            call()
-        except NotImplementedError:
-            print(f"{name} under autograd on the card: raises "
-                  "NotImplementedError")
-        else:
-            fail(f"ops.{name} ran under autograd on the card")
+def check_rglru_bwd(torch, rg, dev):
+    """The RG-LRU backward kernel against ``rglru_bwd_plain`` on the
+    kernel's own forward h, within 2e-4 (f32) / 1e-2 (bf16) of the largest
+    value: the training path's call ([2, 4096, 2560] f32, no h0, no
+    gradient of h_last), S = 1, S = 65 (past one chunk), R = 200 and 130
+    (not multiples of 64), with and without h0, with dh_last, S = 0 (dh0 =
+    dh_last), log a in (-20, 0) and bf16; two calls on the path's inputs
+    bit for bit.  Returns the path call's error."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (b, s, r, h0, dh_last, log a span, dtype)
+        (*RT_SCAN, False, False, 0.105, f32),
+        (2, 1, 200, True, True, 0.105, f32),
+        (2, 65, 200, False, True, 0.105, f32),
+        (3, 300, 130, True, True, 20.0, f32),
+        (2, 0, 64, True, True, 0.105, f32),
+        (2, 130, 2560, True, True, 0.105, bf16),
+    ]
+    path_err = None
+    for b, s, r, with_h0, with_dl, span, dt in cases:
+        x = torch.randn((b, s, r), generator=gen, device=dev).to(dt)
+        la = (-span * torch.rand((b, s, r), generator=gen, device=dev)).to(dt)
+        h0 = torch.randn((b, r), generator=gen, device=dev) if with_h0 \
+            else None
+        h, _ = rg.rglru_cuda(x, la, h0)
+        dh = torch.randn((b, s, r), generator=gen, device=dev).to(dt)
+        dl = torch.randn((b, r), generator=gen, device=dev).to(dt) \
+            if with_dl else None
+        got = rg.rglru_bwd_cuda(x, la, h0, h, dh, dl)
+        want = rg.rglru_bwd_plain(x, la, h0, h, dh, dl)
+        torch.cuda.synchronize()
+        tol = 2e-4 if dt == f32 else 1e-2
+        errs = [_rel_err(a, w) if a.numel() else 0.0
+                for a, w in zip(got, want) if a is not None]
+        if (got[2] is None) != (h0 is None) or not max(errs) <= tol:
+            fail(f"rglru_bwd at [{b}, {s}, {r}] {dt} h0 {with_h0} dh_last "
+                 f"{with_dl}: errors {errs} (tol {tol})")
+        if path_err is None:
+            path_err = max(float((a.float() - w.float()).abs().max())
+                           for a, w in zip(got[:2], want[:2]))
+            again = rg.rglru_bwd_cuda(x, la, h0, h, dh, dl)
+            if not all(torch.equal(a, c) for a, c in zip(got[:2], again[:2])):
+                fail("rglru_bwd: two calls on the same inputs differ")
+        print(f"rglru_bwd at [{b}, {s}, {r}] {str(dt)[6:]} (h0 {with_h0}, "
+              f"dh_last {with_dl}, log a in (-{span}, 0)): dx, dlog a"
+              f"{', dh0' if with_h0 else ''} within "
+              f"{', '.join(f'{e:.2e}' for e in errs)} of the largest value "
+              f"(tol {tol})")
+    return path_err
+
+
+def check_moe_gmm_bwd(torch, mg, dev):
+    """The grouped matmul's backward kernel (dh, dw) against
+    ``moe_gmm_bwd_plain`` within 2e-4 (f32) / 1e-2 (bf16) of the largest
+    value: granite-moe-3b-a800m's training shapes (capacity 256) in bf16
+    and f32, C below ``SMALL_C`` (8) and past a tile (130), ragged D and
+    F, and misaligned views (h from a [C, E, D] buffer based 2 bytes off
+    16, w a column slice, dout without a unit stride).  Returns the max
+    abs error at the path's w1 shape in bf16."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    f32, bf16 = torch.float32, torch.bfloat16
+    e, c, d, f = GT_GMM
+    cases = [(GT_GMM, bf16), ((e, c, f, d), bf16), (GT_GMM, f32),
+             ((3, 8, 200, 72), f32), ((3, 8, 200, 72), bf16),
+             ((2, 130, 96, 33), f32), ((2, 130, 96, 33), bf16)]
+    path_err = None
+    for (e_, c_, d_, f_), dt in cases:
+        h = torch.randn((e_, c_, d_), generator=gen, device=dev).to(dt)
+        w = (torch.randn((e_, d_, f_), generator=gen, device=dev)
+             / math.sqrt(d_)).to(dt)
+        dout = torch.randn((e_, c_, f_), generator=gen, device=dev).to(dt)
+        got = mg.moe_gmm_bwd_cuda(h, w, dout)
+        want = mg.moe_gmm_bwd_plain(h, w, dout)
+        torch.cuda.synchronize()
+        tol = 2e-4 if dt == f32 else 1e-2
+        errs = [_rel_err(a, b_) for a, b_ in zip(got, want)]
+        if not max(errs) <= tol:
+            fail(f"moe_gmm_bwd at [{e_}, {c_}, {d_}, {f_}] {dt}: errors "
+                 f"{errs} (tol {tol})")
+        if path_err is None:
+            path_err = max(float((a.float() - b_.float()).abs().max())
+                           for a, b_ in zip(got, want))
+        print(f"moe_gmm_bwd at E, C, D, F = {[e_, c_, d_, f_]} "
+              f"{str(dt)[6:]}: dh, dw within {errs[0]:.2e}, {errs[1]:.2e} "
+              f"of the largest value (tol {tol})")
+    buf = torch.randn(20 * 3 * 48 + 1, generator=gen, device=dev).to(bf16)
+    h = buf[1:].view(20, 3, 48).transpose(0, 1)
+    w = (torch.randn((3, 48, 40), generator=gen, device=dev) / 7).to(
+        bf16)[:, :, :33]
+    dout = torch.randn((3, 33, 20), generator=gen, device=dev).to(
+        bf16).transpose(1, 2)
+    errs = [_rel_err(a, b_) for a, b_ in zip(mg.moe_gmm_bwd_cuda(h, w, dout),
+                                             mg.moe_gmm_bwd_plain(h, w, dout))]
+    if not max(errs) <= 1e-2:
+        fail(f"moe_gmm_bwd on misaligned views: errors {errs}")
+    print(f"moe_gmm_bwd on misaligned bf16 views: within {max(errs):.2e}")
+    return path_err
+
+
+def check_flash_bwd256(torch, fa, dev):
+    """The flash backward at head dim 256 (SIMT, tiles of 32 rows) against
+    ``attention_bwd_plain``: recurrentgemma-2b's training call ([2, 10,
+    4096, 256] q on one kv head in the model layout, causal, window 2048
+    shorter than S) in bf16 and a ragged f32 call ([1, 10, 300, 256],
+    window 100), within ``FLASH_TOL`` absolute and ``FLASH_BWD_ELEM``
+    element by element, on route "simt", two calls bit for bit.  Returns
+    the training call's max abs error."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    hq, hkv, dh, window = RG_HEADS
+    path_err = None
+    for b, s, win, dt in ((RT_BATCH // RT_K, RT_SEQ, window, "bfloat16"),
+                          (1, 300, 100, "float32")):
+        tdt = getattr(torch, dt)
+        mk = lambda h: torch.randn((b, s, h, dh), generator=gen,
+                                   device=dev).to(tdt).transpose(1, 2)
+        q, k, v, do = mk(hq), mk(hkv), mk(hkv), mk(hq)
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=True, window=win,
+                                         with_lse=True)
+        fa.BWD_ROUTES.clear()
+        got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True,
+                                          window=win)
+        again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True,
+                                            window=win)
+        if dict(fa.BWD_ROUTES) != {"simt": 2}:
+            fail(f"flash_bwd dh 256: routes {dict(fa.BWD_ROUTES)}")
+        f = [t.float() for t in (q, k, v)]
+        want = fa.attention_bwd_plain(*f, o.float(), lse, do.float(),
+                                      causal=True, window=win)
+        torch.cuda.synchronize()
+        atol, rtol = FLASH_BWD_ELEM[dt]
+        errs = []
+        for g, w_, g2 in zip(got, want, again):
+            diff = (g.float() - w_).abs()
+            errs.append(float(diff.max()))
+            if not (errs[-1] <= FLASH_TOL[dt] and bool(
+                    (diff <= atol + rtol * w_.abs()).all())
+                    and torch.equal(g, g2)):
+                fail(f"flash_bwd dh 256 at [{b}, {hq}, {s}, {dh}] {dt} "
+                     f"window {win}: max err {errs[-1]}, or element gate "
+                     "or repeat failed")
+        del want
+        if path_err is None:
+            path_err = max(errs)
+        print(f"flash_bwd dh 256 at [{b}, {hq}, {s}, {dh}] on {hkv} kv "
+              f"head, {dt}, window {win}, route simt: dq, dk, dv max err "
+              f"{', '.join(f'{e:.2e}' for e in errs)} (tol {FLASH_TOL[dt]}"
+              f", element gate held), two calls bit for bit")
+    return path_err
 
 
 WKV_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -1103,40 +1288,51 @@ def check_wkv6_strong_decay(torch, rw, dev, gen):
 
 
 def check_small_training(torch, ops, dev):
-    """One training step of small f32 RWKV and qwen models (the 2-stage,
-    2-micro-batch pipeline) on the card against the same step on the CPU,
-    with the hop raw and int8-coded (the codec is bit-exact on both
-    devices, so the coded hop's backward on the card is held here too);
-    on the card the step must launch exactly its model's forward and
-    backward kernels (WKV6 or flash; 2 blocks x 2 micro-batches: 8
+    """One training step of small f32 RWKV, qwen and granite-moe models
+    (the 2-stage, 2-micro-batch pipeline) and of the small recurrentgemma
+    (k 2 by accumulation: a mixed stack does not pipeline) on the card
+    against the same step on the CPU, the pipeline's hop raw and
+    int8-coded (the codec is bit-exact on both devices, so the coded hop's
+    backward on the card is held here too); on the card the step must
+    launch exactly its model's forward and backward kernels (WKV6, flash,
+    the grouped matmul or the RG-LRU scan; 2 blocks x 2 micro-batches: 8
     forwards, as each block's forward runs again under its activation
-    checkpoint, and 4 backwards).  SGD, so the updated
-    parameters are linear in the gradients (Adam's first step divides by
-    |g| and turns rounding noise into sign flips)."""
+    checkpoint, and 4 backwards; granite's blocks three grouped products
+    each).  SGD, so the updated parameters are linear in the gradients
+    (Adam's first step divides by |g| and turns rounding noise into sign
+    flips)."""
     from repro_torch.configs import get_arch
     from repro_torch.models.lm import LM
     from repro_torch.parallel.pipeline import PipelineSpec
     from repro_torch.parallel.steps import make_lm_train_step
     from repro_torch.training.optim import sgd
     from repro_torch.utils.trees import tree_leaves, tree_map
-    for arch, kernels in ((T_ARCH, {"wkv6": 8, "wkv6_bwd": 4}),
-                          (ARCH, {"flash_attention": 8,
-                                  "flash_attention_bwd": 4})):
+    flash = {"flash_attention": 8, "flash_attention_bwd": 4}
+    for arch, kernels, wires in (
+            (T_ARCH, {"wkv6": 8, "wkv6_bwd": 4}, ("none", "int8")),
+            (ARCH, flash, ("none", "int8")),
+            (GR_ARCH, {**flash, "moe_gmm": 24, "moe_gmm_bwd": 12},
+             ("none", "int8")),
+            (RG_ARCH, {"rglru_scan": 8, "rglru_scan_bwd": 4,
+                       "flash_attention": 4, "flash_attention_bwd": 2},
+             ("k 2",))):
         cfg = get_arch(arch).smoke
         params = LM(cfg, "cpu").init(torch.Generator().manual_seed(SEED),
                                      master=True)
         gen = torch.Generator().manual_seed(7)
         batch = {n: torch.randint(0, cfg.vocab, (4, 40), generator=gen)
                  for n in ("tokens", "labels")}
-        for wire in ("none", "int8"):
-            spec = PipelineSpec(num_stages=2, microbatches=2, wire_dtype=wire)
+        for wire in wires:
+            kw = dict(microbatches=2) if wire == "k 2" else dict(
+                pipeline=PipelineSpec(num_stages=2, microbatches=2,
+                                      wire_dtype=wire))
             out = {}
             for where in ("cpu", dev):
                 model = LM(cfg, where)
                 opt = sgd(0.1, momentum=0.9)
                 p = tree_map(lambda t: t.detach().clone().to(where), params)
                 state = {"params": p, "opt_state": opt.init(p), "step": 0}
-                step = make_lm_train_step(model, opt, pipeline=spec)
+                step = make_lm_train_step(model, opt, **kw)
                 ops.reset_launches()
                 state, mets = step(state, {n: t.to(where)
                                            for n, t in batch.items()})
@@ -1912,10 +2108,10 @@ def check_training_run(torch, protocol, dev, res, name, wire):
     from repro_torch.models.lm import LM
     from repro_torch.utils.trees import tree_leaves
     model, spec = res["model"], res["pipeline"]
-    if spec.wire_dtype != wire:
-        fail(f"{name}: the run's codec {spec.wire_dtype} != {wire}")
+    if (spec.wire_dtype if spec else "none") != wire:
+        fail(f"{name}: the run's codec is not {wire}")
     up, down = billed_step_bytes(protocol, spec, model.cfg.d_model,
-                                 model.dtype.itemsize)
+                                 model.dtype.itemsize) if spec else (0, 0)
     for row in res["rows"]:
         if not math.isfinite(row["loss"]):
             fail(f"{name}: step {row['step']} loss {row['loss']}")
@@ -2034,6 +2230,104 @@ def run_qwen_training(torch, ops, train, protocol, dev, wc, card):
     del res
     torch.cuda.empty_cache()
     return rows, launches, calls
+
+
+def _check_train_launches(name, launches, routes, want):
+    """A full-width training run's exact launch counts and kernel routes
+    (``routes``: each route counter against the routes it must take)."""
+    if launches != want:
+        fail(f"train {name}: launches {launches} != {want}")
+    for what, (got, expect) in routes.items():
+        if got != expect:
+            fail(f"train {name}: {what} routes {got} != {expect}")
+
+
+def run_granite_training(torch, ops, train, protocol, dev, wc, card):
+    """C2P2SL training of granite-moe-3b-a800m at full width through the
+    training CLI (S 2, k 4, int8 hop, 8 x 512, 3 steps): every loss and
+    aux finite, every parameter moved (the router through the aux), hop
+    bytes equal to the bills at d = 1536, exactly ``GT_LAUNCHES``, every
+    grouped-matmul forward on "wgmma", every flash forward and backward
+    (dh 64) on "mma", every decode on "warp256".  One more step traced.
+    Returns (rows, launches, codec calls by shape)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as mg
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    for counter in (fa.ROUTES, fa.BWD_ROUTES, mg.ROUTES, wc.ROUTES):
+        counter.clear()
+    with codec_calls(wc) as calls:
+        res = train.main(_train_argv("int8", GR_ARCH))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    _check_train_launches(GR_ARCH, launches, {
+        "moe_gmm": (dict(mg.ROUTES), {"wgmma": GT_LAUNCHES["moe_gmm"]}),
+        "flash": (dict(fa.ROUTES), {"mma": GT_LAUNCHES["flash_attention"]}),
+        "flash backward": (dict(fa.BWD_ROUTES),
+                           {"mma": GT_LAUNCHES["flash_attention_bwd"]})},
+        GT_LAUNCHES)
+    n, billed, _down = check_training_run(torch, protocol, dev, res,
+                                          f"train {GR_ARCH}", "int8")
+    check_codec_calls(wc, f"{GR_ARCH} training path", launches, calls,
+                      dict(wc.ROUTES))
+    d = res["model"].cfg.d_model
+    want = {(kern, T_BATCH // T_K * T_SEQ, d, "bfloat16", "int8"):
+            GT_LAUNCHES[kern] for kern in ("wire_encode", "wire_decode")}
+    if dict(calls) != want:
+        fail(f"train {GR_ARCH}: codec calls {dict(calls)} != {want}")
+    rows = res["rows"]
+    if not all(math.isfinite(r["aux"]) and r["aux"] > 0 for r in rows):
+        fail(f"train {GR_ARCH}: aux {[r['aux'] for r in rows]}")
+    print(f"train {GR_ARCH} int8: losses "
+          f"{[round(r['loss'], 5) for r in rows]}, aux "
+          f"{[round(r['aux'], 5) for r in rows]}, all {n} parameter "
+          f"tensors changed, hop bytes per step up == down == billed "
+          f"{billed:.0f}; launches {json.dumps(launches, sort_keys=True)}; "
+          f"peak {max(r['peak_gb'] for r in rows):.2f} GB on {card}")
+    profile_training_step(torch, res, {"moe_gmm forward": "gmm_wgmma",
+                                       "moe_gmm backward": "gmm_simt",
+                                       "flash backward": "flash_bwd"})
+    del res
+    torch.cuda.empty_cache()
+    return rows, launches, calls
+
+
+def run_hybrid_training(torch, ops, train, protocol, dev, card):
+    """Training of recurrentgemma-2b at full width through the training
+    CLI (k 2 by accumulation, 4 x 4096, 3 steps): every loss finite, every
+    parameter moved, exactly ``RT_LAUNCHES``, every flash forward on
+    "mma" and every flash backward (dh 256, window 2048 < S) on "simt".
+    One more step traced.  Returns (rows, launches)."""
+    from repro_torch.kernels import flash_attention as fa
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    fa.ROUTES.clear()
+    fa.BWD_ROUTES.clear()
+    res = train.main(["--arch", RG_ARCH, "--size", "full", "--microbatches",
+                      str(RT_K), "--batch", str(RT_BATCH), "--seq",
+                      str(RT_SEQ), "--steps", str(T_STEPS), "--seed",
+                      str(SEED), "--log-every", "1"])
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    _check_train_launches(RG_ARCH, launches, {
+        "flash": (dict(fa.ROUTES), {"mma": RT_LAUNCHES["flash_attention"]}),
+        "flash backward": (dict(fa.BWD_ROUTES),
+                           {"simt": RT_LAUNCHES["flash_attention_bwd"]})},
+        RT_LAUNCHES)
+    n, _, _ = check_training_run(torch, protocol, dev, res,
+                                 f"train {RG_ARCH}", "none")
+    rows = res["rows"]
+    print(f"train {RG_ARCH} k {RT_K}: losses "
+          f"{[round(r['loss'], 5) for r in rows]}, all {n} parameter "
+          f"tensors changed; launches {json.dumps(launches, sort_keys=True)}"
+          f"; peak {max(r['peak_gb'] for r in rows):.2f} GB on {card}")
+    profile_training_step(torch, res, {"rglru forward": "rglru_chunked<",
+                                       "rglru backward": "rglru_chunked_bwd",
+                                       "flash backward": "flash_bwd"},
+                          shape=(RT_BATCH, RT_SEQ), microbatches=RT_K)
+    del res
+    torch.cuda.empty_cache()
+    return rows, launches
 
 
 @contextlib.contextmanager
@@ -2695,10 +2989,12 @@ def live_cuda_tensors(torch, label, top=8):
           f"{sorted(round(b / 1e6, 1) for b in by_stream.values())}")
 
 
-def profile_training_step(torch, res, watch):
-    """Where a training step's time goes: one more step of the int8 run
-    traced with torch.profiler; ``watch`` maps a label to a substring of
-    kernel names, whose device time and launches are summed."""
+def profile_training_step(torch, res, watch, shape=(T_BATCH, T_SEQ),
+                          microbatches=1):
+    """Where a training step's time goes: one more step of the run (batch
+    and sequence ``shape``, its pipeline or ``microbatches``) traced with
+    torch.profiler; ``watch`` maps a label to a substring of kernel names,
+    whose device time and launches are summed."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.synthetic import TokenTaskConfig, token_batches
@@ -2707,10 +3003,11 @@ def profile_training_step(torch, res, watch):
     model, state = res["model"], res["state"]
     opt = adamw(cosine_schedule(3e-4, warmup=20, total=T_STEPS),
                 grad_clip=1.0)
-    step = make_lm_train_step(model, opt, pipeline=res["pipeline"])
+    step = make_lm_train_step(model, opt, pipeline=res["pipeline"],
+                              microbatches=microbatches)
     batch = {n: torch.as_tensor(a, device=model.device) for n, a in next(
-        token_batches(TokenTaskConfig(vocab=model.cfg.vocab), T_BATCH,
-                      T_SEQ, seed=SEED + 1)).items()}
+        token_batches(TokenTaskConfig(vocab=model.cfg.vocab), *shape,
+                      seed=SEED + 1)).items()}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2720,9 +3017,10 @@ def profile_training_step(torch, res, watch):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     spec = res["pipeline"]
-    report_trace(prof, wall, f"training step ({model.cfg.name}, "
-                 f"{spec.wire_dtype}, v {spec.virtual_stages}, traced)",
-                 watch)
+    how = (f"{spec.wire_dtype}, v {spec.virtual_stages}" if spec
+           else f"k {microbatches}")
+    report_trace(prof, wall, f"training step ({model.cfg.name}, {how}, "
+                 "traced)", watch)
 
 
 def report_trace(prof, wall, label, watch=None):
@@ -3369,6 +3667,129 @@ def time_moe(torch, mg, fa, dev, prefill_launches, run_launches, gmm_err,
     return out
 
 
+def time_backwards(torch, rg, mg, fa, dev, gt_launches, rt_launches,
+                   errs):
+    """The three backward kernels of the hybrid and MoE training paths at
+    their calls, with their launches there:
+
+    * ``rglru_scan_bwd`` at recurrentgemma-2b's [2, 4096, 2560] f32 (no
+      h0, no gradient of h_last), from cold data.  Bound: x, log a, h and
+      dh read and dx and dlog a written once at 3.35 TB/s, against ~20
+      f32 operations an element; no library call computes it;
+    * ``moe_gmm_bwd`` (dh and dw) at granite-moe-3b-a800m's w1 shape
+      ([40, 256, 1536] @ [40, 1536, 512] bf16), between CUDA events, as
+      are its plain and library times (torch.profiler dropped one of its
+      two kernels in a call of its first runs).  Bound: h, w and dout read
+      and dh and dw written once, against 4 E C D F operations at the bf16
+      tensor-core rate; the library yardstick is ``torch.bmm`` twice;
+    * ``flash_attention_bwd_dh256`` at recurrentgemma-2b's local layers
+      ([2, 10, 4096, 256] q on one kv head, bf16, causal, window 2048, the
+      model layout; route "simt"), timed between CUDA events (a call
+      lasts tens of ms; torch.profiler read 0.4 of the training step's
+      trace in a call of its first runs).  Bound: q, k, v, O, dO and lse
+      read and
+      dq, dk, dv written once, against five products of 2 dh operations a
+      (q, k) pair inside the window at the bf16 tensor-core rate; the
+      library yardstick is SDPA's backward with the window as a boolean
+      mask, on the kv head expanded to 10."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(24)
+    b, s, r = RT_SCAN
+    n = b * s * r
+    x = torch.randn(RT_SCAN, generator=gen, device=dev)
+    la = -0.105 * torch.rand(RT_SCAN, generator=gen, device=dev)
+    h, _ = rg.rglru_cuda(x, la)
+    dh = torch.randn(RT_SCAN, generator=gen, device=dev)
+    b_ms, b_by = bound(6 * n * 4, 20 * n, F32_OPS_S)
+    out = [{
+        "name": "rglru_scan_bwd", "route": "cuda", "kernel_route": "lookback",
+        "source": "src/repro_torch/csrc/rglru.cu",
+        "replaces": "src/repro/models/recurrent.py:50",   # no Pallas backward
+        "shape": list(RT_SCAN), "dtype": "float32",
+        "launches": rt_launches.get("rglru_scan_bwd", 0),
+        "max_abs_err": errs["rglru_bwd"],
+        "ms": cold_ms(lambda *a: rg.rglru_bwd_cuda(*a), (x, la, None, h, dh),
+                      4 * n * 4),
+        "plain_ms": device_ms(lambda: rg.rglru_bwd_plain(x, la, None, h, dh),
+                              iters=2, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}]
+    print(f"kernel rglru_scan_bwd: {out[0]['ms']:.4f} ms from cold data, "
+          f"{b_ms / out[0]['ms']:.3f} of its bound ({b_ms:.4f} ms, {b_by}); "
+          f"{cuda_ms(lambda: rg.rglru_bwd_cuda(x, la, None, h, dh)):.4f} ms "
+          f"between events")
+    del x, la, h, dh
+
+    e, c, d, f = GT_GMM
+    hh = torch.randn((e, c, d), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((e, d, f), generator=gen, device=dev)
+         / math.sqrt(d)).to(torch.bfloat16)
+    dout = torch.randn((e, c, f), generator=gen, device=dev).to(
+        torch.bfloat16)
+    ops_ = 4 * e * c * d * f
+    b_ms, b_by = bound((2 * e * c * d + 2 * e * d * f + e * c * f) * 2, ops_,
+                       BF16_OPS_S)
+    out.append({
+        "name": "moe_gmm_bwd", "route": "cuda", "kernel_route": "simt",
+        "source": "src/repro_torch/csrc/moe_gmm.cu",
+        "replaces": "src/repro/models/moe.py:86",      # no Pallas backward
+        "shape": list(GT_GMM), "dtype": "bfloat16",
+        "launches": gt_launches.get("moe_gmm_bwd", 0),
+        "max_abs_err": errs["moe_gmm_bwd"],
+        "ms": cuda_ms(lambda: mg.moe_gmm_bwd_cuda(hh, w, dout)),
+        "plain_ms": cuda_ms(lambda: mg.moe_gmm_bwd_plain(hh, w, dout),
+                            iters=5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: (
+            torch.bmm(dout, w.transpose(1, 2)),
+            torch.bmm(hh.transpose(1, 2), dout)))})
+    print(rate_line(out[-1], ops_))
+    print(f"moe_gmm_bwd: {out[-1]['ms']:.4f} ms between CUDA events (the "
+          f"row), {device_ms(lambda: mg.moe_gmm_bwd_cuda(hh, w, dout)):.4f} "
+          f"ms by torch.profiler")
+    del hh, w, dout
+
+    hq, hkv, dh_, window = RG_HEADS
+    b = RT_BATCH // RT_K
+    mk = lambda h_: torch.randn((b, s, h_, dh_), generator=gen,
+                                device=dev).to(torch.bfloat16).transpose(1, 2)
+    q, k, v, do = mk(hq), mk(hkv), mk(hkv), mk(hq)
+    o, lse = fa.flash_attention_cuda(q, k, v, causal=True, window=window,
+                                     with_lse=True)
+    pairs = b * hq * sum(min(i + 1, window) for i in range(s))
+    ops_ = 5 * 2 * dh_ * pairs
+    nbytes = (4 * hq + 4 * hkv) * b * s * dh_ * 2 + b * hq * s * 4
+    b_ms, b_by = bound(nbytes, ops_, BF16_OPS_S)
+    mask = fa._mask(s, s, True, window, dev)
+    lib = [q.contiguous()] + [t.expand(b, hq, s, dh_).contiguous()
+                              for t in (k, v)]
+    lib = [t.requires_grad_(True) for t in lib]
+    lib_out = F.scaled_dot_product_attention(*lib, attn_mask=mask)
+    lib_do = do.contiguous()
+    bwd = lambda *a: fa.flash_attention_bwd_cuda(*a, causal=True,
+                                                 window=window)
+    out.append({
+        "name": "flash_attention_bwd_dh256", "route": "cuda",
+        "kernel_route": "simt",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/common.py:88",   # no Pallas backward
+        "shape": [b, hq, s, dh_], "dtype": "bfloat16", "window": window,
+        "launches": rt_launches.get("flash_attention_bwd", 0),
+        "max_abs_err": errs["flash_bwd256"],
+        "ms": cuda_ms(lambda: bwd(q, k, v, o, lse, do), iters=5, warmup=1),
+        "plain_ms": device_ms(lambda: fa.attention_bwd_plain(
+            q, k, v, o, lse, do, causal=True, window=window), iters=2,
+            warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(
+            lib_out, lib, lib_do, retain_graph=True), iters=5, warmup=1)})
+    print(rate_line(out[-1], ops_))
+    print(f"flash_attention_bwd_dh256: {out[-1]['ms']:.4f} ms between "
+          f"CUDA events (the row), "
+          f"{device_ms(lambda: bwd(q, k, v, o, lse, do), iters=5):.4f} ms "
+          f"by torch.profiler")
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
@@ -3399,6 +3820,7 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
 
     from repro_torch.kernels import build, ops
+    print(f"kernels ({len(ops.KERNELS)}): {', '.join(ops.KERNELS)}")
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as mg
     from repro_torch.kernels import rglru as rg
@@ -3419,9 +3841,11 @@ def main():
     flash_err = check_flash(torch, fa, dev)
     flash_err["bwd"] = check_flash_bwd(torch, fa, dev)
     rglru_err = check_rglru(torch, rg, dev)
-    check_refuses_autograd(torch, ops, dev)
     wkv_err = check_wkv6(torch, rw, dev)
     gmm_err = check_moe_gmm(torch, mg, dev)
+    bwd_errs = {"rglru_bwd": check_rglru_bwd(torch, rg, dev),
+                "moe_gmm_bwd": check_moe_gmm_bwd(torch, mg, dev),
+                "flash_bwd256": check_flash_bwd256(torch, fa, dev)}
     check_small_model(torch, dev)
     check_small_hybrid(torch, dev)
     check_small_moe(torch, dev)
@@ -3522,15 +3946,42 @@ def main():
     serve_calls = serve_calls + ss_calls
     phase("streaming C2P2SL")
 
-    kernels = time_kernels(torch, wc, fa, rw, rg, dev, launches, rg_launches,
+    gt_rows, gt_launches, _gt_calls = run_granite_training(
+        torch, ops, train, protocol, dev, wc, card)
+    for r in gt_rows:
+        print(f"main path train {GR_ARCH} int8 step {r['step']}: loss "
+              f"{r['loss']:.5f}, aux {r['aux']:.5f}, {r['step_ms']:.1f} ms, "
+              f"{r['tokens_per_s']:.0f} tokens/s, peak {r['peak_gb']:.2f} "
+              f"GB, hop up {r['hop_bytes_up']} B, down "
+              f"{r['hop_bytes_down']} B ({card})")
+    phase(f"{GR_ARCH} training and profile")
+
+    rt_rows, rt_launches = run_hybrid_training(torch, ops, train, protocol,
+                                               dev, card)
+    for r in rt_rows:
+        print(f"main path train {RG_ARCH} k {RT_K} step {r['step']}: loss "
+              f"{r['loss']:.5f}, {r['step_ms']:.1f} ms, "
+              f"{r['tokens_per_s']:.0f} tokens/s, peak {r['peak_gb']:.2f} "
+              f"GB ({card})")
+    phase(f"{RG_ARCH} training and profile")
+
+    rg_all = dict(collections.Counter(rg_launches) + collections.Counter(
+        {k: v for k, v in rt_launches.items() if not k.endswith("_bwd")}))
+    kernels = time_kernels(torch, wc, fa, rw, rg, dev, launches, rg_all,
                            (train_launches, q_launches, tk_launches,
-                            tc_launches, st_launches),
+                            tc_launches, st_launches, gt_launches),
                            (serve_calls,
                             train_calls + q_calls + tk_calls + tc_calls
                             + st_calls, tc_grads),
                            flash_err, wkv_err, rglru_err, ptxas)
-    kernels += time_moe(torch, mg, fa, dev, gr_prefill, gr_launches, gmm_err,
-                        flash_err[GR_HEADS[2]])
+    gr_all = dict(collections.Counter(gr_launches) + collections.Counter(
+        {"moe_gmm": gt_launches["moe_gmm"]}))
+    kernels += time_moe(torch, mg, fa, dev, collections.Counter(gr_prefill)
+                        + collections.Counter({"moe_gmm":
+                                               gt_launches["moe_gmm"]}),
+                        gr_all, gmm_err, flash_err[GR_HEADS[2]])
+    kernels += time_backwards(torch, rg, mg, fa, dev, gt_launches,
+                              rt_launches, bwd_errs)
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']:.4f} ms, plain "
               f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "

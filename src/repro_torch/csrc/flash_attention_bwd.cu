@@ -53,8 +53,13 @@
 //   dh + 1, so a column read by 16 threads hits 16 banks) and each thread
 //   holds a 4 x 4 tile of S and dP and a 4 x (dh / 16) tile of its outputs,
 //   so f32 inputs keep the 2e-4 contract.
-// Head dims 16, 32, 64 and 128 are built; at 256 four f32 tiles of 64 rows
-// (263 KB) pass the 227 KB a block may hold, and the wrapper refuses it.
+// Head dims 16, 32, 64, 128 and 256 are built, 256 on SIMT only: the SIMT
+// tiles are 64 rows, and 32 at 256 (`bwd_tile`), where four f32 tiles of 64
+// rows (263 KB) would pass the 227 KB a block may hold.  At recurrentgemma-
+// 2b's local attention (10 q heads on one kv head, window 2048) the dK/dV
+// kernel's grid is (kv tiles, 1, B): each block walks the 10 heads' q tiles
+// of its window, and the 128-key blocks at S 4096 fill the card's 132 SMs
+// only about twice.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,9 +73,12 @@ namespace {
 
 enum { DT_F32 = 0, DT_BF16 = 1 };
 
-constexpr int kBQ = 64;        // query rows per tile
-constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // 16 x 16 threads: ty owns rows, tx columns
+
+// Query rows and keys of a SIMT tile: 64, and 32 at head dim 256, where
+// the four f32 tiles of 64 rows (263 KB) would not fit the 227 KB a block
+// may hold (32 rows: 136 KB and 140 KB).
+__host__ __device__ constexpr int bwd_tile(int dh) { return dh > 128 ? 32 : 64; }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -106,13 +114,13 @@ __device__ __forceinline__ bool no_key(int qi, int Skv, int window) {
   return window > 0 && qi - window + 1 >= Skv;
 }
 
-// Rows r0 .. r0 + 63 of a [S, DH] slab with row stride `stride` into a
-// [64][DH + 1] f32 tile, times `mul`; rows at or past S are zero.
-template <typename T, int DH>
+// Rows r0 .. r0 + ROWS - 1 of a [S, DH] slab with row stride `stride` into
+// a [ROWS][DH + 1] f32 tile, times `mul`; rows at or past S are zero.
+template <typename T, int DH, int ROWS>
 __device__ __forceinline__ void stage(float* dst, const T* src,
                                       long long stride, int r0, int S,
                                       float mul) {
-  for (int e = threadIdx.x; e < 64 * DH; e += kThreads) {
+  for (int e = threadIdx.x; e < ROWS * DH; e += kThreads) {
     const int r = e / DH, c = e % DH;
     dst[r * (DH + 1) + c] =
         r0 + r < S ? to_f32(src[(r0 + r) * stride + c]) * mul : 0.f;
@@ -121,12 +129,14 @@ __device__ __forceinline__ void stage(float* dst, const T* src,
 
 template <int DH>
 constexpr size_t dq_smem() {  // Q, dO, K, V tiles; dS; lse and D
+  constexpr int kBQ = bwd_tile(DH), kBK = kBQ;
   return sizeof(float) *
          (2 * kBQ * (DH + 1) + 2 * kBK * (DH + 1) + kBQ * (kBK + 1) + 2 * kBQ);
 }
 
 template <int DH>
 constexpr size_t dkv_smem() {  // K, V, Q, dO tiles; P^T and dS^T; lse, D
+  constexpr int kBQ = bwd_tile(DH), kBK = kBQ;
   return sizeof(float) *
          (2 * kBK * (DH + 1) + 2 * kBQ * (DH + 1) + 2 * kBK * (kBQ + 1) +
           2 * kBQ);
@@ -134,6 +144,7 @@ constexpr size_t dkv_smem() {  // K, V, Q, dO tiles; P^T and dS^T; lse, D
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq(Args<T> a) {
+  constexpr int kBQ = bwd_tile(DH), kBK = kBQ;
   constexpr int RQ = kBQ / 16;  // query rows per thread
   constexpr int CK = kBK / 16;  // keys per thread
   constexpr int CD = DH / 16;   // dQ columns per thread
@@ -155,21 +166,22 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(Args<T> a) {
 
   const T* kp = a.k + bb * a.ks.b + hk * a.ks.h;
   const T* vp = a.v + bb * a.vs.b + hk * a.vs.h;
-  stage<T, DH>(Qs, a.q + bb * a.qs.b + h * a.qs.h, a.qs.s, q0, a.Sq,
-               a.scale);
-  stage<T, DH>(dOs, a.dO + bb * a.dos.b + h * a.dos.h, a.dos.s, q0, a.Sq,
-               1.f);
+  stage<T, DH, kBQ>(Qs, a.q + bb * a.qs.b + h * a.qs.h, a.qs.s, q0, a.Sq,
+                    a.scale);
+  stage<T, DH, kBQ>(dOs, a.dO + bb * a.dos.b + h * a.dos.h, a.dos.s, q0,
+                    a.Sq, 1.f);
   __syncthreads();
-  {  // D = rowsum(dO * O): four neighbouring lanes a row, dh / 4 each
-    const int r = tid >> 2, part = tid & 3, qi = q0 + r;
+  {  // D = rowsum(dO * O): kLpr neighbouring lanes a row, dh / kLpr each
+    constexpr int kLpr = kThreads / kBQ;
+    const int r = tid / kLpr, part = tid % kLpr, qi = q0 + r;
     float d = 0.f;
     if (qi < a.Sq) {
       const T* orow = a.o + bb * a.os.b + h * a.os.h + qi * a.os.s;
-      for (int c = part; c < DH; c += 4)
+      for (int c = part; c < DH; c += kLpr)
         d = fmaf(dOs[r * (DH + 1) + c], to_f32(orow[c]), d);
     }
-    d += __shfl_xor_sync(0xffffffffu, d, 1);
-    d += __shfl_xor_sync(0xffffffffu, d, 2);
+#pragma unroll
+    for (int o = 1; o < kLpr; o *= 2) d += __shfl_xor_sync(0xffffffffu, d, o);
     if (part == 0) {
       Ds[r] = d;
       Ls[r] = qi < a.Sq ? a.lse[row0 + qi] : 0.f;
@@ -193,8 +205,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(Args<T> a) {
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's readers are done
-    stage<T, DH>(Ks, kp, a.ks.s, k0, a.Skv, 1.f);
-    stage<T, DH>(Vs, vp, a.vs.s, k0, a.Skv, 1.f);
+    stage<T, DH, kBK>(Ks, kp, a.ks.s, k0, a.Skv, 1.f);
+    stage<T, DH, kBK>(Vs, vp, a.vs.s, k0, a.Skv, 1.f);
     __syncthreads();
 
     float s[RQ][CK], dp[RQ][CK];
@@ -264,6 +276,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(Args<T> a) {
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv(Args<T> a) {
+  constexpr int kBQ = bwd_tile(DH), kBK = kBQ;
   constexpr int RK = kBK / 16;  // keys per thread
   constexpr int CQ = kBQ / 16;  // query rows per thread
   constexpr int CD = DH / 16;   // dK / dV columns per thread
@@ -300,8 +313,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv(Args<T> a) {
                            : n_qt;
   const float uniform = __fdiv_rn(1.f, static_cast<float>(a.Skv));
 
-  stage<T, DH>(Ks, a.k + bb * a.ks.b + hk * a.ks.h, a.ks.s, k0, a.Skv, 1.f);
-  stage<T, DH>(Vs, a.v + bb * a.vs.b + hk * a.vs.h, a.vs.s, k0, a.Skv, 1.f);
+  stage<T, DH, kBK>(Ks, a.k + bb * a.ks.b + hk * a.ks.h, a.ks.s, k0, a.Skv,
+                    1.f);
+  stage<T, DH, kBK>(Vs, a.v + bb * a.vs.b + hk * a.vs.h, a.vs.s, k0, a.Skv,
+                    1.f);
 
   float dk[RK][CD], dv[RK][CD];
 #pragma unroll
@@ -318,8 +333,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv(Args<T> a) {
       if (qt > qt_hi && qt < qt_nokey) continue;
       const int q0 = qt * kBQ;
       __syncthreads();  // the previous tile's readers are done
-      stage<T, DH>(Qs, qp, a.qs.s, q0, a.Sq, a.scale);
-      stage<T, DH>(dOs, dop, a.dos.s, q0, a.Sq, 1.f);
+      stage<T, DH, kBQ>(Qs, qp, a.qs.s, q0, a.Sq, a.scale);
+      stage<T, DH, kBQ>(dOs, dop, a.dos.s, q0, a.Sq, 1.f);
       if (tid < kBQ) {
         const bool in = q0 + tid < a.Sq;
         Ls[tid] = in ? a.lse[row0 + q0 + tid] : 0.f;
@@ -890,6 +905,7 @@ int launch(const Args<bf16>& a, int B, cudaStream_t stream) {
 
 template <typename T, int DH>
 int launch(const Args<T>& a, int B, cudaStream_t stream) {
+  constexpr int kBQ = bwd_tile(DH), kBK = kBQ;
   constexpr size_t smem_dq = dq_smem<DH>(), smem_dkv = dkv_smem<DH>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -931,6 +947,8 @@ int dispatch_dh(int route, int dh, const Args<T>& a, int B,
       return launch<T, 64>(a, B, stream);
     case 128:
       return launch<T, 128>(a, B, stream);
+    case 256:
+      return launch<T, 256>(a, B, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -979,8 +997,8 @@ extern "C" {
 // `bwd_route` checks this before the launch).  Launches the dQ kernel,
 // then the dK/dV kernel, on `stream`; returns cudaGetLastError()
 // (cudaErrorInvalidValue for a head dim without an instantiation: 16, 32,
-// 64 and 128 on SIMT, 64 and 128 on mma; or a route the dtype does not
-// take).
+// 64, 128 and 256 on SIMT, 64 and 128 on mma; or a route the dtype does
+// not take).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dO, const float* lse,
                         float* D, void* dq, void* dk, void* dv, int B, int Hq,

@@ -51,6 +51,22 @@
 // The tensor-core routes sum each output in another order than the plain
 // version (f32 sums of bf16 products, 16 at a time): the contract is 1e-2
 // relative to the largest value, not equality.
+//
+// The backward (`moe_gmm_bwd`; no Pallas kernel has this job, the reference
+// differentiates its einsums in models/moe.py) is the SIMT kernel twice,
+// with the operands read transposed through their strides:
+//
+//   dh[e] = dout[e] @ w[e]^T   ([C, F] @ [F, D], F summed)
+//   dw[e] = h[e]^T @ dout[e]   ([D, C] @ [C, F], C summed)
+//
+// f32 sums, each output rounded once to the inputs' dtype.  At granite-moe-
+// 3b-a800m's training shape (capacity 256: [40, 256, 1536] and [40, 1536,
+// 512]) a call reads h, w and dout and writes dh and dw, 199 MB (59.4 us
+// at 3.35 TB/s), for 32.2 GFLOP (32.6 us on the bf16 tensor cores): bytes,
+// narrowly.  The SIMT kernel runs the products on the f32 pipes (67 TFLOP/s
+// at best), far from either bound: the tensor-core routes with the
+// transposes taken through the descriptors are later work (ROADMAP.md,
+// Kernel follow-ups).
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is
                    // looked up at run time, so nothing links -lcuda
 #include <cuda_bf16.h>
@@ -79,25 +95,30 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <typename T>
+// out[e] [M, N] = a[e] [M, K] @ b[e] [K, N], out contiguous.  a lies along
+// K (AK: a[m][k] at m * as + k) or along M (!AK: at k * as + m), b along N
+// (BN: b[k][n] at k * bs + n) or along K (!BN: at n * bs + k), so the
+// forward and both products of the backward are one kernel: the loaders
+// put consecutive threads on the unit-stride axis.
+template <typename T, bool AK, bool BN>
 __global__ void __launch_bounds__(kThreads)
-gmm_fwd(const T* __restrict__ h, const T* __restrict__ w, T* __restrict__ out,
-        int C, int D, int F, long long hse, long long hsc, long long wse,
-        long long wsd) {
-  __shared__ __align__(16) float hs[kBK][kBM + kPad];  // hs[k][m] = h[m][k]
-  __shared__ __align__(16) float ws[kBK][kBN];
+gmm_simt(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
+         int M, int K, int N, long long ase, long long a_s, long long bse,
+         long long b_s) {
+  __shared__ __align__(16) float hs[kBK][kBM + kPad];  // hs[k][m] = a[m][k]
+  __shared__ __align__(16) float ws[kBK][kBN];         // ws[k][n] = b[k][n]
   const int e = blockIdx.z;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const T* hb = h + e * hse;
-  const T* wb = w + e * wse;
-  // loaders: h tile 64 rows x 16 (4 consecutive k a thread), w tile 16 rows
-  // x 64 (4 consecutive n a thread)
-  const int hm = tid / 4, hk = (tid % 4) * 4;
-  const int wk = tid / 16, wn = (tid % 16) * 4;
-  const bool h_row = m0 + hm < C;
-  const T* hrow = hb + static_cast<long long>(m0 + hm) * hsc;
+  const T* ab = a + e * ase;
+  const T* bb = b + e * bse;
+  // loaders, 4 elements a thread: the a tile is 64 m x 16 k, the b tile
+  // 16 k x 64 n
+  const int am = AK ? tid / 4 : tid % 64;
+  const int ak = AK ? (tid % 4) * 4 : tid / 64 * 4;
+  const int bk = BN ? tid / 16 : tid % 16;
+  const int bn = BN ? (tid % 16) * 4 : tid / 16 * 4;
 
   float acc[4][4];
 #pragma unroll
@@ -105,26 +126,32 @@ gmm_fwd(const T* __restrict__ h, const T* __restrict__ w, T* __restrict__ out,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < D; k0 += kBK) {
+  for (int k0 = 0; k0 < K; k0 += kBK) {
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const int gk = k0 + hk + u;
-      hs[hk + u][hm] = (h_row && gk < D) ? to_f32(hrow[gk]) : 0.f;
+      const int gm = m0 + am, gk = k0 + ak + u;
+      hs[ak + u][am] =
+          (gm < M && gk < K)
+              ? to_f32(ab[AK ? static_cast<long long>(gm) * a_s + gk
+                             : static_cast<long long>(gk) * a_s + gm])
+              : 0.f;
     }
-    const int gk = k0 + wk;
-    const T* wrow = wb + static_cast<long long>(gk) * wsd;
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const int gn = n0 + wn + u;
-      ws[wk][wn + u] = (gk < D && gn < F) ? to_f32(wrow[gn]) : 0.f;
+      const int gk = k0 + bk, gn = n0 + bn + u;
+      ws[bk][bn + u] =
+          (gk < K && gn < N)
+              ? to_f32(bb[BN ? static_cast<long long>(gk) * b_s + gn
+                             : static_cast<long long>(gn) * b_s + gk])
+              : 0.f;
     }
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < kBK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&hs[k][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&ws[k][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+      const float4 av4 = *reinterpret_cast<const float4*>(&hs[k][ty * 4]);
+      const float4 bv4 = *reinterpret_cast<const float4*>(&ws[k][tx * 4]);
+      const float av[4] = {av4.x, av4.y, av4.z, av4.w};
+      const float bv[4] = {bv4.x, bv4.y, bv4.z, bv4.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -133,29 +160,45 @@ gmm_fwd(const T* __restrict__ h, const T* __restrict__ w, T* __restrict__ out,
     __syncthreads();
   }
 
-  T* ob = out + static_cast<long long>(e) * C * F;
+  T* ob = out + static_cast<long long>(e) * M * N;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = m0 + ty * 4 + i;
-    if (row >= C) continue;
+    if (row >= M) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + tx * 4 + j;
-      if (col < F) store(ob + static_cast<long long>(row) * F + col,
+      if (col < N) store(ob + static_cast<long long>(row) * N + col,
                          acc[i][j]);
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* h, const void* w, void* out, int E, int C,
-                   int D, int F, long long hse, long long hsc, long long wse,
-                   long long wsd, cudaStream_t stream) {
-  const dim3 grid((F + kBN - 1) / kBN, (C + kBM - 1) / kBM, E);
-  gmm_fwd<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w), static_cast<T*>(out),
-      C, D, F, hse, hsc, wse, wsd);
+template <typename T, bool AK, bool BN>
+cudaError_t launch_simt(const void* a, const void* b, void* out, int E, int M,
+                        int K, int N, long long ase, long long a_s,
+                        long long bse, long long b_s, cudaStream_t stream) {
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, E);
+  gmm_simt<T, AK, BN><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(out),
+      M, K, N, ase, a_s, bse, b_s);
   return cudaGetLastError();
+}
+
+// The backward of out = h @ w on the SIMT kernel: dh[e] = dout[e] @ w[e]^T
+// (w read along its rows, F the reduced axis) and dw[e] = h[e]^T @ dout[e]
+// (h read along D, C the reduced axis).
+template <typename T>
+cudaError_t launch_bwd(const void* h, const void* w, const void* dout,
+                       void* dh, void* dw, int E, int C, int D, int F,
+                       long long hse, long long hsc, long long wse,
+                       long long wsd, long long dose, long long dosc,
+                       cudaStream_t stream) {
+  cudaError_t err = launch_simt<T, true, false>(dout, w, dh, E, C, F, D, dose,
+                                                dosc, wse, wsd, stream);
+  if (err != cudaSuccess) return err;
+  return launch_simt<T, false, true>(h, dout, dw, E, D, C, F, hse, hsc, dose,
+                                     dosc, stream);
 }
 
 
@@ -614,6 +657,32 @@ cudaError_t launch_wgmma(int route, const void* h, const void* w, void* out,
 
 extern "C" {
 
+// The backward of moe_gmm_fwd on the SIMT kernel: dh [E, C, D] and dw [E,
+// D, F], contiguous, from h and w as moe_gmm_fwd takes them and dout
+// [E, C, F] (strides dose, dosc along E and C, unit stride along F), each
+// summed in f32 and rounded once to the dtype.  Two launches, dh then dw.
+int moe_gmm_bwd(const void* h, const void* w, const void* dout, void* dh,
+                void* dw, int E, int C, int D, int F, long long hse,
+                long long hsc, long long wse, long long wsd, long long dose,
+                long long dosc, int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (E <= 0 || C <= 0 || D <= 0 || F <= 0) return 0;
+  if (E > 65535 || (C + kBM - 1) / kBM > 65535 ||
+      (D + kBM - 1) / kBM > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_F32)
+    err = launch_bwd<float>(h, w, dout, dh, dw, E, C, D, F, hse, hsc, wse,
+                            wsd, dose, dosc, s);
+  else if (dtype == DT_BF16)
+    err = launch_bwd<__nv_bfloat16>(h, w, dout, dh, dw, E, C, D, F, hse, hsc,
+                                    wse, wsd, dose, dosc, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(err);
+}
+
 // Strides are in elements: hse, hsc of h along E and C; wse, wsd of w along
 // E and D (the last axes have stride 1).  dtype: 0 f32, 1 bf16 (h, w and
 // out alike).  route: 0 the SIMT kernel (f32 or bf16), 1 wgmma + TMA, 2 its
@@ -641,9 +710,11 @@ int moe_gmm_fwd(const void* h, const void* w, void* out, int E, int C, int D,
   }
   if (route != ROUTE_SIMT) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DT_F32)
-    err = launch<float>(h, w, out, E, C, D, F, hse, hsc, wse, wsd, s);
+    err = launch_simt<float, true, true>(h, w, out, E, C, D, F, hse, hsc,
+                                         wse, wsd, s);
   else if (dtype == DT_BF16)
-    err = launch<__nv_bfloat16>(h, w, out, E, C, D, F, hse, hsc, wse, wsd, s);
+    err = launch_simt<__nv_bfloat16, true, true>(h, w, out, E, C, D, F, hse,
+                                                 hsc, wse, wsd, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(err);

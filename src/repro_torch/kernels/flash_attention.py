@@ -41,7 +41,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)      # instantiated in the CUDA source
-BWD_HEAD_DIMS = (16, 32, 64, 128)       # the backward's f32 tiles: not 256
+BWD_HEAD_DIMS = (16, 32, 64, 128, 256)  # 256 on SIMT, in tiles of 32 rows
 BWD_MMA_HEAD_DIMS = (64, 128)           # the backward's tensor-core kernels
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTE_IDS = {"simt": 0, "mma": 1}

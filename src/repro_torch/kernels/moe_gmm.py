@@ -11,7 +11,10 @@ strides and addresses before the launch: ``"wgmma"`` (bf16 on the tensor
 cores, fed by TMA), ``"wgmma_small_c"`` (the same with the operands
 swapped, for C <= ``SMALL_C``: a decode step) and ``"simt"`` (f32, and
 bf16 that TMA cannot address).  ``ROUTES`` counts the launches of each.
-``kernels/ops.py`` dispatches by device.
+``moe_gmm_bwd_cuda`` launches the backward (two products of the SIMT
+kernel, the operands read transposed through their strides) and
+``moe_gmm_bwd_plain`` is its plain version.  ``kernels/ops.py``
+dispatches by device.
 """
 from __future__ import annotations
 
@@ -49,18 +52,31 @@ def moe_gmm_plain(h, w):
                         w.to(torch.float32)).to(h.dtype)
 
 
+def moe_gmm_bwd_plain(h, w, dout):
+    """The backward of ``moe_gmm_plain``: (dh [E, C, D], dw [E, D, F]) with
+    ``dh[e] = dout[e] @ w[e]^T`` and ``dw[e] = h[e]^T @ dout[e]``, f32 sums,
+    in the dtypes of h and w (what autodiff of the reference's einsums
+    gives)."""
+    f32 = torch.float32
+    dout = dout.to(f32)
+    dh = torch.einsum("ecf,edf->ecd", dout, w.to(f32))
+    dw = torch.einsum("ecd,ecf->edf", h.to(f32), dout)
+    return dh.to(h.dtype), dw.to(w.dtype)
+
+
 _L, _I, _P = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
 _SIGNATURES = {
     "moe_gmm_fwd": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I,
                     _P],
+    "moe_gmm_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L,
+                    _L, _I, _I, _P],
 }
 
 
-def moe_gmm_cuda(h, w):
-    """Launch the grouped matmul kernel on CUDA tensors: h [E, C, D] and
-    w [E, D, F] of one dtype (f32 | bf16), each with a unit stride on its
-    last axis -> a contiguous [E, C, F] in that dtype.  The route is
-    chosen by ``route`` and counted in ``ROUTES``."""
+def _check(h, w):
+    """Raise unless h [E, C, D] and w [E, D, F] are CUDA tensors of one
+    dtype (f32 | bf16) with a unit stride on their last axes; -> (E, C, D,
+    F)."""
     for name, t in (("h", h), ("w", w)):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -78,9 +94,17 @@ def moe_gmm_cuda(h, w):
     if h.dtype not in _DTYPES or w.dtype != h.dtype:
         raise TypeError(f"moe_gmm kernel takes f32 or bf16 h and w of one "
                         f"dtype, got {h.dtype} and {w.dtype}")
-    f = w.shape[2]
-    if e > 65535 or -(-c // 64) > 65535:
-        raise ValueError(f"[E, C] = {(e, c)} exceeds the kernel's grid")
+    if e > 65535 or -(-max(c, d) // 64) > 65535:
+        raise ValueError(f"[E, C, D] = {(e, c, d)} exceeds the kernel's grid")
+    return e, c, d, w.shape[2]
+
+
+def moe_gmm_cuda(h, w):
+    """Launch the grouped matmul kernel on CUDA tensors: h [E, C, D] and
+    w [E, D, F] of one dtype (f32 | bf16), each with a unit stride on its
+    last axis -> a contiguous [E, C, F] in that dtype.  The route is
+    chosen by ``route`` and counted in ``ROUTES``."""
+    e, c, d, f = _check(h, w)
     strides = (h.stride(0), h.stride(1), w.stride(0), w.stride(1))
     how = route(h.dtype, c, d, strides, (h.data_ptr(), w.data_ptr()))
     out = torch.empty((e, c, f), dtype=h.dtype, device=h.device)
@@ -92,3 +116,31 @@ def moe_gmm_cuda(h, w):
     build.check("moe_gmm", code, f"moe_gmm launch ({how})")
     ROUTES[how] += 1
     return out
+
+
+def moe_gmm_bwd_cuda(h, w, dout):
+    """Launch the backward on CUDA tensors: h and w as ``moe_gmm_cuda``
+    takes them, dout [E, C, F] of their dtype (one without a unit stride
+    on its last axis is copied first) -> contiguous (dh [E, C, D], dw
+    [E, D, F]) in that dtype.  Two kernels, dh then dw; none where a
+    dimension is 0 (the gradients are then zeros)."""
+    e, c, d, f = _check(h, w)
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    if tuple(dout.shape) != (e, c, f) or dout.dtype != h.dtype \
+            or dout.device != h.device:
+        raise ValueError(f"dout must be a {h.dtype} [E, C, F] = "
+                         f"{(e, c, f)} tensor on {h.device}, got "
+                         f"{dout.dtype} {tuple(dout.shape)} on {dout.device}")
+    dh = torch.empty((e, c, d), dtype=h.dtype, device=h.device)
+    dw = torch.empty((e, d, f), dtype=h.dtype, device=h.device)
+    if 0 in (e, c, d, f):
+        return dh.zero_(), dw.zero_()
+    lib = build.load("moe_gmm", _SIGNATURES)
+    code = lib.moe_gmm_bwd(
+        h.data_ptr(), w.data_ptr(), dout.data_ptr(), dh.data_ptr(),
+        dw.data_ptr(), e, c, d, f, h.stride(0), h.stride(1), w.stride(0),
+        w.stride(1), dout.stride(0), dout.stride(1), _DTYPES[h.dtype],
+        h.device.index, build.stream_of(h))
+    build.check("moe_gmm", code, "moe_gmm_bwd launch")
+    return dh, dw

@@ -6,13 +6,12 @@ tensor launches the hand-written kernel, which raises when it cannot
 back.  ``LAUNCHES[name]`` grows by one at each launch of that kernel and
 nowhere else, so a run can show that its path went through the kernels.
 
-``wkv6`` and ``flash_attention`` are differentiable on both devices: on
-the CPU autograd runs through the plain versions, on the card through
-``_WKV6`` and ``_Flash``, whose backwards are the hand-written backward
-kernels (counted as ``wkv6_bwd`` and ``flash_attention_bwd``).  The RG-LRU
-and grouped-matmul kernels have no backward yet, so on the card they
-refuse to run under autograd rather than drop the gradients of their
-inputs; on the CPU autograd runs through their plain versions.
+Every kernel but the codec's is differentiable on both devices: on the
+CPU autograd runs through the plain versions, on the card through
+``_WKV6``, ``_Flash``, ``_RGLRU`` and ``_GMM``, whose backwards are the
+hand-written backward kernels (counted as ``wkv6_bwd``,
+``flash_attention_bwd``, ``rglru_scan_bwd`` and ``moe_gmm_bwd``, one per
+backward call).
 """
 from __future__ import annotations
 
@@ -27,7 +26,8 @@ from repro_torch.kernels import rwkv6 as _rw
 from repro_torch.kernels import wire_codec as _wc
 
 KERNELS = ("wire_encode", "wire_decode", "flash_attention",
-           "flash_attention_bwd", "wkv6", "wkv6_bwd", "rglru_scan", "moe_gmm")
+           "flash_attention_bwd", "wkv6", "wkv6_bwd", "rglru_scan",
+           "rglru_scan_bwd", "moe_gmm", "moe_gmm_bwd")
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -65,13 +65,6 @@ def wire_decode(q: torch.Tensor, scale: torch.Tensor,
 def _records_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
-
-
-def _refuse_autograd(kernel: str, *tensors) -> None:
-    if _records_grad(*tensors):
-        raise NotImplementedError(
-            f"the {kernel} kernel has no backward yet: it runs on the card "
-            "only without autograd (torch.no_grad / inference_mode)")
 
 
 class _Flash(torch.autograd.Function):
@@ -139,15 +132,57 @@ def wkv6(r, k, v, logw, u, s0=None):
     return _WKV6.apply(r, k, v, logw, u, s0)
 
 
+class _RGLRU(torch.autograd.Function):
+    """The CUDA scan and its backward kernel as one autograd node; the
+    backward reads the forward's output h for h_{t-1}."""
+
+    @staticmethod
+    def forward(ctx, x, log_a, h0):
+        ctx.set_materialize_grads(False)
+        h, h_last = _rg.rglru_cuda(x, log_a, h0)
+        LAUNCHES["rglru_scan"] += 1
+        ctx.save_for_backward(x, log_a, h0, h)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        x, log_a, h0, h = ctx.saved_tensors
+        if dh is None:
+            dh = torch.zeros_like(h)
+        dx, dla, dh0 = _rg.rglru_bwd_cuda(x, log_a, h0, h, dh, dh_last)
+        LAUNCHES["rglru_scan_bwd"] += 1
+        return dx, dla, dh0
+
+
 def rglru_scan(x, log_a, h0=None):
     """RG-LRU scan: x, log_a [B,S,R], h0 [B,R] or None -> (h [B,S,R],
     h_last [B,R]) in x's dtype, carried in f32."""
     if not _on_cuda(x):
         return _rg.rglru_plain(x, log_a, h0)
-    _refuse_autograd("RG-LRU", x, log_a, h0)
+    if _records_grad(x, log_a, h0):
+        return _RGLRU.apply(x, log_a, h0)
     out = _rg.rglru_cuda(x, log_a, h0)
     LAUNCHES["rglru_scan"] += 1
     return out
+
+
+class _GMM(torch.autograd.Function):
+    """The grouped matmul kernel and its backward kernel (dh and dw) as one
+    autograd node."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        out = _mg.moe_gmm_cuda(h, w)
+        LAUNCHES["moe_gmm"] += 1
+        ctx.save_for_backward(h, w)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        h, w = ctx.saved_tensors
+        dh, dw = _mg.moe_gmm_bwd_cuda(h, w, dout)
+        LAUNCHES["moe_gmm_bwd"] += 1
+        return dh, dw
 
 
 def moe_gmm(h, w):
@@ -155,7 +190,8 @@ def moe_gmm(h, w):
     dtype, summed in f32."""
     if not _on_cuda(h):
         return _mg.moe_gmm_plain(h, w)
-    _refuse_autograd("grouped expert matmul", h, w)
+    if _records_grad(h, w):
+        return _GMM.apply(h, w)
     out = _mg.moe_gmm_cuda(h, w)
     LAUNCHES["moe_gmm"] += 1
     return out

@@ -13,11 +13,23 @@ error feedback before the update).  k, v and the codec are plain values:
 the reference's planner (``auto``) is not ported.  Runs on the card unless
 ``--device cpu`` is given; without CUDA and without that flag it raises.
 Prints one JSON line per logged step: loss, step ms, tokens/s, peak device
-GB and the hop's wire bytes up and down.
+GB, the hop's wire bytes up and down and, for an MoE model, the
+load-balance aux.
+
+Which arch trains by which path: the homogeneous stacks (``rwkv6-3b``,
+``qwen1.5-4b``, ``granite-moe-3b-a800m``) by either; the hybrid
+``recurrentgemma-2b`` (RG-LRU and local-attention layers) by
+``--microbatches`` accumulation only, since the pipeline takes a
+homogeneous stack, as the reference asserts.
 
 PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-4b \
     --size full --pipeline-stages 2 --virtual-stages 2 --pipeline-k 4 \
     --wire-dtype int8+topk0.25 --batch 8 --seq 512 --steps 3 --log-every 1
+PYTHONPATH=src python -m repro_torch.launch.train \
+    --arch granite-moe-3b-a800m --size full --pipeline-stages 2 \
+    --pipeline-k 4 --wire-dtype int8 --batch 8 --seq 512 --steps 3
+PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \
+    --size full --microbatches 2 --batch 4 --seq 4096 --steps 3
 """
 from __future__ import annotations
 
@@ -145,6 +157,8 @@ def main(argv=None) -> dict:
                "hop_bytes_down": meter.down if meter else 0,
                "device": torch.cuda.get_device_name(device) if cuda
                else "cpu"}
+        if cfg.is_moe:
+            row["aux"] = float(mets["aux"])
         rows.append(row)
         if not math.isfinite(loss):
             raise FloatingPointError(f"step {i + 1}: loss {loss}")

@@ -479,10 +479,10 @@ def test_flash_bwd_at_zero_length_gives_zero_gradients(sq, skv):
 
 def test_flash_bwd_raises_on_what_it_does_not_take():
     dev = cuda_device()
-    t = torch.randn(1, 2, 8, 256, device=dev)    # dh 256: tiles too large
-    o, lse = fa.flash_attention_cuda(t, t, t, with_lse=True)
+    t = torch.randn(1, 2, 8, 96, device=dev)     # dh 96: not built
     with pytest.raises(ValueError):
-        fa.flash_attention_bwd_cuda(t, t, t, o, lse, t)
+        fa.flash_attention_bwd_cuda(t, t, t, t, torch.zeros(1, 2, 8,
+                                                            device=dev), t)
     t = torch.randn(1, 2, 8, 64, device=dev)
     o, lse = fa.flash_attention_cuda(t, t, t, with_lse=True)
     with pytest.raises(ValueError):
@@ -491,9 +491,35 @@ def test_flash_bwd_raises_on_what_it_does_not_take():
         fa.flash_attention_bwd_cuda(t, t, t, o, lse, t.bfloat16())
 
 
-def _small_training_step_on_card_and_cpu(arch, wire_dtype):
-    """One pipelined (S = 2, k = 2) SGD step of ``arch``'s f32 smoke model
-    on the CPU and on the card: (loss, params, launches) of each."""
+@pytest.mark.parametrize("dt,tol", [("float32", 2e-4), ("bfloat16", 5e-2)])
+def test_flash_bwd_at_head_dim_256(dt, tol):
+    """recurrentgemma-2b's local attention: dh 256, 10 q heads on one kv
+    head, a window shorter than S (and rows past it), in the model layout,
+    on the SIMT route in tiles of 32 rows; within ``tol`` absolute and
+    element by element, and two calls bit for bit."""
+    dev = cuda_device()
+    case = (2, 10, 1, 200, 200, 256, True, 48, True)
+    q, k, v, o, lse, do = _flash_bwd_inputs(dev, case, TORCH_DT[dt], 5)
+    fa.BWD_ROUTES.clear()
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True,
+                                        window=48)
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True,
+                                        window=48)
+    assert dict(fa.BWD_ROUTES) == {"simt": 2}
+    f32 = [t.float() for t in (q, k, v)]
+    _, lse_p = fa.attention_plain_lse(*f32, causal=True, window=48)
+    plain = fa.attention_bwd_plain(*f32, o.float(), lse_p, do.float(),
+                                   causal=True, window=48)
+    for got, want, same in zip(grads, plain, again):
+        assert float((got.float() - want).abs().max()) <= tol
+        _assert_elementwise(got, want, dt)
+        assert torch.equal(got, same)
+
+
+def _small_training_step_on_card_and_cpu(arch, wire_dtype, **step_kw):
+    """One SGD step of ``arch``'s f32 smoke model on the CPU and on the
+    card, pipelined (S = 2, k = 2) or with ``step_kw`` (k = 2 by
+    accumulation): (loss, params, launches) of each."""
     dev = cuda_device()
     cfg = get_arch(arch).smoke
     params = LM(cfg, "cpu").init(torch.Generator().manual_seed(0),
@@ -507,7 +533,8 @@ def _small_training_step_on_card_and_cpu(arch, wire_dtype):
         p = tree_map(lambda t: t.clone().to(where), params)
         step = make_lm_train_step(
             LM(cfg, where), opt,
-            pipeline=PipelineSpec(2, 2, wire_dtype=wire_dtype))
+            **(step_kw or dict(pipeline=PipelineSpec(
+                2, 2, wire_dtype=wire_dtype))))
         ops.reset_launches()
         state, mets = step({"params": p, "opt_state": opt.init(p),
                             "step": 0},
@@ -541,6 +568,28 @@ def test_small_qwen_training_step_on_card_matches_cpu(wire_dtype):
     launches = _small_training_step_on_card_and_cpu("qwen1.5-4b", wire_dtype)
     assert launches["flash_attention"] == 8
     assert launches["flash_attention_bwd"] == 4
+
+
+def test_small_granite_training_step_on_card_matches_cpu():
+    """The f32 smoke granite-moe (2 MoE layers, top 2 of 5 experts, tied
+    head), S = 2, k = 2, the hop int8: three grouped matmuls and one flash
+    a block and micro-batch, each twice under the activation checkpoint,
+    and their backward kernels once."""
+    launches = _small_training_step_on_card_and_cpu("granite-moe-3b-a800m",
+                                                    "int8")
+    assert launches == {"flash_attention": 8, "flash_attention_bwd": 4,
+                        "moe_gmm": 24, "moe_gmm_bwd": 12,
+                        "wire_encode": 4, "wire_decode": 4}
+
+
+def test_small_hybrid_training_step_on_card_matches_cpu():
+    """The f32 smoke recurrentgemma (rglru, rglru, local with window 8 at
+    S 40), k = 2 by accumulation: the scan and flash forwards twice a
+    block and micro-batch, their backward kernels once."""
+    launches = _small_training_step_on_card_and_cpu("recurrentgemma-2b",
+                                                    "none", microbatches=2)
+    assert launches == {"rglru_scan": 8, "rglru_scan_bwd": 4,
+                        "flash_attention": 4, "flash_attention_bwd": 2}
 
 
 RGLRU_CASES = [  # (b, s, r, h0)
@@ -589,15 +638,60 @@ def test_rglru_kernel_takes_strided_inputs_and_raises_on_the_rest():
         rg.rglru_cuda(x, la[:, :5])
 
 
-def test_rglru_counts_launches_and_refuses_autograd():
+RGLRU_BWD_CASES = [  # (b, s, r, h0)
+    (2, 1, 70, True),
+    (2, 1, 64, False),
+    (2, rg.CHUNK - 1, 70, False),
+    (2, rg.CHUNK + 1, 130, True),      # ragged S and R
+    (3, 300, 200, True),
+    (2, 0, 70, True),
+    (2, 4096, 2560, False),            # recurrentgemma-2b's training call
+]
+
+def test_rglru_counts_launches_and_backward_matches_plain():
+    """Without autograd one forward launch; under it the forward and, in
+    the backward, the backward kernel once, whose dx, dlog a and dh0 equal
+    autograd through the plain version within 2e-4 of the largest
+    value (f32)."""
     dev = cuda_device()
-    x, la, _ = _rglru_inputs(dev, 1, 16, 32, False, torch.float32)
+    x, la, h0 = _rglru_inputs(dev, 2, 70, 96, True, torch.float32)
     ops.reset_launches()
     ops.rglru_scan(x, la)
     assert dict(ops.LAUNCHES) == {"rglru_scan": 1}
-    with pytest.raises(NotImplementedError):
-        ops.rglru_scan(x.requires_grad_(True), la)
-    assert dict(ops.LAUNCHES) == {"rglru_scan": 1}
+    leaves = [t.clone().requires_grad_(True) for t in (x, la, h0)]
+    h, last = ops.rglru_scan(*leaves)
+    g = torch.Generator(device=dev).manual_seed(3)
+    dh, dl = torch.randn(h.shape, generator=g, device=dev), torch.randn(
+        last.shape, generator=g, device=dev)
+    got = torch.autograd.grad((h * dh).sum() + (last * dl).sum(), leaves)
+    assert dict(ops.LAUNCHES) == {"rglru_scan": 2, "rglru_scan_bwd": 1}
+    hp, lastp = rg.rglru_plain(*leaves)
+    want = torch.autograd.grad((hp * dh).sum() + (lastp * dl).sum(), leaves)
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= 2e-4
+
+
+@pytest.mark.parametrize("case", RGLRU_BWD_CASES, ids=str)
+@pytest.mark.parametrize("dt,tol", [("float32", 2e-4), ("bfloat16", 1e-2)])
+def test_rglru_bwd_kernel_edge_shapes(case, dt, tol):
+    """The backward kernel against ``rglru_bwd_plain`` on the kernel's own
+    h, with dh_last given: S = 1, S across chunk edges, R not a multiple
+    of 64, with and without h0, S = 0 (dh0 = dh_last), the full call."""
+    dev = cuda_device()
+    b, s, r, with_h0 = case
+    x, la, h0 = _rglru_inputs(dev, b, s, r, with_h0, TORCH_DT[dt], seed=2)
+    h, _ = rg.rglru_cuda(x, la, h0)
+    g = torch.Generator(device=dev).manual_seed(4)
+    dh = torch.randn(h.shape, generator=g, device=dev).to(h.dtype)
+    dl = torch.randn((b, r), generator=g, device=dev).to(h.dtype)
+    got = rg.rglru_bwd_cuda(x, la, h0, h, dh, dl)
+    want = rg.rglru_bwd_plain(x, la, h0, h, dh, dl)
+    for a, w, t in zip(got, want, (x, la, h0)):
+        if t is None:
+            assert a is None and w is None
+            continue
+        assert a.dtype == t.dtype and a.shape == t.shape
+        assert not a.numel() or _rel(a, w) <= tol
 
 
 RGLRU_EDGE_CASES = [  # (b, s, r, h0, log a span): chunks of rg.CHUNK steps
@@ -770,15 +864,64 @@ def test_moe_gmm_kernel_takes_strided_inputs_and_raises_on_the_rest():
         mg.moe_gmm_cuda(h.half(), w.half())
 
 
-def test_moe_gmm_counts_launches_and_refuses_autograd():
+def test_moe_gmm_counts_launches_and_backward_matches_plain():
+    """Without autograd one forward launch; under it the forward and the
+    backward kernel once, dh and dw equal to autograd through the plain
+    version within 2e-4 of the largest value (f32)."""
     dev = cuda_device()
-    h, w = _gmm_inputs(dev, 2, 16, 32, 8, torch.float32)
+    h, w = _gmm_inputs(dev, 3, 40, 48, 24, torch.float32)
     ops.reset_launches()
     ops.moe_gmm(h, w)
     assert dict(ops.LAUNCHES) == {"moe_gmm": 1}
-    with pytest.raises(NotImplementedError):
-        ops.moe_gmm(h, w.requires_grad_(True))
-    assert dict(ops.LAUNCHES) == {"moe_gmm": 1}
+    leaves = [t.clone().requires_grad_(True) for t in (h, w)]
+    dout = torch.randn((3, 40, 24), device=dev)
+    got = torch.autograd.grad(ops.moe_gmm(*leaves), leaves, dout)
+    assert dict(ops.LAUNCHES) == {"moe_gmm": 2, "moe_gmm_bwd": 1}
+    want = torch.autograd.grad(mg.moe_gmm_plain(*leaves), leaves, dout)
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= 2e-4
+
+
+GMM_BWD_CASES = [  # (E, C, D, F)
+    (40, 256, 1536, 512),     # granite-moe-3b-a800m training: w1, w3
+    (40, 256, 512, 1536),     # ... w2
+    (5, 37, 200, 72),         # ragged
+    (3, 8, 64, 40),           # C below SMALL_C
+    (2, 130, 96, 33),         # C past one tile
+]
+
+
+@pytest.mark.parametrize("case", GMM_BWD_CASES, ids=str)
+@pytest.mark.parametrize("dt,tol", [("float32", 2e-4), ("bfloat16", 1e-2)])
+def test_moe_gmm_bwd_kernel_matches_plain(case, dt, tol):
+    """dh and dw against ``moe_gmm_bwd_plain`` within ``tol`` of the
+    largest value (the forward's contract), contiguous, in the dtype."""
+    dev = cuda_device()
+    h, w = _gmm_inputs(dev, *case, TORCH_DT[dt])
+    e, c, _, f = case
+    dout = torch.randn((e, c, f), device=dev).to(TORCH_DT[dt])
+    got = mg.moe_gmm_bwd_cuda(h, w, dout)
+    for a, b, t in zip(got, mg.moe_gmm_bwd_plain(h, w, dout), (h, w)):
+        assert a.dtype == t.dtype and a.shape == t.shape
+        assert a.is_contiguous() and _rel(a, b) <= tol
+
+
+def test_moe_gmm_bwd_takes_misaligned_views():
+    """h, w and dout as strided views (h [E, C, D] from a [C, E, D]
+    buffer, w a column slice, dout without a unit stride, copied), bf16
+    based 2 bytes off 16: within 1e-2 of the largest value."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(6)
+    buf = torch.randn(20 * 3 * 48 + 1, generator=g, device=dev).to(
+        torch.bfloat16)
+    h = buf[1:].view(20, 3, 48).transpose(0, 1)
+    w = (torch.randn((3, 48, 40), generator=g, device=dev) / 7).to(
+        torch.bfloat16)[:, :, :33]
+    dout = torch.randn((3, 33, 20), generator=g, device=dev).to(
+        torch.bfloat16).transpose(1, 2)
+    for a, b in zip(mg.moe_gmm_bwd_cuda(h, w, dout),
+                    mg.moe_gmm_bwd_plain(h, w, dout)):
+        assert _rel(a, b) <= 1e-2
 
 
 def test_small_granite_on_card_matches_cpu():

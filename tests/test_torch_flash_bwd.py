@@ -30,6 +30,8 @@ CASES = [
     ("non_causal", 2, 2, 1, 24, 24, 16, False, 0, 16),
     # Sq >= Skv + window: rows 27-39 see no key, their softmax is uniform
     ("rows_without_keys", 1, 2, 1, 40, 20, 16, True, 8, 16),
+    # recurrentgemma's local attention: dh 256, 10 q heads on 1 kv head
+    ("dh256_window_gqa10", 1, 10, 1, 40, 40, 256, True, 16, 16),
 ]
 TOL = 1e-5
 
