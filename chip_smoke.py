@@ -54,11 +54,13 @@ Phases (any failure exits non-zero; nothing is caught):
      without h0, with dh_last, log a in (-20, 0) and bf16, within 2e-4 /
      1e-2 of the largest value, the path's call twice bit for bit; the
      grouped matmul's backward at granite's training shapes (capacity
-     256) in bf16 and f32, C = 8 and 130 and misaligned views, within
-     2e-4 / 1e-2; the flash backward at dh 256 on "simt", [2, 10, 4096,
-     256] bf16 on one kv head with window 2048 and [1, 10, 300, 256] f32
-     with window 100, within FLASH_TOL and the element gate, twice bit
-     for bit).  Small f32 models on the card are held to the same
+     256) in bf16 and f32, C = 8, 37 and 130, ragged D and F and
+     misaligned views, within 2e-4 / 1e-2, bf16 that TMA can address on
+     "wgmma" and the rest on "simt"; the flash backward at dh 256,
+     [2, 10, 4096, 256] bf16 on one kv head with window 2048, ragged S
+     and rows without keys in bf16 on "mma", and [1, 10, 300, 256] f32
+     with window 100 on "simt", within FLASH_TOL and the element gate,
+     twice bit for bit).  Small f32 models on the card are held to the same
      models on the CPU: a qwen prefill, a recurrentgemma prefill of a
      12-token prompt (window 8: the ring wraps) and 8 decode steps, a
      granite-moe prefill and 8 decode steps (the router's top-k expert ids
@@ -192,14 +194,14 @@ Phases (any failure exits non-zero; nothing is caught):
         training CLI at f's spec (S 2, k 4, int8, batch 8 x 512, 3 steps;
         capacity 256 a micro-batch): every loss and aux finite, every
         parameter changed (the router through the aux), hop bytes equal
-        to the bills at d = 1536, exactly GT_LAUNCHES (2304 moe_gmm, all
-        on "wgmma", 1152 moe_gmm_bwd, 768 / 384 flash on "mma", 24 + 24
-        codec calls at [1024, 1536]), peak GB, one more step traced;
+        to the bills at d = 1536, exactly GT_LAUNCHES (2304 moe_gmm and
+        1152 moe_gmm_bwd, all on "wgmma", 768 / 384 flash on "mma", 24 +
+        24 codec calls at [1024, 1536]), peak GB, one more step traced;
      l. training of recurrentgemma-2b (after k) through the training CLI
         with --microbatches 2 at batch 4 x 4096 (past the window of 2048),
         3 steps: every loss finite, every parameter changed, exactly
-        RT_LAUNCHES (216 rglru_scan, 108 rglru_scan_bwd, 96 flash on "mma",
-        48 flash backwards at dh 256 on "simt"), peak GB, one more step
+        RT_LAUNCHES (216 rglru_scan, 108 rglru_scan_bwd, 96 flash and 48
+        flash backwards at dh 256, all on "mma"), peak GB, one more step
         traced;
   5. timings: torch.profiler traces of one prefill and four decode steps
      of qwen, one prefill and one decode step each of recurrentgemma and
@@ -212,7 +214,10 @@ Phases (any failure exits non-zero; nothing is caught):
      twice, for its backward, SDPA for flash and, with the window as a
      boolean mask, for the dh-256 backward, torch.mul for the int8
      decode); the three backward kernels of k and l at their calls
-     (time_backwards); the codec at each shape
+     (time_backwards; the grouped matmul's and the dh-256 flash
+     backward's tensor-core routes beside their SIMT routes on the same
+     values as ``simt_ms``, with ptxas' registers and spills); the codec
+     at each shape
      the main paths coded (qwen's prefill hop and decode steps, the
      training hop), each row with the launches at its shape; for moe_gmm
      and flash also the achieved TFLOP/s and the share of the bound; the
@@ -384,6 +389,11 @@ FLASH_BWD_ELEM = {"float32": (2e-5, 1e-4), "bfloat16": (1e-3, 2 ** -7)}
 # flash backward's first kernels, before its tensor-core route): the first
 # step's loss depends on the forward alone, so it must agree to 5 digits
 Q_LOSSES_SIMT = (12.45325, 12.44874, 12.42027)
+# the first and last losses of the granite-moe and recurrentgemma training
+# runs through the SIMT backwards of moe_gmm and of flash at dh 256 (the
+# tensor-core routes sum in another order: printed beside, not required)
+GT_LOSSES_SIMT = (11.65197, 11.64274)
+RT_LOSSES_SIMT = (14.13339, 13.91081)
 
 
 def fail(msg: str):
@@ -1059,26 +1069,36 @@ def check_rglru_bwd(torch, rg, dev):
 def check_moe_gmm_bwd(torch, mg, dev):
     """The grouped matmul's backward kernel (dh, dw) against
     ``moe_gmm_bwd_plain`` within 2e-4 (f32) / 1e-2 (bf16) of the largest
-    value: granite-moe-3b-a800m's training shapes (capacity 256) in bf16
-    and f32, C below ``SMALL_C`` (8) and past a tile (130), ragged D and
-    F, and misaligned views (h from a [C, E, D] buffer based 2 bytes off
-    16, w a column slice, dout without a unit stride).  Returns the max
-    abs error at the path's w1 shape in bf16."""
+    value, each call on its asserted route (``mg.BWD_ROUTES``): granite-
+    moe-3b-a800m's training shapes (capacity 256) in bf16 ("wgmma") and
+    f32 ("simt"), C below ``SMALL_C`` (8), ragged C, D and F (37, 200,
+    72; 130, 96, 40), F = 33 (rows 66 bytes apart: "simt" in bf16 too),
+    and misaligned views (h from a [C, E, D] buffer based 2 bytes off 16,
+    w a column slice, dout without a unit stride: "simt").  Returns the
+    max abs error at the path's w1 shape in bf16."""
     gen = torch.Generator(device=dev).manual_seed(22)
     f32, bf16 = torch.float32, torch.bfloat16
     e, c, d, f = GT_GMM
-    cases = [(GT_GMM, bf16), ((e, c, f, d), bf16), (GT_GMM, f32),
-             ((3, 8, 200, 72), f32), ((3, 8, 200, 72), bf16),
-             ((2, 130, 96, 33), f32), ((2, 130, 96, 33), bf16)]
+    cases = [(GT_GMM, bf16, "wgmma"), ((e, c, f, d), bf16, "wgmma"),
+             (GT_GMM, f32, "simt"), ((3, 8, 200, 72), f32, "simt"),
+             ((3, 8, 200, 72), bf16, "wgmma"),
+             ((5, 37, 200, 72), bf16, "wgmma"),
+             ((2, 130, 96, 40), bf16, "wgmma"),
+             ((2, 130, 96, 33), f32, "simt"),
+             ((2, 130, 96, 33), bf16, "simt")]
     path_err = None
-    for (e_, c_, d_, f_), dt in cases:
+    for (e_, c_, d_, f_), dt, want_route in cases:
         h = torch.randn((e_, c_, d_), generator=gen, device=dev).to(dt)
         w = (torch.randn((e_, d_, f_), generator=gen, device=dev)
              / math.sqrt(d_)).to(dt)
         dout = torch.randn((e_, c_, f_), generator=gen, device=dev).to(dt)
+        mg.BWD_ROUTES.clear()
         got = mg.moe_gmm_bwd_cuda(h, w, dout)
         want = mg.moe_gmm_bwd_plain(h, w, dout)
         torch.cuda.synchronize()
+        if dict(mg.BWD_ROUTES) != {want_route: 1}:
+            fail(f"moe_gmm_bwd at [{e_}, {c_}, {d_}, {f_}] {dt}: routes "
+                 f"{dict(mg.BWD_ROUTES)}, expected {want_route}")
         tol = 2e-4 if dt == f32 else 1e-2
         errs = [_rel_err(a, b_) for a, b_ in zip(got, want)]
         if not max(errs) <= tol:
@@ -1088,39 +1108,49 @@ def check_moe_gmm_bwd(torch, mg, dev):
             path_err = max(float((a.float() - b_.float()).abs().max())
                            for a, b_ in zip(got, want))
         print(f"moe_gmm_bwd at E, C, D, F = {[e_, c_, d_, f_]} "
-              f"{str(dt)[6:]}: dh, dw within {errs[0]:.2e}, {errs[1]:.2e} "
-              f"of the largest value (tol {tol})")
+              f"{str(dt)[6:]} on {want_route}: dh, dw within "
+              f"{errs[0]:.2e}, {errs[1]:.2e} of the largest value (tol "
+              f"{tol})")
     buf = torch.randn(20 * 3 * 48 + 1, generator=gen, device=dev).to(bf16)
     h = buf[1:].view(20, 3, 48).transpose(0, 1)
     w = (torch.randn((3, 48, 40), generator=gen, device=dev) / 7).to(
         bf16)[:, :, :33]
     dout = torch.randn((3, 33, 20), generator=gen, device=dev).to(
         bf16).transpose(1, 2)
+    mg.BWD_ROUTES.clear()
     errs = [_rel_err(a, b_) for a, b_ in zip(mg.moe_gmm_bwd_cuda(h, w, dout),
                                              mg.moe_gmm_bwd_plain(h, w, dout))]
+    if dict(mg.BWD_ROUTES) != {"simt": 1}:
+        fail(f"moe_gmm_bwd on misaligned views: routes "
+             f"{dict(mg.BWD_ROUTES)}")
     if not max(errs) <= 1e-2:
         fail(f"moe_gmm_bwd on misaligned views: errors {errs}")
-    print(f"moe_gmm_bwd on misaligned bf16 views: within {max(errs):.2e}")
+    print(f"moe_gmm_bwd on misaligned bf16 views, simt: within "
+          f"{max(errs):.2e}")
     return path_err
 
 
 def check_flash_bwd256(torch, fa, dev):
-    """The flash backward at head dim 256 (SIMT, tiles of 32 rows) against
-    ``attention_bwd_plain``: recurrentgemma-2b's training call ([2, 10,
-    4096, 256] q on one kv head in the model layout, causal, window 2048
-    shorter than S) in bf16 and a ragged f32 call ([1, 10, 300, 256],
-    window 100), within ``FLASH_TOL`` absolute and ``FLASH_BWD_ELEM``
-    element by element, on route "simt", two calls bit for bit.  Returns
-    the training call's max abs error."""
+    """The flash backward at head dim 256 against ``attention_bwd_plain``:
+    recurrentgemma-2b's training call ([2, 10, 4096, 256] q on one kv
+    head in the model layout, causal, window 2048 shorter than S) and two
+    small bf16 calls (ragged S 300 with window 100; Sq 256 on Skv 130 with
+    window 48, whose last rows see no key), all on "mma" (the dK/dV
+    kernel's heads split over ``dkv_groups`` blocks: 5 and 10), and a
+    ragged f32 call ([1, 10, 300, 256], window 100) on "simt"; within
+    ``FLASH_TOL`` absolute and ``FLASH_BWD_ELEM`` element by element, two
+    calls bit for bit.  Returns the training call's max abs error."""
     gen = torch.Generator(device=dev).manual_seed(23)
     hq, hkv, dh, window = RG_HEADS
     path_err = None
-    for b, s, win, dt in ((RT_BATCH // RT_K, RT_SEQ, window, "bfloat16"),
-                          (1, 300, 100, "float32")):
+    for b, sq, skv, win, dt in (
+            (RT_BATCH // RT_K, RT_SEQ, RT_SEQ, window, "bfloat16"),
+            (1, 300, 300, 100, "bfloat16"), (1, 256, 130, 48, "bfloat16"),
+            (1, 300, 300, 100, "float32")):
         tdt = getattr(torch, dt)
-        mk = lambda h: torch.randn((b, s, h, dh), generator=gen,
-                                   device=dev).to(tdt).transpose(1, 2)
-        q, k, v, do = mk(hq), mk(hkv), mk(hkv), mk(hq)
+        mk = lambda h, s: torch.randn((b, s, h, dh), generator=gen,
+                                      device=dev).to(tdt).transpose(1, 2)
+        q, k, v, do = mk(hq, sq), mk(hkv, skv), mk(hkv, skv), mk(hq, sq)
         o, lse = fa.flash_attention_cuda(q, k, v, causal=True, window=win,
                                          with_lse=True)
         fa.BWD_ROUTES.clear()
@@ -1128,30 +1158,35 @@ def check_flash_bwd256(torch, fa, dev):
                                           window=win)
         again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True,
                                             window=win)
-        if dict(fa.BWD_ROUTES) != {"simt": 2}:
-            fail(f"flash_bwd dh 256: routes {dict(fa.BWD_ROUTES)}")
+        route = "mma" if dt == "bfloat16" else "simt"
+        if dict(fa.BWD_ROUTES) != {route: 2}:
+            fail(f"flash_bwd dh 256 {dt}: routes {dict(fa.BWD_ROUTES)}, "
+                 f"expected {route}")
         f = [t.float() for t in (q, k, v)]
         want = fa.attention_bwd_plain(*f, o.float(), lse, do.float(),
                                       causal=True, window=win)
         torch.cuda.synchronize()
         atol, rtol = FLASH_BWD_ELEM[dt]
-        errs = []
+        errs, shares = [], []
         for g, w_, g2 in zip(got, want, again):
             diff = (g.float() - w_).abs()
             errs.append(float(diff.max()))
-            if not (errs[-1] <= FLASH_TOL[dt] and bool(
-                    (diff <= atol + rtol * w_.abs()).all())
+            shares.append(float((diff / (atol + rtol * w_.abs())).max()))
+            if not (errs[-1] <= FLASH_TOL[dt] and shares[-1] <= 1.0
                     and torch.equal(g, g2)):
-                fail(f"flash_bwd dh 256 at [{b}, {hq}, {s}, {dh}] {dt} "
-                     f"window {win}: max err {errs[-1]}, or element gate "
-                     "or repeat failed")
+                fail(f"flash_bwd dh 256 at [{b}, {hq}, {sq}, {dh}] on Skv "
+                     f"{skv} {dt} window {win}: max err {errs[-1]}, element "
+                     f"gate share {shares[-1]}, or repeat failed")
         del want
         if path_err is None:
             path_err = max(errs)
-        print(f"flash_bwd dh 256 at [{b}, {hq}, {s}, {dh}] on {hkv} kv "
-              f"head, {dt}, window {win}, route simt: dq, dk, dv max err "
-              f"{', '.join(f'{e:.2e}' for e in errs)} (tol {FLASH_TOL[dt]}"
-              f", element gate held), two calls bit for bit")
+        groups = fa.dkv_groups(dh, hq // hkv, hkv, b, skv)
+        print(f"flash_bwd dh 256 at [{b}, {hq}, {sq}, {dh}] on {hkv} kv "
+              f"head, Skv {skv}, {dt}, window {win}, route {route}"
+              + (f" ({groups} head groups)" if route == "mma" else "")
+              + f": dq, dk, dv max err {', '.join(f'{e:.2e}' for e in errs)}"
+              f" (tol {FLASH_TOL[dt]}), element gate at most "
+              f"{max(shares):.3f} of its bound, two calls bit for bit")
     return path_err
 
 
@@ -2247,14 +2282,15 @@ def run_granite_training(torch, ops, train, protocol, dev, wc, card):
     training CLI (S 2, k 4, int8 hop, 8 x 512, 3 steps): every loss and
     aux finite, every parameter moved (the router through the aux), hop
     bytes equal to the bills at d = 1536, exactly ``GT_LAUNCHES``, every
-    grouped-matmul forward on "wgmma", every flash forward and backward
-    (dh 64) on "mma", every decode on "warp256".  One more step traced.
+    grouped-matmul forward and backward on "wgmma", every flash forward
+    and backward (dh 64) on "mma", every decode on "warp256".  One more step traced.
     Returns (rows, launches, codec calls by shape)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as mg
     torch.cuda.synchronize()
     ops.reset_launches()
-    for counter in (fa.ROUTES, fa.BWD_ROUTES, mg.ROUTES, wc.ROUTES):
+    for counter in (fa.ROUTES, fa.BWD_ROUTES, mg.ROUTES, mg.BWD_ROUTES,
+                    wc.ROUTES):
         counter.clear()
     with codec_calls(wc) as calls:
         res = train.main(_train_argv("int8", GR_ARCH))
@@ -2262,6 +2298,8 @@ def run_granite_training(torch, ops, train, protocol, dev, wc, card):
     launches = dict(ops.LAUNCHES)
     _check_train_launches(GR_ARCH, launches, {
         "moe_gmm": (dict(mg.ROUTES), {"wgmma": GT_LAUNCHES["moe_gmm"]}),
+        "moe_gmm backward": (dict(mg.BWD_ROUTES),
+                             {"wgmma": GT_LAUNCHES["moe_gmm_bwd"]}),
         "flash": (dict(fa.ROUTES), {"mma": GT_LAUNCHES["flash_attention"]}),
         "flash backward": (dict(fa.BWD_ROUTES),
                            {"mma": GT_LAUNCHES["flash_attention_bwd"]})},
@@ -2279,14 +2317,18 @@ def run_granite_training(torch, ops, train, protocol, dev, wc, card):
     if not all(math.isfinite(r["aux"]) and r["aux"] > 0 for r in rows):
         fail(f"train {GR_ARCH}: aux {[r['aux'] for r in rows]}")
     print(f"train {GR_ARCH} int8: losses "
-          f"{[round(r['loss'], 5) for r in rows]}, aux "
+          f"{[round(r['loss'], 5) for r in rows]} (through the SIMT "
+          f"moe_gmm_bwd {GT_LOSSES_SIMT[0]} -> {GT_LOSSES_SIMT[1]}: first "
+          f"{rows[0]['loss'] - GT_LOSSES_SIMT[0]:+.5f}, last "
+          f"{rows[-1]['loss'] - GT_LOSSES_SIMT[1]:+.5f}), aux "
           f"{[round(r['aux'], 5) for r in rows]}, all {n} parameter "
           f"tensors changed, hop bytes per step up == down == billed "
           f"{billed:.0f}; launches {json.dumps(launches, sort_keys=True)}; "
           f"peak {max(r['peak_gb'] for r in rows):.2f} GB on {card}")
-    profile_training_step(torch, res, {"moe_gmm forward": "gmm_wgmma",
-                                       "moe_gmm backward": "gmm_simt",
-                                       "flash backward": "flash_bwd"})
+    profile_training_step(torch, res, {
+        "moe_gmm forward": "gmm_wgmma<2,",
+        "moe_gmm backward": "gmm_wgmma<4,",
+        "flash backward": "flash_bwd"})
     del res
     torch.cuda.empty_cache()
     return rows, launches, calls
@@ -2295,8 +2337,8 @@ def run_granite_training(torch, ops, train, protocol, dev, wc, card):
 def run_hybrid_training(torch, ops, train, protocol, dev, card):
     """Training of recurrentgemma-2b at full width through the training
     CLI (k 2 by accumulation, 4 x 4096, 3 steps): every loss finite, every
-    parameter moved, exactly ``RT_LAUNCHES``, every flash forward on
-    "mma" and every flash backward (dh 256, window 2048 < S) on "simt".
+    parameter moved, exactly ``RT_LAUNCHES``, every flash forward and
+    every flash backward (dh 256, window 2048 < S) on "mma".
     One more step traced.  Returns (rows, launches)."""
     from repro_torch.kernels import flash_attention as fa
     torch.cuda.synchronize()
@@ -2312,18 +2354,23 @@ def run_hybrid_training(torch, ops, train, protocol, dev, card):
     _check_train_launches(RG_ARCH, launches, {
         "flash": (dict(fa.ROUTES), {"mma": RT_LAUNCHES["flash_attention"]}),
         "flash backward": (dict(fa.BWD_ROUTES),
-                           {"simt": RT_LAUNCHES["flash_attention_bwd"]})},
+                           {"mma": RT_LAUNCHES["flash_attention_bwd"]})},
         RT_LAUNCHES)
     n, _, _ = check_training_run(torch, protocol, dev, res,
                                  f"train {RG_ARCH}", "none")
     rows = res["rows"]
     print(f"train {RG_ARCH} k {RT_K}: losses "
-          f"{[round(r['loss'], 5) for r in rows]}, all {n} parameter "
+          f"{[round(r['loss'], 5) for r in rows]} (through the SIMT dh-256 "
+          f"backward {RT_LOSSES_SIMT[0]} -> {RT_LOSSES_SIMT[1]}: first "
+          f"{rows[0]['loss'] - RT_LOSSES_SIMT[0]:+.5f}, last "
+          f"{rows[-1]['loss'] - RT_LOSSES_SIMT[1]:+.5f}), all {n} parameter "
           f"tensors changed; launches {json.dumps(launches, sort_keys=True)}"
           f"; peak {max(r['peak_gb'] for r in rows):.2f} GB on {card}")
     profile_training_step(torch, res, {"rglru forward": "rglru_chunked<",
                                        "rglru backward": "rglru_chunked_bwd",
-                                       "flash backward": "flash_bwd"},
+                                       "flash backward": "flash_bwd",
+                                       "flash backward's group sum":
+                                       "bwd256::sum_groups"},
                           shape=(RT_BATCH, RT_SEQ), microbatches=RT_K)
     del res
     torch.cuda.empty_cache()
@@ -3667,8 +3714,23 @@ def time_moe(torch, mg, fa, dev, prefill_launches, run_launches, gmm_err,
     return out
 
 
+def _ptxas_of(ptxas, *keys):
+    """ptxas' registers and spills of the kernels whose names hold one of
+    ``keys`` (demangled or mangled spellings)."""
+    return {n: f"{used}; {spill}" for n, used, spill in ptxas
+            if any(k in n for k in keys)}
+
+
+def _off_16(torch, t):
+    """A copy of ``t`` (the same values and strides, dense) whose base is 2
+    bytes off 16: the routes send it to "simt"."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].as_strided(t.shape, t.stride())
+    return out.copy_(t)
+
+
 def time_backwards(torch, rg, mg, fa, dev, gt_launches, rt_launches,
-                   errs):
+                   errs, ptxas):
     """The three backward kernels of the hybrid and MoE training paths at
     their calls, with their launches there:
 
@@ -3679,14 +3741,18 @@ def time_backwards(torch, rg, mg, fa, dev, gt_launches, rt_launches,
     * ``moe_gmm_bwd`` (dh and dw) at granite-moe-3b-a800m's w1 shape
       ([40, 256, 1536] @ [40, 1536, 512] bf16), between CUDA events, as
       are its plain and library times (torch.profiler dropped one of its
-      two kernels in a call of its first runs).  Bound: h, w and dout read
-      and dh and dw written once, against 4 E C D F operations at the bf16
-      tensor-core rate; the library yardstick is ``torch.bmm`` twice;
+      two kernels in a call of its first runs), on the route the path
+      takes ("wgmma", from ``BWD_ROUTES``) and, as ``simt_ms``, on SIMT
+      (the same values with h based 2 bytes off 16).  Bound: h, w and
+      dout read and dh and dw written once, against 4 E C D F operations
+      at the bf16 tensor-core rate; the library yardstick is ``torch.bmm``
+      twice;
     * ``flash_attention_bwd_dh256`` at recurrentgemma-2b's local layers
       ([2, 10, 4096, 256] q on one kv head, bf16, causal, window 2048, the
-      model layout; route "simt"), timed between CUDA events (a call
-      lasts tens of ms; torch.profiler read 0.4 of the training step's
-      trace in a call of its first runs).  Bound: q, k, v, O, dO and lse
+      model layout), timed between CUDA events (torch.profiler read 0.4
+      of the training step's trace in a call of its first runs), on the
+      path's route ("mma", from ``BWD_ROUTES``) and, as ``simt_ms``, on
+      SIMT (q based 2 bytes off 16).  Bound: q, k, v, O, dO and lse
       read and
       dq, dk, dv written once, against five products of 2 dh operations a
       (q, k) pair inside the window at the bf16 tensor-core rate; the
@@ -3729,24 +3795,44 @@ def time_backwards(torch, rg, mg, fa, dev, gt_launches, rt_launches,
     b_ms, b_by = bound((2 * e * c * d + 2 * e * d * f + e * c * f) * 2, ops_,
                        BF16_OPS_S)
     out.append({
-        "name": "moe_gmm_bwd", "route": "cuda", "kernel_route": "simt",
+        "name": "moe_gmm_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/moe_gmm.cu",
         "replaces": "src/repro/models/moe.py:86",      # no Pallas backward
         "shape": list(GT_GMM), "dtype": "bfloat16",
         "launches": gt_launches.get("moe_gmm_bwd", 0),
         "max_abs_err": errs["moe_gmm_bwd"],
-        "ms": cuda_ms(lambda: mg.moe_gmm_bwd_cuda(hh, w, dout)),
         "plain_ms": cuda_ms(lambda: mg.moe_gmm_bwd_plain(hh, w, dout),
                             iters=5),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: (
-            torch.bmm(dout, w.transpose(1, 2)),
-            torch.bmm(hh.transpose(1, 2), dout)))})
+        "bound_ms": b_ms, "bound_by": b_by})
+    # the kernel and its yardstick in turns (kernel, bmm, bmm, kernel): the
+    # card's clock drifts by a few percent within a call
+    kern = lambda: mg.moe_gmm_bwd_cuda(hh, w, dout)
+    lib = lambda: (torch.bmm(dout, w.transpose(1, 2)),
+                   torch.bmm(hh.transpose(1, 2), dout))
+    turns = [cuda_ms(fn) for fn in (kern, lib, lib, kern)]
+    out[-1]["ms"] = (turns[0] + turns[3]) / 2
+    out[-1]["library_ms"] = (turns[1] + turns[2]) / 2
+    h_off = _off_16(torch, hh)
+    routes = []
+    for args in ((hh, w, dout), (h_off, w, dout)):
+        mg.BWD_ROUTES.clear()
+        mg.moe_gmm_bwd_cuda(*args)
+        routes.append(dict(mg.BWD_ROUTES))
+    if routes != [{"wgmma": 1}, {"simt": 1}]:
+        fail(f"moe_gmm_bwd timing: routes {routes}, expected wgmma and, "
+             f"with h 2 bytes off, simt")
+    out[-1]["kernel_route"] = next(iter(routes[0]))
+    out[-1]["simt_ms"] = cuda_ms(lambda: mg.moe_gmm_bwd_cuda(h_off, w, dout),
+                                 iters=10)
+    out[-1]["ptxas"] = _ptxas_of(ptxas, "gmm_wgmma<4,", "gmm_wgmmaILi4E")
     print(rate_line(out[-1], ops_))
     print(f"moe_gmm_bwd: {out[-1]['ms']:.4f} ms between CUDA events (the "
           f"row), {device_ms(lambda: mg.moe_gmm_bwd_cuda(hh, w, dout)):.4f} "
-          f"ms by torch.profiler")
-    del hh, w, dout
+          f"ms by torch.profiler; SIMT route {out[-1]['simt_ms']:.4f} ms "
+          f"({out[-1]['simt_ms'] / out[-1]['ms']:.2f}x); kernel, two bmm, "
+          f"two bmm, kernel: {', '.join(f'{t:.4f}' for t in turns)} ms; "
+          f"ptxas {out[-1]['ptxas']}")
+    del hh, w, dout, h_off
 
     hq, hkv, dh_, window = RG_HEADS
     b = RT_BATCH // RT_K
@@ -3769,24 +3855,37 @@ def time_backwards(torch, rg, mg, fa, dev, gt_launches, rt_launches,
                                                  window=window)
     out.append({
         "name": "flash_attention_bwd_dh256", "route": "cuda",
-        "kernel_route": "simt",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/common.py:88",   # no Pallas backward
         "shape": [b, hq, s, dh_], "dtype": "bfloat16", "window": window,
         "launches": rt_launches.get("flash_attention_bwd", 0),
         "max_abs_err": errs["flash_bwd256"],
-        "ms": cuda_ms(lambda: bwd(q, k, v, o, lse, do), iters=5, warmup=1),
+        "ms": cuda_ms(lambda: bwd(q, k, v, o, lse, do), iters=20, warmup=3),
         "plain_ms": device_ms(lambda: fa.attention_bwd_plain(
             q, k, v, o, lse, do, causal=True, window=window), iters=2,
             warmup=1),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms(lambda: torch.autograd.grad(
             lib_out, lib, lib_do, retain_graph=True), iters=5, warmup=1)})
+    simt_args = _q_off_16(torch, (q, k, v, o, lse, do))
+    routes = []
+    for args in ((q, k, v, o, lse, do), simt_args):
+        fa.BWD_ROUTES.clear()
+        bwd(*args)
+        routes.append(dict(fa.BWD_ROUTES))
+    if routes != [{"mma": 1}, {"simt": 1}]:
+        fail(f"flash_attention_bwd_dh256 timing: routes {routes}, expected "
+             f"mma and, with q 2 bytes off, simt")
+    out[-1]["kernel_route"] = next(iter(routes[0]))
+    out[-1]["simt_ms"] = cuda_ms(lambda: bwd(*simt_args), iters=3, warmup=1)
+    out[-1]["ptxas"] = _ptxas_of(ptxas, "mma256", "sum_groups")
     print(rate_line(out[-1], ops_))
     print(f"flash_attention_bwd_dh256: {out[-1]['ms']:.4f} ms between "
           f"CUDA events (the row), "
           f"{device_ms(lambda: bwd(q, k, v, o, lse, do), iters=5):.4f} ms "
-          f"by torch.profiler")
+          f"by torch.profiler; SIMT route {out[-1]['simt_ms']:.4f} ms "
+          f"({out[-1]['simt_ms'] / out[-1]['ms']:.2f}x); SDPA's backward "
+          f"{out[-1]['library_ms']:.4f} ms; ptxas {out[-1]['ptxas']}")
     return out
 
 
@@ -3981,7 +4080,8 @@ def main():
                                                gt_launches["moe_gmm"]}),
                         gr_all, gmm_err, flash_err[GR_HEADS[2]])
     kernels += time_backwards(torch, rg, mg, fa, dev, gt_launches,
-                              rt_launches, bwd_errs)
+                              rt_launches, bwd_errs,
+                              [r for rows in ptxas.values() for r in rows])
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']:.4f} ms, plain "
               f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "

@@ -42,24 +42,27 @@
 //
 // Two routes, chosen by the caller before the launch (kernels/
 // flash_attention.py `bwd_route`), never by a failure:
-// * "mma" (bf16 at head dims 64 and 128 whose eight tensors have 16-byte
-//   aligned bases and strides): `bwd_mma::flash_bwd_dq_mma` and
-//   `bwd_mma::flash_bwd_dkv_mma`, every product on the bf16 tensor cores
-//   with the tiles streamed by cp.async (their own comment below).
+// * "mma" (bf16 at head dims 64, 128 and 256 whose eight tensors have
+//   16-byte aligned bases and strides): `bwd_mma::flash_bwd_dq_mma` and
+//   `bwd_mma::flash_bwd_dkv_mma` at 64 and 128, `bwd256::
+//   flash_bwd_dq_mma256` and `bwd256::flash_bwd_dkv_mma256` (and
+//   `bwd256::sum_groups`) at 256, every product on the bf16 tensor cores
+//   with the tiles streamed by cp.async (their own comments below).
 // * "simt" (f32, bf16 that cp.async cannot load 16 bytes at a time, and
 //   head dims 16 and 32): `flash_bwd_dq` and `flash_bwd_dkv`, every product
 //   on the f32 pipes, tiled like the forward's SIMT kernel (flash_attention.cu
 //   `flash_fwd`): the tiles are staged in shared memory as f32 (row pitch
 //   dh + 1, so a column read by 16 threads hits 16 banks) and each thread
 //   holds a 4 x 4 tile of S and dP and a 4 x (dh / 16) tile of its outputs,
-//   so f32 inputs keep the 2e-4 contract.
-// Head dims 16, 32, 64, 128 and 256 are built, 256 on SIMT only: the SIMT
-// tiles are 64 rows, and 32 at 256 (`bwd_tile`), where four f32 tiles of 64
-// rows (263 KB) would pass the 227 KB a block may hold.  At recurrentgemma-
-// 2b's local attention (10 q heads on one kv head, window 2048) the dK/dV
-// kernel's grid is (kv tiles, 1, B): each block walks the 10 heads' q tiles
-// of its window, and the 128-key blocks at S 4096 fill the card's 132 SMs
-// only about twice.
+//   so f32 inputs keep the 2e-4 contract.  Its tiles are 64 rows, and 32
+//   at head dim 256 (`bwd_tile`), where four f32 tiles of 64 rows (263 KB)
+//   would pass the 227 KB a block may hold.
+// Bound at recurrentgemma-2b's local attention ([2, 10, 4096, 256] on one
+// kv head, causal, window 2048): five products of 2 x 256 operations for
+// each of the 125.8 M (q, k) pairs inside the window, 322 GFLOP (0.326 ms
+// at the bf16 tensor-core rate), against 0.18 GB of tensors: operations.
+// The mma route does ten products where that bound counts five (P and dS
+// enter theirs twice, as high and low parts).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -487,15 +490,16 @@ __device__ __forceinline__ int swz(int r, int c) {
 }
 
 // Rows row0 .. row0 + ROWS - 1 of a [S, DH] slab with row stride `stride`
-// into a swizzled tile; rows at or past S are zero-filled.
-template <int DH, int ROWS>
+// into a swizzled tile by a block of THREADS; rows at or past S are
+// zero-filled.
+template <int DH, int ROWS, int THREADS = kThreadsMma>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long stride, int row0, int S) {
   constexpr int NCH = Cfg<DH>::NCH;
-  static_assert(ROWS * NCH % kThreadsMma == 0, "whole passes of the block");
+  static_assert(ROWS * NCH % THREADS == 0, "whole passes of the block");
 #pragma unroll
-  for (int n = 0; n < ROWS * NCH / kThreadsMma; ++n) {
-    const int i = threadIdx.x + n * kThreadsMma;
+  for (int n = 0; n < ROWS * NCH / THREADS; ++n) {
+    const int i = threadIdx.x + n * THREADS;
     const int r = i / NCH, c = i % NCH;
     const bool ok = row0 + r < S;
     const bf16* g =
@@ -903,6 +907,528 @@ int launch(const Args<bf16>& a, int B, cudaStream_t stream) {
 
 }  // namespace bwd_mma
 
+// ------------------------------ bf16 at head dim 256 on the tensor cores
+//
+// The mma route's algebra and precision at dh 256, where `bwd_mma`'s
+// warps cannot hold their tiles: a dkv warp would keep dK and dV as two
+// 16 x 256 f32 blocks (256 registers a thread), and a dq warp's Q
+// fragments alone would take 64.  So the blocks have 8 warps and split
+// every output along dh: warp w owns 16 rows (dq) or keys (dkv), group
+// w % 4, and the dh half w / 4, one 16 x 128 f32 block of dQ, or of dK and
+// of dV (64 registers each).  Each tile runs in two phases:
+// * phase 1: the 8 warps share S and dP (dq) or S^T and dP^T (dkv) of the
+//   64 x 64 tile, 16 rows by 32 keys (or 16 keys by 32 rows) a warp, each
+//   computed once, with Q, dO, K and V read from shared memory (ldmatrix)
+//   at every tile and held in no register; the warp turns its part into P
+//   and dS and writes them to shared memory as bf16 high and low parts
+//   (`ptx::split2`), in [64][64] tiles swizzled like the operand tiles;
+// * phase 2: each warp reads the parts of its 16 rows back as A fragments
+//   over all 64 columns and adds hi x B and lo x B into its dh half.
+// Rather than two passes over the dh halves, which would compute S and dP
+// twice, the products are computed once and their P and dS shared.
+// Shared memory: the dq kernel holds Q and dO (64 rows, 32 KB each), a
+// 2-stage ring of K and V tiles of 64 keys (128 KB) and dS' parts (16 KB),
+// 208.5 KB; the dkv kernel K and V (64 keys), a 2-stage ring of Q and dO
+// tiles of 64 rows (128 KB) and the parts of P^T and dS^T (32 KB), 225 KB:
+// one block an SM.
+// Filling the card at one kv head: recurrentgemma-2b's local layers have
+// 10 q heads on 1 kv head, so a grid of (kv tiles, kv heads, batch) is 128
+// blocks of 10 heads each, one uneven wave: under the causal mask and the
+// window a block's work runs from 33 q tiles a head (the first 32 kv
+// tiles) down to 1.  The dkv grid splits each GQA group's heads over
+// `groups` blocks (kernels/flash_attention.py `dkv_groups`: the fewest,
+// dividing the group, that give 528 blocks, four waves; 5 groups of 2
+// heads here, where 2 groups would leave a second wave of heavy blocks
+// behind the light ones), each of which writes its f32 sums of dK and
+// dV to a scratch the wrapper allocates; `sum_groups` then adds the
+// groups' partials in order, scales dK and rounds once, so two calls give
+// the same bits.  One group writes bf16 at once.
+namespace bwd256 {
+
+using namespace ptx;
+using bf16 = __nv_bfloat16;
+using bwd_mma::frag_a;
+using bwd_mma::frag_b;
+using bwd_mma::frag_bt;
+using bwd_mma::load_tile;
+using bwd_mma::store_rows;
+using bwd_mma::swz;
+using bwd_mma::walk_from;
+using bwd_mma::zero;
+
+constexpr int DH = 256;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 64;          // query rows (dq) or keys (dkv) a block
+constexpr int kKeys = 64;          // keys a kv tile (dq)
+constexpr int kQRows = 64;         // query rows a q tile (dkv)
+constexpr int kTile = 64 * DH;     // elements of a [64][DH] tile
+constexpr int kPart = 64 * 64;     // elements of a [64][64] part of P or dS
+constexpr float kLog2e = 1.4426950408889634f;
+// Q, dO, 2 x (K, V), dS hi and lo; lse and D
+constexpr int SMEM_DQ = (6 * kTile + 2 * kPart) * 2 + 2 * kRows * 4;
+// K, V, 2 x (Q, dO), P^T and dS^T hi and lo; 2 x (lse, D)
+constexpr int SMEM_DKV = (6 * kTile + 4 * kPart) * 2 + 4 * kQRows * 4;
+static_assert(SMEM_DQ <= 232448 && SMEM_DKV <= 232448,
+              "the 227 KB a block may hold");
+
+// The bf16 high and low parts of the pair (x0, x1) at element `off` of the
+// parts hi and lo.
+__device__ __forceinline__ void put_hi_lo(bf16* hi, bf16* lo, int off,
+                                          float x0, float x1) {
+  uint32_t h, l;
+  split2(x0, x1, h, l);
+  *reinterpret_cast<uint32_t*>(hi + off) = h;
+  *reinterpret_cast<uint32_t*>(lo + off) = l;
+}
+
+// acc (a 16 x 128 block, the dh half `hf`) += (hi + lo) x t: the parts'
+// rows 16 w .. 16 w + 15 as A fragments over their 64 columns, times rows
+// 0 .. 63 of the [64][DH] tile t (ldmatrix.trans), hi then lo, f32 sums.
+__device__ __forceinline__ void product_parts(float (&acc)[16][4],
+                                              const bf16* hi, const bf16* lo,
+                                              const bf16* t, int w,
+                                              int hf) {
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb) {
+    uint32_t ah[4], al[4];
+    frag_a<64>(ah, hi, w, kb);
+    frag_a<64>(al, lo, w, kb);
+#pragma unroll
+    for (int db = 0; db < 8; ++db) {
+      uint32_t b[4];
+      frag_bt<DH>(b, t, kb, 8 * hf + db);
+      mma16816(acc[2 * db], ah, b[0], b[1]);
+      mma16816(acc[2 * db + 1], ah, b[2], b[3]);
+      mma16816(acc[2 * db], al, b[0], b[1]);
+      mma16816(acc[2 * db + 1], al, b[2], b[3]);
+    }
+  }
+}
+
+// Rows r, r + 8 of a 16 x 128 C-fragment block as f32 pairs at row
+// pointers p0 (row r) and p1 (row r + 8), where they are in range.
+__device__ __forceinline__ void store_rows_f32(float* p0, float* p1,
+                                               bool ok0, bool ok1,
+                                               const float (&acc)[16][4]) {
+  const int col = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (ok0)
+      *reinterpret_cast<float2*>(p0 + 8 * j + col) =
+          make_float2(acc[j][0], acc[j][1]);
+    if (ok1)
+      *reinterpret_cast<float2*>(p1 + 8 * j + col) =
+          make_float2(acc[j][2], acc[j][3]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_mma256(Args<bf16> a) {
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [64][DH]
+  bf16* dOs = Qs + kTile;                        // [64][DH]
+  bf16* Ks = dOs + kTile;                        // [2][64][DH]
+  bf16* Vs = Ks + 2 * kTile;                     // [2][64][DH]
+  bf16* Sh = Vs + 2 * kTile;                     // dS hi [64 rows][64 keys]
+  bf16* Sl = Sh + kPart;                         // dS lo
+  float* Ls = reinterpret_cast<float*>(Sl + kPart);  // [64], log2
+  float* Ds = Ls + kRows;                            // [64]
+
+  // grid (Hq, B, q tiles): the blocks of the heaviest tiles start first
+  const int n_qt = (a.Sq + kRows - 1) / kRows;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.z)) * kRows;
+  const int h = blockIdx.x, bb = blockIdx.y;
+  const int hk = h / (a.Hq / a.Hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // rows 16 rg ..; keys 32 hf .. in phase 1, dh half hf in phase 2
+  const int rg = warp & 3, hf = warp >> 2;
+  const long long row0 = (static_cast<long long>(bb) * a.Hq + h) * a.Sq;
+  const bf16* kp = a.k + bb * a.ks.b + hk * a.ks.h;
+  const bf16* vp = a.v + bb * a.vs.b + hk * a.vs.h;
+
+  // kv tiles the block's rows see; a row without a key sees none, and its
+  // dQ stays 0
+  const int q_last = min(q0 + kRows, a.Sq) - 1;
+  int kt_end = (a.Skv + kKeys - 1) / kKeys;
+  if (a.causal) kt_end = min(kt_end, q_last / kKeys + 1);
+  const int kt_begin =
+      a.window > 0 ? max(q0 - a.window + 1, 0) / kKeys : 0;
+
+  load_tile<DH, kRows, kThreads>(Qs, a.q + bb * a.qs.b + h * a.qs.h,
+                                 a.qs.s, q0, a.Sq);
+  load_tile<DH, kRows, kThreads>(dOs, a.dO + bb * a.dos.b + h * a.dos.h,
+                                 a.dos.s, q0, a.Sq);
+  cp_commit();
+  if (kt_begin < kt_end) {
+    load_tile<DH, kKeys, kThreads>(Ks, kp, a.ks.s, kt_begin * kKeys, a.Skv);
+    load_tile<DH, kKeys, kThreads>(Vs, vp, a.vs.s, kt_begin * kKeys, a.Skv);
+  }
+  cp_commit();
+  cp_wait<1>();  // Q and dO have landed
+  __syncthreads();
+
+  {  // D = rowsum(dO * O): four neighbouring lanes a row, 16 bytes a load
+    const int r = threadIdx.x >> 2, part = threadIdx.x & 3, qi = q0 + r;
+    float d = 0.f;
+    if (qi < a.Sq) {
+      const bf16* orow = a.o + bb * a.os.b + h * a.os.h + qi * a.os.s;
+#pragma unroll
+      for (int c = part * DH / 32; c < (part + 1) * DH / 32; ++c) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + 8 * c);
+        const uint4 gv = *reinterpret_cast<const uint4*>(dOs + swz<DH>(r, c));
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(o2[e]);
+          const float2 gf = __bfloat1622float2(g2[e]);
+          d = fmaf(gf.x, of.x, d);
+          d = fmaf(gf.y, of.y, d);
+        }
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    if (part == 0) {
+      Ds[r] = d;
+      Ls[r] = qi < a.Sq ? a.lse[row0 + qi] * kLog2e : 0.f;
+      if (qi < a.Sq) a.D[row0 + qi] = d;
+    }
+  }
+  __syncthreads();  // Ls and Ds are written
+  // this lane's rows in S / dQ: rl and rl + 8 of the block's
+  const int rl = rg * 16 + (lane >> 2), r0 = q0 + rl;
+  const float lse2[2] = {Ls[rl], Ls[rl + 8]};
+  const float dd[2] = {Ds[rl], Ds[rl + 8]};
+  const float scale_log2 = a.scale * kLog2e;
+
+  float acc[16][4];  // dQ, columns 128 hf ..
+  zero(acc);
+  for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
+    const int st = it & 1;
+    if (kt + 1 < kt_end) {
+      load_tile<DH, kKeys, kThreads>(Ks + (st ^ 1) * kTile, kp, a.ks.s,
+                                     (kt + 1) * kKeys, a.Skv);
+      load_tile<DH, kKeys, kThreads>(Vs + (st ^ 1) * kTile, vp, a.vs.s,
+                                     (kt + 1) * kKeys, a.Skv);
+    }
+    cp_commit();
+    cp_wait<1>();  // tile kt has landed
+    __syncthreads();
+    const bf16* Kt = Ks + st * kTile;
+    const bf16* Vt = Vs + st * kTile;
+
+    // phase 1: S and dP of rows 16 rg .. by keys 32 hf ..
+    float s[4][4], dp[4][4];  // S, then P; dP, then dS
+    zero(s);
+    zero(dp);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      uint32_t qa[4], ga[4];
+      frag_a<DH>(qa, Qs, rg, kk);
+      frag_a<DH>(ga, dOs, rg, kk);
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        uint32_t b[4];
+        frag_b<DH>(b, Kt, 2 * hf + nb, kk);
+        mma16816(s[2 * nb], qa, b[0], b[1]);
+        mma16816(s[2 * nb + 1], qa, b[2], b[3]);
+        frag_b<DH>(b, Vt, 2 * hf + nb, kk);
+        mma16816(dp[2 * nb], ga, b[0], b[1]);
+        mma16816(dp[2 * nb + 1], ga, b[2], b[3]);
+      }
+    }
+    // s[j][c]: row r0 + 8 (c >> 1), key k0 + 32 hf + 8 j + 2 (lane & 3)
+    // + (c & 1).  Rows past Sq have zero dO and D, so their dS is 0.
+    const int k0 = kt * kKeys;
+    const bool edge = (a.causal && k0 + kKeys - 1 > q0) ||
+                      (a.window > 0 && k0 <= q0 + kRows - 1 - a.window) ||
+                      k0 + kKeys > a.Skv;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float p = exp2f(fmaf(s[j][c], scale_log2, -lse2[c >> 1]));
+        if (edge) {
+          const int kj = k0 + 32 * hf + 8 * j + 2 * (lane & 3) + (c & 1);
+          const int qi = r0 + 8 * (c >> 1);
+          if (kj >= a.Skv || !sees(qi, kj, a.causal, a.window)) p = 0.f;
+        }
+        dp[j][c] = p * (dp[j][c] - dd[c >> 1]);
+      }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        put_hi_lo(Sh, Sl, swz<64>(rl + 8 * i, 4 * hf + j) + 2 * (lane & 3),
+                  dp[j][2 * i], dp[j][2 * i + 1]);
+    __syncthreads();  // dS of the whole tile is written
+    // phase 2: dQ += dS K over the tile's 64 keys, this warp's dh half
+    product_parts(acc, Sh, Sl, Kt, rg, hf);
+    __syncthreads();  // every warp is done with stage st and dS
+  }
+
+  bf16* dqp = a.dq + bb * a.dqs.b + h * a.dqs.h + 128 * hf;
+  store_rows<128>(dqp + r0 * a.dqs.s, dqp + (r0 + 8) * a.dqs.s, r0 < a.Sq,
+                  r0 + 8 < a.Sq, acc, a.scale);
+}
+
+// part: null, or the f32 scratch [2][groups][B][Hkv][Skv][DH] (dK's sums,
+// then dV's) when the GQA group's heads are split over `groups` blocks.
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_mma256(Args<bf16> a, int groups, float* part) {
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [64][DH]
+  bf16* Vs = Ks + kTile;                         // [64][DH]
+  bf16* Qs = Vs + kTile;                         // [2][64][DH]
+  bf16* dOs = Qs + 2 * kTile;                    // [2][64][DH]
+  bf16* Ph = dOs + 2 * kTile;                    // P^T hi [64 keys][64 rows]
+  bf16* Pl = Ph + kPart;                         // P^T lo
+  bf16* Gh = Pl + kPart;                         // dS^T hi
+  bf16* Gl = Gh + kPart;                         // dS^T lo
+  float* Ls = reinterpret_cast<float*>(Gl + kPart);  // [2][64]
+  float* Ds = Ls + 2 * kQRows;                       // [2][64]
+
+  // grid (Hkv x groups, B, kv tiles): under a causal mask the blocks of
+  // the heaviest tiles (the first keys) start first
+  const int k0 = blockIdx.z * kRows;
+  const int hk = blockIdx.x / groups, g = blockIdx.x % groups;
+  const int bb = blockIdx.y;
+  const int rep = a.Hq / a.Hkv, per = rep / groups;
+  const int h_first = hk * rep + g * per;  // this block's query heads
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // keys 16 kg ..; rows 32 hf .. in phase 1, dh half hf in phase 2
+  const int kg = warp & 3, hf = warp >> 2;
+
+  // the q tiles of each query head, as flash_bwd_dkv walks them
+  const int n_qt = (a.Sq + kQRows - 1) / kQRows;
+  const int k_last = min(k0 + kRows, a.Skv) - 1;
+  const int qt_lo = a.causal ? k0 / kQRows : 0;
+  const long long reach = a.window > 0
+                              ? static_cast<long long>(k_last) + a.window - 1
+                              : static_cast<long long>(a.Sq) - 1;
+  const int qt_hi =
+      static_cast<int>(min(reach, static_cast<long long>(a.Sq) - 1) / kQRows);
+  const long long first_no_key =
+      static_cast<long long>(a.Skv) + a.window - 1;
+  const int qt_nokey = a.window > 0 && first_no_key < a.Sq
+                           ? static_cast<int>(first_no_key / kQRows)
+                           : n_qt;
+  const int qt_first = walk_from(qt_lo, qt_hi, qt_nokey);
+  const float uniform = __fdiv_rn(1.f, static_cast<float>(a.Skv));
+  const float scale_log2 = a.scale * kLog2e;
+
+  // Q, dO, lse and D of query head h_first + hh, tile qt, into stage st
+  auto load_q = [&](int st, int hh, int qt) {
+    const int h = h_first + hh, q0 = qt * kQRows;
+    const long long row0 = (static_cast<long long>(bb) * a.Hq + h) * a.Sq;
+    load_tile<DH, kQRows, kThreads>(Qs + st * kTile,
+                                    a.q + bb * a.qs.b + h * a.qs.h, a.qs.s,
+                                    q0, a.Sq);
+    load_tile<DH, kQRows, kThreads>(dOs + st * kTile,
+                                    a.dO + bb * a.dos.b + h * a.dos.h,
+                                    a.dos.s, q0, a.Sq);
+    if (threadIdx.x < kQRows) {
+      const int i = threadIdx.x;
+      const bool ok = q0 + i < a.Sq;
+      const long long at = ok ? row0 + q0 + i : 0;
+      cp_async4(Ls + st * kQRows + i, a.lse + at, ok);
+      cp_async4(Ds + st * kQRows + i, a.D + at, ok);
+    }
+  };
+
+  load_tile<DH, kRows, kThreads>(Ks, a.k + bb * a.ks.b + hk * a.ks.h,
+                                 a.ks.s, k0, a.Skv);
+  load_tile<DH, kRows, kThreads>(Vs, a.v + bb * a.vs.b + hk * a.vs.h,
+                                 a.vs.s, k0, a.Skv);
+  const bool any = qt_first < n_qt;
+  if (any) load_q(0, 0, qt_first);
+  cp_commit();
+
+  float dk[16][4], dv[16][4];  // columns 128 hf ..
+  zero(dk);
+  zero(dv);
+  // this lane's keys in S^T / dK / dV: kl and kl + 8 of the block's
+  const int kl = kg * 16 + (lane >> 2), kr = k0 + kl;
+
+  int hh = 0, qt = qt_first;
+  for (int it = 0; any && hh < per; ++it) {
+    const int st = it & 1;
+    int nhh = hh, nqt = walk_from(qt + 1, qt_hi, qt_nokey);
+    if (nqt >= n_qt) {
+      ++nhh;
+      nqt = qt_first;
+    }
+    if (nhh < per) load_q(st ^ 1, nhh, nqt);
+    cp_commit();
+    cp_wait<1>();  // K, V and this tile have landed
+    __syncthreads();
+    const bf16* Qt = Qs + st * kTile;
+    const bf16* dOt = dOs + st * kTile;
+    const float* Lt = Ls + st * kQRows;
+    const float* Dt = Ds + st * kQRows;
+
+    // phase 1: S^T and dP^T of keys 16 kg .. by rows 32 hf ..
+    float s[4][4], ds[4][4];  // S^T, then P^T; dP^T, then dS^T
+    zero(s);
+    zero(ds);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      frag_a<DH>(ka, Ks, kg, kk);
+      frag_a<DH>(va, Vs, kg, kk);
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        uint32_t b[4];
+        frag_b<DH>(b, Qt, 2 * hf + nb, kk);
+        mma16816(s[2 * nb], ka, b[0], b[1]);
+        mma16816(s[2 * nb + 1], ka, b[2], b[3]);
+        frag_b<DH>(b, dOt, 2 * hf + nb, kk);
+        mma16816(ds[2 * nb], va, b[0], b[1]);
+        mma16816(ds[2 * nb + 1], va, b[2], b[3]);
+      }
+    }
+
+    // s[j][c]: key kr + 8 (c >> 1), query row q0 + 32 hf + 8 j +
+    // 2 (lane & 3) + (c & 1)
+    const int q0 = qt * kQRows;
+    const bool edge = (a.causal && k0 + kRows - 1 > q0) ||
+                      (a.window > 0 && k0 <= q0 + kQRows - 1 - a.window) ||
+                      k0 + kRows > a.Skv || q0 + kQRows > a.Sq;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = 32 * hf + 8 * j + 2 * (lane & 3);
+      const float2 l2 = *reinterpret_cast<const float2*>(Lt + col);
+      const float2 d2 = *reinterpret_cast<const float2*>(Dt + col);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float lse = c & 1 ? l2.y : l2.x, d = c & 1 ? d2.y : d2.x;
+        float p = exp2f(fmaf(s[j][c], scale_log2, -lse * kLog2e));
+        float gr = p * (ds[j][c] - d);
+        if (edge) {
+          const int kj = kr + 8 * (c >> 1), qi = q0 + col + (c & 1);
+          if (qi >= a.Sq || kj >= a.Skv) {
+            p = gr = 0.f;
+          } else if (!sees(qi, kj, a.causal, a.window)) {
+            gr = 0.f;
+            p = no_key(qi, a.Skv, a.window) ? uniform : 0.f;
+          }
+        }
+        s[j][c] = p;
+        ds[j][c] = gr;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int off = swz<64>(kl + 8 * i, 4 * hf + j) + 2 * (lane & 3);
+        put_hi_lo(Ph, Pl, off, s[j][2 * i], s[j][2 * i + 1]);
+        put_hi_lo(Gh, Gl, off, ds[j][2 * i], ds[j][2 * i + 1]);
+      }
+    __syncthreads();  // P^T and dS^T of the whole tile are written
+    // phase 2: this warp's dh half over the tile's 64 rows
+    product_parts(dv, Ph, Pl, dOt, kg, hf);  // dV += P^T dO
+    product_parts(dk, Gh, Gl, Qt, kg, hf);   // dK += dS^T Q
+    __syncthreads();  // every warp is done with stage st and the parts
+    hh = nhh;
+    qt = nqt;
+  }
+
+  const bool ok0 = kr < a.Skv, ok1 = kr + 8 < a.Skv;
+  if (part == nullptr) {
+    bf16* dkp = a.dk + bb * a.dks.b + hk * a.dks.h + 128 * hf;
+    bf16* dvp = a.dv + bb * a.dvs.b + hk * a.dvs.h + 128 * hf;
+    store_rows<128>(dkp + kr * a.dks.s, dkp + (kr + 8) * a.dks.s, ok0, ok1,
+                    dk, a.scale);
+    store_rows<128>(dvp + kr * a.dvs.s, dvp + (kr + 8) * a.dvs.s, ok0, ok1,
+                    dv, 1.f);
+  } else {
+    const long long n = static_cast<long long>(gridDim.y) * a.Hkv * a.Skv *
+                        DH;  // one group's partial
+    float* pk = part +
+                ((static_cast<long long>(g) * gridDim.y + bb) * a.Hkv + hk) *
+                    a.Skv * DH +
+                128 * hf;
+    float* pv = pk + groups * n;
+    store_rows_f32(pk + static_cast<long long>(kr) * DH,
+                   pk + static_cast<long long>(kr + 8) * DH, ok0, ok1, dk);
+    store_rows_f32(pv + static_cast<long long>(kr) * DH,
+                   pv + static_cast<long long>(kr + 8) * DH, ok0, ok1, dv);
+  }
+}
+
+// dk = bf16(scale * sum of the groups' dK partials), dv = bf16(sum of their
+// dV partials), the groups added in order 0, 1, ..: four elements a
+// thread, over the grid's stride.
+__global__ void __launch_bounds__(256)
+sum_groups(Args<bf16> a, int B, int groups, const float* __restrict__ part) {
+  const long long n4 = static_cast<long long>(B) * a.Hkv * a.Skv * (DH / 4);
+  const long long n = 4 * n4;  // one group's partial
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < 2 * n4; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int t = i >= n4;            // 0: dK, 1: dV
+    const long long j = i - t * n4;   // the float4 of one group's partial
+    const int c = static_cast<int>(j % (DH / 4)) * 4;
+    const long long row = j / (DH / 4);   // (b Hkv + hk) Skv + key
+    const int key = static_cast<int>(row % a.Skv);
+    const long long bh = row / a.Skv;
+    const int hk = static_cast<int>(bh % a.Hkv);
+    const int bb = static_cast<int>(bh / a.Hkv);
+    const float* p = part + t * groups * n + 4 * j;
+    float4 acc = *reinterpret_cast<const float4*>(p);
+    for (int gi = 1; gi < groups; ++gi) {
+      const float4 x = *reinterpret_cast<const float4*>(p + gi * n);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    const float mul = t ? 1.f : a.scale;
+    bf16* out = t ? a.dv + bb * a.dvs.b + hk * a.dvs.h + key * a.dvs.s + c
+                  : a.dk + bb * a.dks.b + hk * a.dks.h + key * a.dks.s + c;
+    *reinterpret_cast<__nv_bfloat162*>(out) =
+        pack2(acc.x * mul, acc.y * mul);
+    *reinterpret_cast<__nv_bfloat162*>(out + 2) =
+        pack2(acc.z * mul, acc.w * mul);
+  }
+}
+
+// dq with D, then dk and dv (and, for groups > 1, the sum of the groups'
+// partials in `part`), on `stream`.
+int launch(const Args<bf16>& a, int B, int groups, float* part,
+           cudaStream_t stream) {
+  if (groups < 1 || (a.Hq / a.Hkv) % groups != 0 ||
+      (groups > 1 && part == nullptr) || a.Hkv * groups > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_mma256, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_DQ);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_bwd_dkv_mma256,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_DKV);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_dq(a.Hq, B, (a.Sq + kRows - 1) / kRows);
+  flash_bwd_dq_mma256<<<grid_dq, kThreads, SMEM_DQ, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_dkv(a.Hkv * groups, B, (a.Skv + kRows - 1) / kRows);
+  flash_bwd_dkv_mma256<<<grid_dkv, kThreads, SMEM_DKV, stream>>>(
+      a, groups, groups > 1 ? part : nullptr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || groups == 1) return static_cast<int>(err);
+  const long long work = 2LL * B * a.Hkv * a.Skv * (DH / 4);
+  const long long blocks = (work + 255) / 256;
+  sum_groups<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0,
+               stream>>>(a, B, groups, part);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace bwd256
+
 template <typename T, int DH>
 int launch(const Args<T>& a, int B, cudaStream_t stream) {
   constexpr int kBQ = bwd_tile(DH), kBK = kBQ;
@@ -926,18 +1452,22 @@ int launch(const Args<T>& a, int B, cudaStream_t stream) {
 
 enum { ROUTE_SIMT = 0, ROUTE_MMA = 1 };
 
-// ROUTE_MMA launches bwd_mma::launch<DH> (bf16 at head dims 64 and 128),
+// ROUTE_MMA launches bwd_mma::launch<DH> (bf16 at head dims 64 and 128) or
+// bwd256::launch (bf16 at 256, the only one that splits GQA groups),
 // ROUTE_SIMT launch<T, DH>.
 template <typename T>
-int dispatch_dh(int route, int dh, const Args<T>& a, int B,
-                cudaStream_t stream) {
+int dispatch_dh(int route, int dh, const Args<T>& a, int B, int groups,
+                float* part, cudaStream_t stream) {
   if (route == ROUTE_MMA) {
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      if (dh == 256) return bwd256::launch(a, B, groups, part, stream);
+      if (groups != 1) return static_cast<int>(cudaErrorInvalidValue);
       if (dh == 64) return bwd_mma::launch<64>(a, B, stream);
       if (dh == 128) return bwd_mma::launch<128>(a, B, stream);
     }
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (groups != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (dh) {
     case 16:
       return launch<T, 16>(a, B, stream);
@@ -959,7 +1489,7 @@ int run(const void* q, const void* k, const void* v, const void* o,
         const void* dO, const float* lse, float* D, void* dq, void* dk,
         void* dv, int B, int Hq, int Hkv, int Sq, int Skv, int dh,
         const long long* st, float scale, int causal, int window, int route,
-        cudaStream_t stream) {
+        int groups, float* part, cudaStream_t stream) {
   Args<T> a;
   a.q = static_cast<const T*>(q);
   a.k = static_cast<const T*>(k);
@@ -982,7 +1512,7 @@ int run(const void* q, const void* k, const void* v, const void* o,
   a.causal = causal;
   a.window = window;
   a.scale = scale;
-  return dispatch_dh<T>(route, dh, a, B, stream);
+  return dispatch_dh<T>(route, dh, a, B, groups, part, stream);
 }
 
 }  // namespace
@@ -993,18 +1523,23 @@ extern "C" {
 // k, v, o, dO, dq, dk and dv in that order (the [B, H, S, dh] index order;
 // the stride along dh is 1).  D: [B, Hq, Sq] f32 scratch.  route: 0 the
 // SIMT kernels (f32 or bf16), 1 the tensor-core kernels (bf16 at head dims
-// 64 and 128, bases and strides 16-byte aligned; kernels/flash_attention.py
-// `bwd_route` checks this before the launch).  Launches the dQ kernel,
-// then the dK/dV kernel, on `stream`; returns cudaGetLastError()
-// (cudaErrorInvalidValue for a head dim without an instantiation: 16, 32,
-// 64, 128 and 256 on SIMT, 64 and 128 on mma; or a route the dtype does
-// not take).
+// 64, 128 and 256, bases and strides 16-byte aligned; kernels/
+// flash_attention.py `bwd_route` checks this before the launch).  groups:
+// the blocks each GQA group's query heads are split over in the dK/dV
+// kernel, 1 except on route 1 at head dim 256, where groups > 1 needs
+// `part`, f32 scratch of 2 x groups x B x Hkv x Skv x dh.  Launches the
+// dQ kernel, then the dK/dV kernel (and the groups' sum), on `stream`;
+// returns cudaGetLastError() (cudaErrorInvalidValue for a head dim without
+// an instantiation: 16, 32, 64, 128 and 256 on SIMT, 64, 128 and 256 on
+// mma; a route the dtype does not take; or groups that do not divide the
+// GQA group).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dO, const float* lse,
                         float* D, void* dq, void* dk, void* dv, int B, int Hq,
                         int Hkv, int Sq, int Skv, int dh, int dtype,
                         const long long* strides, float scale, int causal,
-                        int window, int route, int device, void* stream) {
+                        int window, int route, int groups, float* part,
+                        int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0) return 0;
@@ -1014,10 +1549,11 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   if (dtype == DT_BF16)
     return run<__nv_bfloat16>(q, k, v, o, dO, lse, D, dq, dk, dv, B, Hq, Hkv,
                               Sq, Skv, dh, strides, scale, causal, window,
-                              route, s);
+                              route, groups, part, s);
   if (dtype == DT_F32)
     return run<float>(q, k, v, o, dO, lse, D, dq, dk, dv, B, Hq, Hkv, Sq, Skv,
-                      dh, strides, scale, causal, window, route, s);
+                      dh, strides, scale, causal, window, route, groups, part,
+                      s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -25,7 +25,10 @@ dims ``BWD_HEAD_DIMS``) on the route ``bwd_route`` picks before the launch:
 ``"mma"`` (bf16 at head dims ``BWD_MMA_HEAD_DIMS`` whose eight tensors
 ``route`` would send to the tensor cores) or ``"simt"`` (f32 sums on the
 SIMT pipes, for f32 and every other bf16 call); ``BWD_ROUTES`` counts the
-launches of each, apart from the forward's ``ROUTES``.
+launches of each, apart from the forward's ``ROUTES``.  At head dim 256
+the mma route's dK/dV kernel splits each GQA group's query heads over
+``dkv_groups`` blocks, whose f32 partials the wrapper's scratch holds and
+a last kernel adds in order.
 ``attention_bwd_plain`` is its plain version, in the same algebra: P
 recomputed from lse, ``D = rowsum(dO * O)``.
 """
@@ -41,8 +44,10 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)      # instantiated in the CUDA source
-BWD_HEAD_DIMS = (16, 32, 64, 128, 256)  # 256 on SIMT, in tiles of 32 rows
-BWD_MMA_HEAD_DIMS = (64, 128)           # the backward's tensor-core kernels
+BWD_HEAD_DIMS = (16, 32, 64, 128, 256)  # SIMT: 256 in tiles of 32 rows
+BWD_MMA_HEAD_DIMS = (64, 128, 256)      # the backward's tensor-core kernels
+DKV_BLOCKS = 528     # dK/dV blocks wanted at head dim 256: 4 waves of 132
+DKV_KEYS = 64        # keys a dK/dV block
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTE_IDS = {"simt": 0, "mma": 1}
 ROUTES: collections.Counter = collections.Counter()
@@ -71,6 +76,20 @@ def bwd_route(dtype, dh: int, strides, data_ptrs) -> str:
     if dh not in BWD_MMA_HEAD_DIMS:
         return "simt"
     return route(dtype, strides, data_ptrs)
+
+
+def dkv_groups(dh: int, rep: int, hkv: int, b: int, skv: int) -> int:
+    """The blocks each GQA group's ``rep`` query heads are split over in
+    the tensor-core dK/dV kernel: at head dim 256 the fewest that divide
+    ``rep`` and give ``DKV_BLOCKS`` blocks of ``DKV_KEYS`` keys (``rep``
+    itself where none does), so that one kv head fills the card in waves
+    short enough that the causal mask's light blocks even them out; 1 at
+    the other head dims.  A pure function of its arguments."""
+    if dh != 256:
+        return 1
+    blocks = hkv * b * -(-skv // DKV_KEYS)
+    return next((g for g in range(1, rep + 1)
+                 if rep % g == 0 and blocks * g >= DKV_BLOCKS), rep)
 
 
 def _mask(sq: int, skv: int, causal: bool, window: int, device):
@@ -159,7 +178,7 @@ _SIGNATURES = {
 _BWD_SIGNATURES = {
     "flash_attention_bwd": [_P] * 10 + [_I] * 7
                            + [ctypes.POINTER(_L), ctypes.c_float, _I, _I,
-                              _I, _I, _P],
+                              _I, _I, _P, _I, _P],
 }
 
 
@@ -229,7 +248,9 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     come from ``flash_attention_cuda(..., with_lse=True)`` on the same
     inputs and masks; ``do`` may have any strides (one without a unit
     stride along dh is copied first).  Two launches: dQ with D, then dK
-    and dV; none where Sq or Skv is 0, and the gradients are zeros."""
+    and dV, and at head dim 256 on "mma" with ``dkv_groups`` > 1 a third
+    that adds the groups' f32 partials (scratch allocated here); none
+    where Sq or Skv is 0, and the gradients are zeros."""
     _check_qkv(q, k, v, BWD_HEAD_DIMS)
     b, hq, sq, dh = q.shape
     _, hkv, skv, _ = k.shape
@@ -254,12 +275,16 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     tensors = (q, k, v, o, do, dq, dk, dv)
     flat = [s for t in tensors for s in t.stride()[:3]]
     how = bwd_route(q.dtype, dh, flat, [t.data_ptr() for t in tensors])
+    groups = dkv_groups(dh, hq // hkv, hkv, b, skv) if how == "mma" else 1
+    part = (torch.empty(2 * groups * b * hkv * skv * dh, dtype=torch.float32,
+                        device=q.device) if groups > 1 else None)
     lib = build.load("flash_attention_bwd", _BWD_SIGNATURES)
     code = lib.flash_attention_bwd(
         *(t.data_ptr() for t in (q, k, v, o, do, lse, d, dq, dk, dv)),
         b, hq, hkv, sq, skv, dh, _DTYPES[q.dtype], (_L * 24)(*flat),
         1.0 / math.sqrt(dh), int(bool(causal)), int(window), _ROUTE_IDS[how],
-        q.device.index, build.stream_of(q))
+        groups, None if part is None else part.data_ptr(), q.device.index,
+        build.stream_of(q))
     build.check("flash_attention_bwd", code,
                 f"flash_attention_bwd launch ({how})")
     BWD_ROUTES[how] += 1

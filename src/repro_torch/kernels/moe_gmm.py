@@ -11,10 +11,13 @@ strides and addresses before the launch: ``"wgmma"`` (bf16 on the tensor
 cores, fed by TMA), ``"wgmma_small_c"`` (the same with the operands
 swapped, for C <= ``SMALL_C``: a decode step) and ``"simt"`` (f32, and
 bf16 that TMA cannot address).  ``ROUTES`` counts the launches of each.
-``moe_gmm_bwd_cuda`` launches the backward (two products of the SIMT
-kernel, the operands read transposed through their strides) and
-``moe_gmm_bwd_plain`` is its plain version.  ``kernels/ops.py``
-dispatches by device.
+``moe_gmm_bwd_cuda`` launches the backward, two products (dh, then dw),
+on the route ``bwd_route`` picks before the launch: ``"wgmma"`` (bf16 on
+the tensor cores, the transposes taken in the TMA maps and the wgmma
+descriptors) or ``"simt"`` (f32, and bf16 that TMA cannot address, the
+operands read transposed through their strides); ``BWD_ROUTES`` counts
+the launches of each.  ``moe_gmm_bwd_plain`` is its plain version.
+``kernels/ops.py`` dispatches by device.
 """
 from __future__ import annotations
 
@@ -29,20 +32,38 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTE_IDS = {"simt": 0, "wgmma": 1, "wgmma_small_c": 2}
 SMALL_C = 16            # the largest C of the swapped (small-C) variant
 ROUTES: collections.Counter = collections.Counter()
+BWD_ROUTES: collections.Counter = collections.Counter()
+
+
+def _tma_legal(dtype, strides, data_ptrs) -> bool:
+    """bf16 that TMA can address: bases 16-byte aligned, every stride a
+    multiple of 8 elements (16 bytes)."""
+    return dtype == torch.bfloat16 and not any(s % 8 for s in strides) \
+        and not any(p % 16 for p in data_ptrs)
 
 
 def route(dtype, c: int, d: int, strides, data_ptrs) -> str:
     """The kernel route for h [E, C, D] and w [E, D, F] of ``dtype``:
     ``strides`` are h's and w's E and row strides in elements (hse, hsc,
     wse, wsd), ``data_ptrs`` their base addresses.  The tensor-core routes
-    take bf16 that TMA can address: bases 16-byte aligned, every stride a
-    multiple of 8 elements (16 bytes), D >= 1.  A pure function of its
-    arguments: it launches nothing."""
-    if dtype != torch.bfloat16 or d < 1:
-        return "simt"
-    if any(s % 8 for s in strides) or any(p % 16 for p in data_ptrs):
+    take bf16 that TMA can address (``_tma_legal``) and D >= 1.  A pure
+    function of its arguments: it launches nothing."""
+    if d < 1 or not _tma_legal(dtype, strides, data_ptrs):
         return "simt"
     return "wgmma_small_c" if c <= SMALL_C else "wgmma"
+
+
+def bwd_route(dtype, dims, strides, data_ptrs) -> str:
+    """The backward's kernel route for h [E, C, D], w [E, D, F] and dout
+    [E, C, F] of ``dtype``: ``dims`` are (E, C, D, F), ``strides`` the E
+    and row strides in elements of h, w and dout (hse, hsc, wse, wsd,
+    dose, dosc), ``data_ptrs`` the base addresses of h, w, dout, dh and
+    dw.  ``"wgmma"`` takes bf16 that TMA can address (``_tma_legal``)
+    with every dimension >= 1; else ``"simt"``.  A pure function of its
+    arguments: it launches nothing."""
+    if min(dims) < 1 or not _tma_legal(dtype, strides, data_ptrs):
+        return "simt"
+    return "wgmma"
 
 
 def moe_gmm_plain(h, w):
@@ -69,7 +90,7 @@ _SIGNATURES = {
     "moe_gmm_fwd": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I,
                     _P],
     "moe_gmm_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L,
-                    _L, _I, _I, _P],
+                    _L, _I, _I, _I, _P],
 }
 
 
@@ -122,8 +143,10 @@ def moe_gmm_bwd_cuda(h, w, dout):
     """Launch the backward on CUDA tensors: h and w as ``moe_gmm_cuda``
     takes them, dout [E, C, F] of their dtype (one without a unit stride
     on its last axis is copied first) -> contiguous (dh [E, C, D], dw
-    [E, D, F]) in that dtype.  Two kernels, dh then dw; none where a
-    dimension is 0 (the gradients are then zeros)."""
+    [E, D, F]) in that dtype, on the route ``bwd_route`` picks (counted
+    in ``BWD_ROUTES``): one tensor-core kernel over both products' tiles,
+    or two SIMT kernels, dh then dw; none where a dimension is 0 (the
+    gradients are then zeros)."""
     e, c, d, f = _check(h, w)
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
@@ -136,11 +159,14 @@ def moe_gmm_bwd_cuda(h, w, dout):
     dw = torch.empty((e, d, f), dtype=h.dtype, device=h.device)
     if 0 in (e, c, d, f):
         return dh.zero_(), dw.zero_()
+    strides = (h.stride(0), h.stride(1), w.stride(0), w.stride(1),
+               dout.stride(0), dout.stride(1))
+    ptrs = [t.data_ptr() for t in (h, w, dout, dh, dw)]
+    how = bwd_route(h.dtype, (e, c, d, f), strides, ptrs)
     lib = build.load("moe_gmm", _SIGNATURES)
-    code = lib.moe_gmm_bwd(
-        h.data_ptr(), w.data_ptr(), dout.data_ptr(), dh.data_ptr(),
-        dw.data_ptr(), e, c, d, f, h.stride(0), h.stride(1), w.stride(0),
-        w.stride(1), dout.stride(0), dout.stride(1), _DTYPES[h.dtype],
-        h.device.index, build.stream_of(h))
-    build.check("moe_gmm", code, "moe_gmm_bwd launch")
+    code = lib.moe_gmm_bwd(*ptrs, e, c, d, f, *strides, _DTYPES[h.dtype],
+                           _ROUTE_IDS[how], h.device.index,
+                           build.stream_of(h))
+    build.check("moe_gmm", code, f"moe_gmm_bwd launch ({how})")
+    BWD_ROUTES[how] += 1
     return dh, dw

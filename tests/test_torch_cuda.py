@@ -491,25 +491,37 @@ def test_flash_bwd_raises_on_what_it_does_not_take():
         fa.flash_attention_bwd_cuda(t, t, t, o, lse, t.bfloat16())
 
 
+FLASH_BWD256_CASES = [  # (b, hq, hkv, sq, skv, dh, causal, window, bshd)
+    (2, 10, 1, 200, 200, 256, True, 48, True),    # GQA 10 : 1, window < S
+    (1, 10, 1, 256, 130, 256, True, 48, True),    # rows 177-255: no key
+    (1, 2, 2, 130, 130, 256, False, 0, False),    # ragged, one head a group
+    (1, 4, 2, 300, 300, 256, True, 100, False),   # GQA 2 : 1, ragged S
+]
+
+
+@pytest.mark.parametrize("case", FLASH_BWD256_CASES, ids=str)
 @pytest.mark.parametrize("dt,tol", [("float32", 2e-4), ("bfloat16", 5e-2)])
-def test_flash_bwd_at_head_dim_256(dt, tol):
-    """recurrentgemma-2b's local attention: dh 256, 10 q heads on one kv
-    head, a window shorter than S (and rows past it), in the model layout,
-    on the SIMT route in tiles of 32 rows; within ``tol`` absolute and
-    element by element, and two calls bit for bit."""
+def test_flash_bwd_at_head_dim_256(case, dt, tol):
+    """recurrentgemma-2b's local attention and its edges at dh 256: GQA
+    10 : 1 (the dK/dV heads split over ``dkv_groups`` blocks), a window
+    shorter than S, rows without keys, ragged S, one head per group; bf16
+    on the tensor-core route "mma", f32 on SIMT (tiles of 32 rows);
+    within ``tol`` absolute and element by element, and two calls bit
+    for bit."""
     dev = cuda_device()
-    case = (2, 10, 1, 200, 200, 256, True, 48, True)
+    causal, window = case[6], case[7]
     q, k, v, o, lse, do = _flash_bwd_inputs(dev, case, TORCH_DT[dt], 5)
     fa.BWD_ROUTES.clear()
-    grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True,
-                                        window=48)
-    again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True,
-                                        window=48)
-    assert dict(fa.BWD_ROUTES) == {"simt": 2}
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
+                                        window=window)
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
+                                        window=window)
+    assert dict(fa.BWD_ROUTES) == {
+        "mma" if dt == "bfloat16" else "simt": 2}
     f32 = [t.float() for t in (q, k, v)]
-    _, lse_p = fa.attention_plain_lse(*f32, causal=True, window=48)
+    _, lse_p = fa.attention_plain_lse(*f32, causal=causal, window=window)
     plain = fa.attention_bwd_plain(*f32, o.float(), lse_p, do.float(),
-                                   causal=True, window=48)
+                                   causal=causal, window=window)
     for got, want, same in zip(grads, plain, again):
         assert float((got.float() - want).abs().max()) <= tol
         _assert_elementwise(got, want, dt)
@@ -895,12 +907,18 @@ GMM_BWD_CASES = [  # (E, C, D, F)
 @pytest.mark.parametrize("dt,tol", [("float32", 2e-4), ("bfloat16", 1e-2)])
 def test_moe_gmm_bwd_kernel_matches_plain(case, dt, tol):
     """dh and dw against ``moe_gmm_bwd_plain`` within ``tol`` of the
-    largest value (the forward's contract), contiguous, in the dtype."""
+    largest value (the forward's contract), contiguous, in the dtype; bf16
+    on the tensor cores ("wgmma") where TMA can address every input (rows
+    a multiple of 16 bytes: not F = 33), f32 on SIMT."""
     dev = cuda_device()
     h, w = _gmm_inputs(dev, *case, TORCH_DT[dt])
-    e, c, _, f = case
+    e, c, d, f = case
     dout = torch.randn((e, c, f), device=dev).to(TORCH_DT[dt])
+    mg.BWD_ROUTES.clear()
     got = mg.moe_gmm_bwd_cuda(h, w, dout)
+    aligned = d % 8 == 0 and f % 8 == 0
+    assert dict(mg.BWD_ROUTES) == {
+        "wgmma" if dt == "bfloat16" and aligned else "simt": 1}
     for a, b, t in zip(got, mg.moe_gmm_bwd_plain(h, w, dout), (h, w)):
         assert a.dtype == t.dtype and a.shape == t.shape
         assert a.is_contiguous() and _rel(a, b) <= tol
@@ -909,7 +927,7 @@ def test_moe_gmm_bwd_kernel_matches_plain(case, dt, tol):
 def test_moe_gmm_bwd_takes_misaligned_views():
     """h, w and dout as strided views (h [E, C, D] from a [C, E, D]
     buffer, w a column slice, dout without a unit stride, copied), bf16
-    based 2 bytes off 16: within 1e-2 of the largest value."""
+    based 2 bytes off 16: on SIMT, within 1e-2 of the largest value."""
     dev = cuda_device()
     g = torch.Generator(device=dev).manual_seed(6)
     buf = torch.randn(20 * 3 * 48 + 1, generator=g, device=dev).to(
@@ -919,9 +937,11 @@ def test_moe_gmm_bwd_takes_misaligned_views():
         torch.bfloat16)[:, :, :33]
     dout = torch.randn((3, 33, 20), generator=g, device=dev).to(
         torch.bfloat16).transpose(1, 2)
+    mg.BWD_ROUTES.clear()
     for a, b in zip(mg.moe_gmm_bwd_cuda(h, w, dout),
                     mg.moe_gmm_bwd_plain(h, w, dout)):
         assert _rel(a, b) <= 1e-2
+    assert dict(mg.BWD_ROUTES) == {"simt": 1}
 
 
 def test_small_granite_on_card_matches_cpu():

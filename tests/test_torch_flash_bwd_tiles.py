@@ -1,8 +1,9 @@
 """The flash backward's tensor-core route ("mma"), emulated on the CPU.
 
-``csrc/flash_attention_bwd.cu`` runs bf16 at head dims 64 and 128 on
-``mma.sync`` (namespace ``bwd_mma``): bf16 operands and f32 sums, with P
-and dS entering their products as a bf16 high part plus a bf16 low part.
+``csrc/flash_attention_bwd.cu`` runs bf16 at head dims 64, 128 and 256 on
+``mma.sync`` (namespaces ``bwd_mma`` and ``bwd256``): bf16 operands and f32
+sums, with P and dS entering their products as a bf16 high part plus a
+bf16 low part.
 This file repeats that arithmetic in PyTorch, tile by tile, and walks the
 tiles as the two kernels do:
 
@@ -13,7 +14,11 @@ tiles as the two kernels do:
 * ``flash_bwd_dkv_mma``: per kv tile of 64 keys, the query heads of its
   GQA group and the q tiles of ``ROWS_DKV`` rows that see it (the causal
   diagonal to the window's reach) or hold rows without a key (P = 1/Skv,
-  dS = 0); dV += (hi + lo of P)^T dO, dK += (hi + lo of dS)^T q.
+  dS = 0); dV += (hi + lo of P)^T dO, dK += (hi + lo of dS)^T q.  At head
+  dim 256 (``flash_bwd_dkv_mma256``) each GQA group's query heads are split
+  over ``flash_attention.dkv_groups`` blocks, each summing its heads into
+  f32 partials that a last kernel adds in group order before dK's scale
+  and the bf16 rounding.
 
 The result is held to ``attention_bwd_plain`` under the card's gates
 (chip_smoke.py ``FLASH_TOL`` and ``FLASH_BWD_ELEM``): 5e-2 absolute and
@@ -37,8 +42,8 @@ ATOL, RTOL = 1e-3, 2 ** -7       # FLASH_BWD_ELEM["bfloat16"]
 ROWS_DQ, KEYS_DKV = 64, 64       # 4 warps of 16 rows (dq) or keys (dkv)
 # keys a kv tile of flash_bwd_dq_mma, q rows a tile of flash_bwd_dkv_mma,
 # by head dim (csrc/flash_attention_bwd.cu `bwd_mma::Cfg`)
-KEYS_DQ = {64: 64, 128: 64}
-ROWS_DKV = {64: 64, 128: 32}
+KEYS_DQ = {64: 64, 128: 64, 256: 64}
+ROWS_DKV = {64: 64, 128: 32, 256: 64}
 
 # (name, B, Hq, Hkv, Sq, Skv, dh, causal, window)
 CASES = [
@@ -47,6 +52,7 @@ CASES = [
     ("window", 2, 4, 4, 300, 300, 128, True, 64),
     ("rows_without_keys", 1, 1, 1, 256, 128, 64, True, 16),
     ("ragged_bidirectional", 1, 4, 2, 130, 130, 64, False, 0),
+    ("gqa10_dh256_window", 1, 10, 1, 200, 200, 256, True, 48),
 ]
 
 
@@ -130,10 +136,12 @@ def emulate_dq(q, k, v, o, lse, do, causal, window, parts=2):
 
 def emulate_dkv(q, k, v, lse, do, d, causal, window, parts=2):
     """(dk, dv) [B, Hkv, Skv, dh] f32 in flash_bwd_dkv_mma's walk: each kv
-    tile over its group's query heads and the q tiles it visits."""
+    tile over its group's query heads and the q tiles it visits, the heads
+    split over ``dkv_groups`` blocks whose f32 partials add in order."""
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     rep, bq, scale = hq // hkv, ROWS_DKV[dh], 1.0 / math.sqrt(dh)
+    groups = fa.dkv_groups(dh, rep, hkv, b, skv)
     n_qt = -(-sq // bq)
     uniform = 1.0 / skv
     qf, dof, kf, vf = (t.float() for t in (q, do, k, v))
@@ -147,9 +155,11 @@ def emulate_dkv(q, k, v, lse, do, d, causal, window, parts=2):
         first_no_key = skv + window - 1
         qt_nokey = first_no_key // bq if window > 0 and first_no_key < sq \
             else n_qt
-        acc_k = torch.zeros((b, hkv, k_last + 1 - k0, dh))
-        acc_v = torch.zeros_like(acc_k)
+        part_k = torch.zeros((groups, b, hkv, k_last + 1 - k0, dh))
+        part_v = torch.zeros_like(part_k)
         for hh in range(rep):
+            acc_k, acc_v = part_k[hh // (rep // groups)], \
+                part_v[hh // (rep // groups)]
             heads = torch.arange(hkv) * rep + hh
             for qt in range(qt_lo, n_qt):
                 if qt_hi < qt < qt_nokey:
@@ -170,7 +180,11 @@ def emulate_dkv(q, k, v, lse, do, d, causal, window, parts=2):
                 dst = torch.where(seen, p * (dpt - dg), 0.0)
                 acc_v += _product(p, doh, parts)
                 acc_k += _product(dst, qh, parts)
-        dk[:, :, c], dv[:, :, c] = acc_k * scale, acc_v
+        sum_k, sum_v = part_k[0].clone(), part_v[0].clone()
+        for g in range(1, groups):
+            sum_k += part_k[g]
+            sum_v += part_v[g]
+        dk[:, :, c], dv[:, :, c] = sum_k * scale, sum_v
     return dk, dv
 
 
@@ -224,6 +238,8 @@ def _bwd_route(tensors, dh=None):
     (16, BF16, "simt"),
     (128, F32, "simt"),     # f32 holds 2e-4: no bf16 products
     (64, F32, "simt"),
+    (256, BF16, "mma"),     # recurrentgemma-2b's local layers
+    (256, F32, "simt"),
 ])
 def test_bwd_route_by_dtype_and_head_dim(dh, dtype, want):
     """Eight aligned [B, S, H, dh] views (q, k, v, o, dO, dq, dk, dv)."""
@@ -245,3 +261,17 @@ def test_bwd_route_takes_simt_when_one_tensor_is_misaligned(which):
     wide[which] = torch.zeros((1, 2, 16, 68), dtype=BF16)[..., :64]
     assert _bwd_route(wide) == "simt"
     assert _bwd_route(ts) == "mma"
+
+
+@pytest.mark.parametrize("dh,rep,hkv,b,skv,want", [
+    (256, 10, 1, 2, 4096, 5),   # recurrentgemma-2b's training call
+    (256, 10, 1, 16, 4096, 1),  # 1024 blocks without a split
+    (256, 10, 1, 1, 200, 10),   # a small call: every head a block
+    (256, 1, 2, 1, 130, 1),     # no GQA group to split
+    (256, 6, 2, 4, 2048, 3),    # 256 blocks: the fewest groups for 528
+    (256, 6, 2, 1, 1024, 6),    # 32 blocks: none gives 528
+    (128, 10, 1, 2, 4096, 1),   # the other head dims never split
+    (64, 3, 8, 2, 512, 1),
+])
+def test_dkv_groups(dh, rep, hkv, b, skv, want):
+    assert fa.dkv_groups(dh, rep, hkv, b, skv) == want

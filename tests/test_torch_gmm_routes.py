@@ -1,7 +1,7 @@
 """Which kernel route the grouped matmul, flash and wire decode wrappers
 pick.
 
-``moe_gmm.route``, ``flash_attention.route`` and
+``moe_gmm.route``, ``moe_gmm.bwd_route``, ``flash_attention.route`` and
 ``wire_codec.decode_route`` are pure functions of a dtype, shapes,
 strides and base addresses: they launch nothing, so they run here on the
 CPU.  The tensor-core routes need what TMA and cp.async need (16-byte
@@ -73,6 +73,60 @@ def test_gmm_route_ids_cover_every_route():
     names = {mg.route(BF16, c, 64, (8, 8, 8, 8), (0, 0)) for c in (8, 64)}
     names.add(mg.route(F32, 8, 64, (8, 8, 8, 8), (0, 0)))
     assert names == set(mg._ROUTE_IDS)
+
+
+def _gmm_bwd_route(h, w, dout):
+    e, c, d = h.shape
+    dh, dw = torch.empty_like(h), torch.empty_like(w)
+    return mg.bwd_route(h.dtype, (e, c, d, w.shape[2]),
+                        (h.stride(0), h.stride(1), w.stride(0), w.stride(1),
+                         dout.stride(0), dout.stride(1)),
+                        [t.data_ptr() for t in (h, w, dout, dh, dw)])
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    ((40, 256, 1536, 512), BF16, "wgmma"),   # granite training: w1, w3
+    ((40, 256, 512, 1536), BF16, "wgmma"),   # ... w2
+    ((3, 8, 200, 72), BF16, "wgmma"),        # small C: no swapped variant
+    ((2, 130, 96, 40), BF16, "wgmma"),
+    ((2, 130, 96, 33), BF16, "simt"),        # dout's and w's rows 66 B apart
+    ((5, 37, 203, 72), BF16, "simt"),        # h's rows 406 B apart
+    ((40, 256, 1536, 512), F32, "simt"),     # f32 holds 2e-4: no TF32
+    ((3, 8, 200, 72), F32, "simt"),
+])
+def test_gmm_bwd_route_of_contiguous_inputs(shape, dtype, want):
+    e, c, d, f = shape
+    h = torch.empty((e, c, d), dtype=dtype)
+    w = torch.empty((e, d, f), dtype=dtype)
+    assert _gmm_bwd_route(h, w, torch.empty((e, c, f), dtype=dtype)) == want
+
+
+@pytest.mark.parametrize("which", ["h", "w", "dout"])
+def test_gmm_bwd_route_takes_simt_when_one_input_is_misaligned(which):
+    """chip_smoke.py's misaligned views, one at a time: a base 2 bytes off
+    16, or a row stride that is not a multiple of 8 elements, sends the
+    backward to SIMT; the aligned inputs take the tensor cores."""
+    e, c, d, f = 3, 20, 48, 40
+    ts = {"h": torch.empty((e, c, d), dtype=BF16),
+          "w": torch.empty((e, d, f), dtype=BF16),
+          "dout": torch.empty((e, c, f), dtype=BF16)}
+    assert _gmm_bwd_route(ts["h"], ts["w"], ts["dout"]) == "wgmma"
+    t = ts[which]
+    buf = torch.empty(t.numel() + 1, dtype=BF16)
+    off = dict(ts, **{which: buf[1:].view(t.shape)})
+    assert _gmm_bwd_route(off["h"], off["w"], off["dout"]) == "simt"
+    wide = torch.empty(t.shape[:-1] + (t.shape[-1] + 4,), dtype=BF16)
+    strided = dict(ts, **{which: wide[..., :t.shape[-1]]})
+    assert _gmm_bwd_route(strided["h"], strided["w"],
+                          strided["dout"]) == "simt"
+
+
+def test_gmm_bwd_route_without_a_dimension_is_simt():
+    strides = (8, 8, 8, 8, 8, 8)
+    assert mg.bwd_route(BF16, (4, 8, 64, 64), strides, [0] * 5) == "wgmma"
+    for dims in ((0, 8, 64, 64), (4, 0, 64, 64), (4, 8, 0, 64),
+                 (4, 8, 64, 0)):
+        assert mg.bwd_route(BF16, dims, strides, [0] * 5) == "simt"
 
 
 def _flash_route(*tensors):
