@@ -182,6 +182,23 @@ Phases (any failure exits non-zero; nothing is caught):
         example on the card, and split serving at cut 20 int8 through a
         QoSMonitor and a LinkShaper (gen + 1 frames, the unshaped
         tokens);
+     m. "qwen1.5-4b checkpoint, resume and replan" (after j, the earlier
+        phases' state freed), through the training CLI, in ckpts/chip_smoke
+        of the checkout (deleted at the end): (a) the int8 k 4 run of 3
+        steps checkpoints at step 2 (exactly one checkpoint on disk, its
+        bytes against the 47.4 GB of f32 weights and AdamW's m and v, by
+        the count), then the same flags resume there and train step 3:
+        its loss equal to the uninterrupted run's bit for bit, and every
+        leaf's checksum of the final f32 master weights; the disk, save
+        and restore seconds and the peak host RSS printed; (b) 8 steps at
+        --pipeline-k auto --virtual-stages 1 --wire-dtype int8 with
+        RP_HINTS and the bandwidth drop RP_TRACE under --replan
+        every:2,hysteresis:0.05: the planned cell RP_PLAN, the one switch
+        RP_SWITCH (to the top-k hop at step 3, the EF buffer created and
+        then live in exactly its slots), "2 cell compile(s)", finite
+        losses, every step's hop bytes its own cell's bill; (c) both
+        runs' exact launches, every flash on "mma", the codec calls by
+        shape;
      e. serving granite-moe-3b-a800m (32 MoE layers, 40 experts top-8, 24
         heads on 8 kv heads of 64, tied embeddings; batch 4, prompt 512, 32
         greedy tokens) through the serving CLI's entry point: tokens in
@@ -290,6 +307,25 @@ TK_LAUNCHES = {"flash_attention": 2 * Q_LAYERS * T_K * T_STEPS,
 TK_UP, TK_DOWN = 3 * 10_649_600, 3 * 4096 * (640 + 2 * 640 + 4)
 # the EF buffer [S, ticks, mb, seq, d] of that spec
 TK_EF_SHAPE = (2, 9, T_BATCH // T_K, T_SEQ, 2560)
+# the checkpoint, resume and replan phase (qwen1.5-4b FULL, batch 8 x 512):
+# (a) the int8 k 4 run of 3 steps saving at step 2, then the same flags
+# resuming there; (b) the planner and the online re-planner at S 2, v 1,
+# --pipeline-k auto, int8, calibrated by RP_HINTS (a 5e8 B/s link, 3 ms a
+# message), fed the bandwidth drop RP_TRACE: k 4 int8 is planned, and at
+# step 3 the codec switches to the top-k hop, once
+# (tests/test_torch_launch_train.py pins both from the planner alone)
+RP_HINTS = {"link_bw_Bps": 5e8, "hop_overhead_s": 3e-3}
+RP_TRACE = {"steps": [0, 3], "bw_Bps": [5e8, 1e7]}
+RP_SPEC, RP_STEPS = "every:2,hysteresis:0.05", 8
+RP_PLAN = (2, 4, 1, "int8")
+RP_SWITCH = (3, RP_PLAN, (2, 4, 1, TK_WIRE))
+RP_FLASH = {"flash_attention": 2 * Q_LAYERS * T_K,
+            "flash_attention_bwd": Q_LAYERS * T_K}     # a step's launches
+# a step's codec calls: int8 codes both hops, the top-k hop codes only
+# the forward one (its gradient hop launches no codec kernel)
+RP_CODEC = {"int8": 2 * T_K, TK_WIRE: T_K}
+# the state a checkpoint holds: f32 master weights, AdamW's m and v, step
+CKPT_STATE_GB = 47.4
 # the compressed run (--compress-grads): qwen1.5-4b's widths, its depth cut
 # to 20 layers, since the f32 error-feedback tree adds 4 B a parameter
 # (15.8 GB at 40 layers on a 74.60 GB step); the same spec, batch, steps
@@ -2609,6 +2645,268 @@ def run_qwen_compressed(torch, ops, protocol, dev, wc, card):
     return rows, launches, grads, hop_calls
 
 
+@contextlib.contextmanager
+def host_rss_peak(interval_s: float = 0.05):
+    """The process's peak resident set while the block runs, sampled from
+    /proc/self/statm every ``interval_s`` by a thread.  Yields a dict
+    whose ``"gb"`` holds the peak when the block ends."""
+    import threading
+    page = os.sysconf("SC_PAGE_SIZE")
+    out, stop = {"gb": 0.0}, threading.Event()
+
+    def sample():
+        while True:
+            with open("/proc/self/statm") as f:
+                rss = int(f.read().split()[1]) * page / 1e9
+            out["gb"] = max(out["gb"], rss)
+            if stop.wait(interval_s):
+                return
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        t.join()
+
+
+def leaf_checksums(torch, tree, chunk: int = 1 << 24):
+    """Per leaf of f32 tensors: the sums of its 32-bit patterns, plain and
+    weighted by position (mod 65521, plus 1), in int64 (wrapping), taken
+    on the card chunk by chunk.  Equal checksums for bit-equal leaves;
+    one flipped bit changes both sums."""
+    from repro_torch.utils.trees import tree_leaves
+    out = []
+    for t in tree_leaves(tree):
+        if t.dtype != torch.float32:
+            fail(f"checksum of a {t.dtype} leaf: f32 master weights only")
+        bits = t.detach().reshape(-1).view(torch.int32)
+        s1 = s2 = 0
+        for c in range(0, bits.numel(), chunk):
+            b = bits[c:c + chunk].to(torch.int64)
+            w = torch.arange(c, c + b.numel(), device=b.device) % 65521 + 1
+            s1 += int(b.sum())
+            s2 += int((b * w).sum())
+        out.append((s1, s2))
+    return out
+
+
+def _state_bytes(torch, state):
+    """Bytes of a train state's arrays as the checkpoint stores them (bf16
+    widened to f32; the int step as int32)."""
+    from repro_torch.utils.trees import tree_leaves
+    n = 0
+    for t in tree_leaves(state):
+        if isinstance(t, torch.Tensor):
+            n += t.numel() * (4 if t.dtype == torch.bfloat16
+                              else t.element_size())
+        else:
+            n += 4
+    return n
+
+
+def _reset_counters(torch, ops, fa, wc):
+    """Zero the launch and route counters before a run."""
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    fa.ROUTES.clear()
+    fa.BWD_ROUTES.clear()
+    wc.ROUTES.clear()
+
+
+def _check_run_launches(name, ops, fa, wc, steps, calls, d):
+    """A run's exact launches: each step's flash forwards and backwards
+    (``RP_FLASH``), all on "mma"; the codec's calls by shape, ``steps``
+    maps each codec to its step count (``RP_CODEC`` calls a step), every
+    one at [T_BATCH / T_K * T_SEQ, d] bf16 int8, every decode on
+    "warp256".  Returns the launches."""
+    n = sum(steps.values())
+    codec = sum(RP_CODEC[w] * s for w, s in steps.items())
+    want = {k: v * n for k, v in RP_FLASH.items()}
+    want.update(wire_encode=codec, wire_decode=codec)
+    launches = dict(ops.LAUNCHES)
+    _check_train_launches(name, launches, {
+        "flash": (dict(fa.ROUTES), {"mma": want["flash_attention"]}),
+        "flash backward": (dict(fa.BWD_ROUTES),
+                           {"mma": want["flash_attention_bwd"]})}, want)
+    check_codec_calls(wc, name, launches, calls, dict(wc.ROUTES))
+    shape = {(k, T_BATCH // T_K * T_SEQ, d, "bfloat16", "int8"): codec
+             for k in ("wire_encode", "wire_decode")}
+    if dict(calls) != shape:
+        fail(f"{name}: codec calls {dict(calls)} != {shape}")
+    return launches
+
+
+def run_ckpt_resume(torch, ops, train, fa, wc, card, ckpt_dir):
+    """Part (a) of the phase "qwen1.5-4b checkpoint, resume and replan":
+    run A trains 3 int8 steps and checkpoints at step 2 (exactly one
+    checkpoint on disk); run B, the same flags, resumes there and trains
+    step 3.  B's step-3 loss equals A's bit for bit, and so does every
+    leaf's checksum of the final f32 master weights (taken from A before
+    B runs).  Prints the disk, the checkpoint's bytes against
+    ``CKPT_STATE_GB`` by the count, the save and restore seconds and the
+    peak host RSS.  Returns (launches, codec calls by shape)."""
+    from repro_torch.training import checkpoint as ck
+    name = f"{ARCH} checkpoint and resume"
+    du = shutil.disk_usage(ckpt_dir)
+    with open("/proc/self/statm") as f:
+        rss0 = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
+    print(f"{name}: host RSS {rss0:.2f} GB at the start; checkpoint directory on a disk of {du.total / 1e9:.1f} "
+          f"GB, {du.free / 1e9:.1f} GB free ({CKPT_STATE_GB} GB needed)")
+    if du.free < CKPT_STATE_GB * 1.05e9:
+        fail(f"{name}: {du.free / 1e9:.1f} GB free, a full-width "
+             f"checkpoint takes {CKPT_STATE_GB} GB: cut the depth")
+    argv = _train_argv("int8", ARCH) + ["--ckpt-dir", ckpt_dir]
+    _reset_counters(torch, ops, fa, wc)
+    with codec_calls(wc) as calls, host_rss_peak() as rss:
+        a = train.main(argv + ["--ckpt-every", "2"])
+        torch.cuda.synchronize()
+        on_disk = sorted(os.listdir(ckpt_dir))
+        if on_disk != ["step_2"]:
+            fail(f"{name}: run A left {on_disk}, expected ['step_2']")
+        npz = os.path.join(ckpt_dir, "step_2", "proc_0.npz")
+        file_bytes = os.path.getsize(npz)
+        count = _state_bytes(torch, a["state"])
+        arrays = len(ck.manifest(ckpt_dir, 2)["arrays"])
+        a_loss = a["rows"][2]["loss"]
+        a_sums = leaf_checksums(torch, a["state"]["params"])
+        save_s = a["ckpt"]["save_s"][2]
+        rss_a = rss["gb"]
+        del a
+        torch.cuda.empty_cache()
+        b = train.main(argv + ["--ckpt-every", "0"])
+        torch.cuda.synchronize()
+    launches = _check_run_launches(name, ops, fa, wc, {"int8": 4}, calls,
+                                   b["model"].cfg.d_model)
+    if sorted(os.listdir(ckpt_dir)) != ["step_2"]:
+        fail(f"{name}: run B changed the checkpoint directory")
+    if b["ckpt"]["resumed_from"] != 2 or [r["step"] for r in b["rows"]] \
+            != [3]:
+        fail(f"{name}: run B resumed from {b['ckpt']['resumed_from']}, "
+             f"trained steps {[r['step'] for r in b['rows']]}")
+    b_loss = b["rows"][0]["loss"]
+    b_sums = leaf_checksums(torch, b["state"]["params"])
+    differ = [i for i, (x, y) in enumerate(zip(a_sums, b_sums)) if x != y]
+    if b_loss != a_loss or differ or len(a_sums) != len(b_sums):
+        fail(f"{name}: resumed step 3 loss {b_loss!r} vs uninterrupted "
+             f"{a_loss!r}; {len(differ)} of {len(a_sums)} master-weight "
+             f"leaves differ (leaves {differ[:8]})")
+    print(f"{name}: step 3 loss {b_loss!r} resumed == {a_loss!r} "
+          f"uninterrupted, bit for bit; all {len(a_sums)} master-weight "
+          f"leaf checksums equal; one checkpoint on disk at a time "
+          f"(step_2): {file_bytes} B in the file, {count} B of {arrays} "
+          f"arrays by the count ({count / 1e9:.2f} GB against "
+          f"{CKPT_STATE_GB} GB); save {save_s:.1f} s, restore "
+          f"{b['ckpt']['restore_s']:.1f} s (a warm read: the file was "
+          f"just written); peak host RSS {rss['gb']:.2f} GB ({rss_a:.2f} GB "
+          f"through run A and its save); launches "
+          f"{json.dumps(launches, sort_keys=True)} ({card})")
+    del b
+    torch.cuda.empty_cache()
+    return launches, calls
+
+
+def run_replan(torch, ops, train, protocol, fa, wc, card, work_dir):
+    """Part (b) of the phase: ``RP_STEPS`` steps at --pipeline-k auto
+    --virtual-stages 1 --wire-dtype int8 with the hints ``RP_HINTS`` and
+    the bandwidth trace ``RP_TRACE``: the planned cell ``RP_PLAN``, one
+    switch ``RP_SWITCH``, "2 cell compile(s)", finite losses, every step's
+    hop bytes equal to its own cell's bill, the EF buffer created at the
+    switch and live in exactly its slots.  Returns (launches, codec calls
+    by shape)."""
+    import io
+
+    from repro_torch.analysis.autotune import Plan
+    from repro_torch.parallel.pipeline import PipelineSpec
+    name = f"{ARCH} replan"
+    paths = {n: os.path.join(work_dir, f"{n}.json")
+             for n in ("hints", "trace", "plan")}
+    with open(paths["hints"], "w") as f:
+        json.dump({"planner_hints": RP_HINTS}, f)
+    with open(paths["trace"], "w") as f:
+        json.dump(RP_TRACE, f)
+    argv = ["--arch", ARCH, "--size", "full", "--pipeline-stages", "2",
+            "--pipeline-k", "auto", "--virtual-stages", "1",
+            "--wire-dtype", "int8", "--plan-hints", paths["hints"],
+            "--replan", RP_SPEC, "--replan-trace", paths["trace"],
+            "--plan-out", paths["plan"], "--batch", str(T_BATCH), "--seq",
+            str(T_SEQ), "--steps", str(RP_STEPS), "--seed", str(SEED),
+            "--log-every", "1"]
+    _reset_counters(torch, ops, fa, wc)
+    out = io.StringIO()
+    with codec_calls(wc) as calls, contextlib.redirect_stdout(out):
+        res = train.main(argv)
+        torch.cuda.synchronize()
+    print(out.getvalue(), end="")
+    steps, old, new = RP_SWITCH
+    launches = _check_run_launches(
+        name, ops, fa, wc, {"int8": steps, TK_WIRE: RP_STEPS - steps}, calls,
+        res["model"].cfg.d_model)
+    with open(paths["plan"]) as f:
+        doc = json.load(f)
+    got = [(s["step"], Plan.from_json(s["old"]), Plan.from_json(s["new"]))
+           for s in doc["replan"]["switches"]]
+    if Plan.from_json(doc["plan_cell"]) != Plan(*RP_PLAN) or got != [
+            (steps, Plan(*old), Plan(*new))]:
+        fail(f"{name}: planned {doc['plan_cell']}, switches {got}; "
+             f"expected {RP_PLAN} and {RP_SWITCH}")
+    if "2 cell compile(s)" not in out.getvalue():
+        fail(f"{name}: no '2 cell compile(s)' in the launcher's output")
+    d, act = res["model"].cfg.d_model, res["model"].dtype.itemsize
+    for row in res["rows"]:
+        cell = Plan(*row["cell"])
+        want = billed_step_bytes(protocol, PipelineSpec.from_plan(cell), d,
+                                 act)
+        if not math.isfinite(row["loss"]) or (
+                row["hop_bytes_up"], row["hop_bytes_down"]) != want or \
+                cell != Plan(*(old if row["step"] <= steps else new)):
+            fail(f"{name} step {row['step']}: loss {row['loss']}, cell "
+                 f"{cell}, hop bytes {row['hop_bytes_up']} / "
+                 f"{row['hop_bytes_down']} != billed {want}")
+    spec = res["pipeline"]
+    live, ef_norm = check_ef_buffer(torch, name, res["state"]["wire_ef"],
+                                    spec)
+    sw = doc["replan"]["switches"][0]
+    plan = doc["plan"]
+    peak = max(r["peak_gb"] for r in res["rows"])
+    print(f"{name}: planned {Plan(*RP_PLAN)} [{doc['k_source']}], modeled "
+          f"{plan['wall_s'] * 1e3:.3f} ms/batch; switch at step {steps} "
+          f"to {Plan(*new)}, modeled {sw['old_wall_s'] * 1e3:.3f} -> "
+          f"{sw['new_wall_s'] * 1e3:.3f} ms/batch ({sw['gain']:.4f} gain); "
+          f"losses {[round(r['loss'], 5) for r in res['rows']]}; hop bytes "
+          f"a step {[(r['hop_bytes_up'], r['hop_bytes_down']) for r in res['rows']]}"
+          f" == billed; EF buffer live in {live} slots, norm {ef_norm:.6e}; "
+          f"step ms {[round(r['step_ms'], 1) for r in res['rows']]}; peak "
+          f"{peak:.2f} GB; launches {json.dumps(launches, sort_keys=True)} "
+          f"({card})")
+    del res
+    torch.cuda.empty_cache()
+    return launches, calls
+
+
+def run_ckpt_phase(torch, ops, train, protocol, card):
+    """The phase "qwen1.5-4b checkpoint, resume and replan" (parts (a)
+    and (b), their launches checked exactly, part (c)), in a directory
+    of the checkout deleted at the end.  Returns (launches, codec calls
+    by shape) of both parts."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wire_codec as wc
+    ckpt_dir = os.path.join(ROOT, "ckpts", "chip_smoke")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    os.makedirs(ckpt_dir)
+    try:
+        a_launches, a_calls = run_ckpt_resume(torch, ops, train, fa, wc,
+                                              card, ckpt_dir)
+        shutil.rmtree(ckpt_dir)
+        os.makedirs(ckpt_dir)
+        b_launches, b_calls = run_replan(torch, ops, train, protocol, fa, wc,
+                                         card, ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return (dict(collections.Counter(a_launches)
+                 + collections.Counter(b_launches)), a_calls + b_calls)
+
+
 def run_c2p2sl(torch, dev):
     """One full-width make_c2p2sl_step with 2 UEs and a ragged shard_batch,
     its loss beside the pipelined (wire none) loss on the same weights and
@@ -4045,6 +4343,9 @@ def main():
     serve_calls = serve_calls + ss_calls
     phase("streaming C2P2SL")
 
+    rp_launches, rp_calls = run_ckpt_phase(torch, ops, train, protocol, card)
+    phase(f"{ARCH} checkpoint, resume and replan")
+
     gt_rows, gt_launches, _gt_calls = run_granite_training(
         torch, ops, train, protocol, dev, wc, card)
     for r in gt_rows:
@@ -4068,10 +4369,11 @@ def main():
         {k: v for k, v in rt_launches.items() if not k.endswith("_bwd")}))
     kernels = time_kernels(torch, wc, fa, rw, rg, dev, launches, rg_all,
                            (train_launches, q_launches, tk_launches,
-                            tc_launches, st_launches, gt_launches),
+                            tc_launches, st_launches, gt_launches,
+                            rp_launches),
                            (serve_calls,
                             train_calls + q_calls + tk_calls + tc_calls
-                            + st_calls, tc_grads),
+                            + st_calls + rp_calls, tc_grads),
                            flash_err, wkv_err, rglru_err, ptxas)
     gr_all = dict(collections.Counter(gr_launches) + collections.Counter(
         {"moe_gmm": gt_launches["moe_gmm"]}))

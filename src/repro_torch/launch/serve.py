@@ -50,6 +50,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_arch
 from repro_torch.kernels import ops
+from repro_torch.launch.plan_args import add_plan_args
 from repro_torch.models.lm import LM
 from repro_torch.parallel.wire import validate_wire_dtype
 from repro_torch.runtime.qos import QoSMonitor
@@ -283,20 +284,18 @@ def parse_args(argv=None):
                     help="continuous mode: admission order")
     ap.add_argument("--prefill-chunk-tokens", type=int, default=256,
                     help="continuous mode: prefill-chunk token budget")
-    ap.add_argument("--plan-out", default=None,
-                    help="continuous mode: write the slots, the plan and "
-                         "the engine's stats to this JSON file")
     ap.add_argument("--split-cut", type=int, default=0,
                     help="L>0: split inference — UE runs blocks[:L], "
                          "ships coded INFER frames over loopback")
-    ap.add_argument("--wire-dtype", default="none",
-                    help="codec of the INFER uplink: none | int8 | fp8")
     ap.add_argument("--bw-Bps", type=float, default=0.0,
                     help="split mode: emulated link rate both ways; 0 = "
                          "unshaped loopback")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the kernels' plain versions)")
+    # --wire-dtype (the INFER uplink's codec) and --plan-out (continuous
+    # mode: the slots, the plan and the engine's stats as JSON)
+    add_plan_args(ap, flavor="serve")
     return ap.parse_args(argv)
 
 

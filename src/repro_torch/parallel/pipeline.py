@@ -55,6 +55,29 @@ class PipelineSpec:
                 f"{self.virtual_stages} must be >= 1")
 
     @classmethod
+    def from_plan(cls, plan) -> "PipelineSpec":
+        """The ``Plan -> PipelineSpec`` constructor.
+
+        ``plan`` is the planner's cell (``analysis/autotune.Plan``); a
+        plan fixed at launch and one the re-planner switches to
+        (``training/replan.py``) construct alike."""
+        from repro_torch.analysis.autotune import Plan
+        if not isinstance(plan, Plan):
+            raise TypeError(
+                f"from_plan expects an autotune.Plan, got "
+                f"{type(plan).__name__} — build one with Plan(stages=..., "
+                "k=..., v=..., wire_dtype=...) or Plan.from_json")
+        return cls(num_stages=plan.stages, microbatches=plan.k,
+                   virtual_stages=plan.v, wire_dtype=plan.wire_dtype)
+
+    @property
+    def plan(self):
+        """This spec as the planner's cell (inverse of ``from_plan``)."""
+        from repro_torch.analysis.autotune import Plan
+        return Plan(stages=self.num_stages, k=self.microbatches,
+                    v=self.virtual_stages, wire_dtype=self.wire_dtype)
+
+    @classmethod
     def auto_k(cls, stage_compute_s: float, link_s: float, *,
                num_stages: int = 2, virtual_stages: int = 1,
                k_cap: int = 16):
@@ -66,6 +89,25 @@ class PipelineSpec:
                             virtual_stages=virtual_stages)
         return cls(num_stages=num_stages, microbatches=k,
                    virtual_stages=virtual_stages)
+
+    @classmethod
+    def auto_plan(cls, inputs, *, k_fixed: int | None = None,
+                  v_fixed: int | None = None, wire_dtype: str | None = None):
+        """Spec with (k, v[, codec]) chosen by the training planner over
+        ``inputs`` (``analysis/autotune.PlanInputs``; the reference's
+        dry-run records are not ported).  ``k_fixed`` / ``v_fixed`` pin
+        one coordinate; ``wire_dtype`` pins the codec, or ``'auto'``
+        enumerates ``WIRE_AUTO`` jointly with (k, v).  Returns ``(spec,
+        AutoPlan)``."""
+        from repro_torch.analysis import autotune
+        wire_candidates = None
+        if wire_dtype == "auto":
+            wire_candidates = list(autotune.WIRE_AUTO)
+        elif wire_dtype is not None:
+            inputs = inputs.with_wire(wire_dtype)
+        plan = autotune.choose_plan(inputs, k_fixed=k_fixed, v_fixed=v_fixed,
+                                    wire_candidates=wire_candidates)
+        return cls.from_plan(plan.plan), plan
 
 
 def _split_stages(layers: list, num_stages: int, virtual_stages: int = 1):

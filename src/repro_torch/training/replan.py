@@ -15,9 +15,15 @@ chosen for lasts.  This module closes the loop at run time::
                             projected wall-time gain clears the margin
 
 The streaming runtime (``runtime/bs.py``) feeds ``observe_hop`` with the
-measured (bytes, seconds) of every socket hop.  The reference's
-``PlanCellCache`` and ``carry_state`` (the training launcher's switch
-machinery) are not ported.
+measured (bytes, seconds) of every socket hop; the training launcher
+(``launch/train.py --replan``) feeds step times and a scripted bandwidth
+trace, and switches through the cheap-switch machinery at the end of the
+module: ``PlanCellCache`` builds the step of each plan cell once, and
+``carry_state`` moves the training state across a switch.  Carry-over
+rules of the top-k hop's error-feedback buffer ``wire_ef``: it carries
+over exactly when its shape is unchanged (a codec change at equal k and
+v), resets to zero when k or v changes its shape, and is dropped or
+created when the codec moves between top-k and dense.
 """
 from __future__ import annotations
 
@@ -380,3 +386,72 @@ def reachable_plans(inputs: PlanInputs, wire_candidates=WIRE_AUTO) -> list:
                 out.append(Plan(stages=inputs.num_stages, k=k, v=v,
                                 wire_dtype=wd))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Step cache + state carry-over (the cheap-switch machinery)
+# ---------------------------------------------------------------------------
+
+
+class PlanCellCache:
+    """Memoizes per-plan artifacts by plan **cell**.
+
+    ``build(plan)`` is the caller's factory, typically the train step of
+    that cell (``launch/train.py``).  Re-entering a visited cell is a dict
+    hit.  ``state_template`` memoizes ``fn``'s result built on the
+    ``meta`` device (shapes and dtypes, no memory and no FLOPs) under the
+    cell, as the reference memoizes ``jax.eval_shape``.
+    """
+
+    def __init__(self, build):
+        self._build = build
+        self._entries: dict = {}
+        self._templates: dict = {}
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, plan: Plan):
+        key = plan.cell()
+        if key in self._entries:
+            self.hits += 1
+        else:
+            self.misses += 1
+            self._entries[key] = self._build(plan)
+        return self._entries[key]
+
+    def state_template(self, plan: Plan, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)`` with factory functions on the ``meta``
+        device, memoized under this plan's cell (``fn`` must be
+        cell-deterministic)."""
+        key = plan.cell()
+        if key not in self._templates:
+            import torch
+            with torch.device("meta"):
+                self._templates[key] = fn(*args, **kwargs)
+        return self._templates[key]
+
+    def __len__(self):
+        return len(self._entries)
+
+    def __contains__(self, plan: Plan):
+        return plan.cell() in self._entries
+
+
+def carry_state(state: dict, new_plan: Plan, *, cfg, batch: int,
+                seq: int) -> dict:
+    """Move a training state across a plan switch, checkpoint-free.
+
+    Parameters, optimizer state and step carry over unchanged (the same
+    objects); ``wire_ef`` follows the module docstring's rules, a new
+    buffer on the parameters' device."""
+    from repro_torch.parallel.pipeline import PipelineSpec, wire_ef_zeros
+    from repro_torch.utils.trees import tree_leaves
+    new_state = dict(state)
+    old_ef = new_state.pop("wire_ef", None)
+    new_ef = wire_ef_zeros(cfg, PipelineSpec.from_plan(new_plan), batch, seq,
+                           tree_leaves(state["params"])[0].device)
+    if new_ef is not None:
+        if old_ef is not None and tuple(old_ef.shape) == tuple(new_ef.shape):
+            new_ef = old_ef            # exact carry-over
+        new_state["wire_ef"] = new_ef
+    return new_state

@@ -1554,6 +1554,64 @@ def test_resnet_c2p2sl_equals_psl_on_card():
     assert dist(te, tp, "ue_params") > 2e-4
 
 
+# ------------------------------------- the launcher: resume and replan
+
+
+_LAUNCH = ["--arch", "qwen1.5-4b", "--size", "smoke", "--batch", "4",
+           "--seq", "16", "--log-every", "0", "--pipeline-stages", "2"]
+
+
+def test_launcher_resume_on_the_card_equals_the_uninterrupted_run(
+        tmp_path):
+    """The f32 SMOKE qwen on the card, top-k hop and compressed
+    gradients: steps 1-2 and a checkpoint, then step 3 from it, equal the
+    3-step run bit for bit (loss and every state leaf, kept on the card)."""
+    from repro_torch.launch import train
+    cuda_device()
+    argv = _LAUNCH + ["--steps", "3", "--pipeline-k", "2", "--wire-dtype",
+                      "int8+topk0.25", "--compress-grads"]
+    whole = train.main(argv)
+    ck = str(tmp_path / "ck")
+    train.main(argv + ["--ckpt-dir", ck, "--ckpt-every", "2"])
+    resumed = train.main(argv + ["--ckpt-dir", ck])
+    assert resumed["ckpt"]["resumed_from"] == 2
+    assert resumed["rows"][0]["loss"] == whole["rows"][2]["loss"]
+    for key in whole["state"]:
+        for a, b in zip(tree_leaves(resumed["state"][key]),
+                        tree_leaves(whole["state"][key])):
+            if isinstance(a, torch.Tensor):
+                assert a.device.type == "cuda" and torch.equal(a, b)
+            else:
+                assert a == b
+
+
+def test_launcher_switches_once_on_the_card(tmp_path):
+    """The SMOKE bandwidth-drop run of ``test_torch_launch_train.py`` on
+    the card: one switch after the drop, to the top-k hop; finite losses
+    and every step's hop bytes its own cell's bill."""
+    import json
+
+    from repro_torch.launch import train
+    from repro_torch.runtime import protocol
+    cuda_device()
+    trace, plan_out = tmp_path / "trace.json", tmp_path / "plan.json"
+    trace.write_text('{"steps": [0, 6], "bw_Bps": [1e8, 1e4]}')
+    res = train.main(_LAUNCH + [
+        "--steps", "12", "--replan", "every:3,hysteresis:0.05",
+        "--replan-trace", str(trace), "--plan-out", str(plan_out)])
+    switches = json.loads(plan_out.read_text())["replan"]["switches"]
+    assert [(s["step"], s["new"]["wire_dtype"]) for s in switches] == [
+        (10, "int8+topk0.25")]
+    d = res["model"].cfg.d_model
+    for r in res["rows"]:
+        s, _k, v, wire = r["cell"]
+        bill = tuple((s * v - 1) * protocol.billed_hop_bytes(
+            4 * 16 * d, d, wire, 4, backward=bwd) for bwd in (False, True))
+        assert np.isfinite(r["loss"])
+        assert (r["hop_bytes_up"], r["hop_bytes_down"]) == bill
+    assert res["state"]["wire_ef"].device.type == "cuda"
+
+
 # ------------------------------------- the serving engine's CUDA graph
 
 
