@@ -35,10 +35,14 @@ Phases (any failure exits non-zero; nothing is caught):
      granite-moe-3b-a800m's prefill shapes ([40, 512, 1536] @ [40, 1536,
      512] and [40, 512, 512] @ [40, 512, 1536]), its decode shape
      (capacity 8), a ragged [5, 37, 200] @ [5, 200, 72], C past one tile
-     (130) and the small-C variant's C = 1, 8, 12, 16, each on the route
-     moe_gmm.route names (bf16: "wgmma" or "wgmma_small_c"; f32: "simt");
-     flash at granite's heads (24 q on 8 kv heads of 64), every bf16 case
-     on the tensor-core route "mma"; the flash backward kernel against
+     (130) and the small-C variant's C = 1, 8, 12, 16, and qwen3-moe's
+     128 experts ([128, 160, 2048] @ [128, 2048, 768], its w2, capacity
+     8), each on the route moe_gmm.route names (bf16: "wgmma" or
+     "wgmma_small_c"; f32: "simt"); flash at granite's heads (24 q on 8
+     kv heads of 64) and qwen3-moe's (32 q on 4 kv heads of 128), every
+     bf16 case on the tensor-core route "mma"; WKV6 at rwkv6-3b serving's
+     calls from a state, a decode step [4, 1, 40, 64] and S = 10 (bf16 on
+     "chunked", f32 on SIMT); the flash backward kernel against
      attention_bwd_plain within 2e-4 (f32) / 5e-2 (bf16) absolute and
      element by element within 2e-5 + 1e-4 |p| (f32) / 1e-3 + 2^-7 |p|
      (bf16) (qwen1.5-4b's training call [2, 20, 512, 128] bf16 causal, granite's
@@ -85,6 +89,7 @@ Phases (any failure exits non-zero; nothing is caught):
      the CPU engine's and the card's solo decodes, tokens sampled at T 0.7
      equal at 1 and 3 slots and to solo, a replayed step leaves the
      inactive slots' bytes as they were, prompt + gen == cache_len runs;
+     the same for the rwkv6 SMOKE engine (the WKV6 state in each lane);
   4. the main paths at full width, random weights from seed 0, bf16 compute:
      a. serving qwen1.5-4b (40 layers, batch 4, prompt 512, 32 greedy
         tokens) through the serving CLI's entry point: the static path, then
@@ -199,6 +204,32 @@ Phases (any failure exits non-zero; nothing is caught):
         losses, every step's hop bytes its own cell's bill; (c) both
         runs' exact launches, every flash on "mma", the codec calls by
         shape;
+     n. serving qwen3-moe-30b-a3b at full width (after g; 48 MoE layers,
+        128 experts of d_ff 768, top 8, 32 q heads on 4 kv heads of 128,
+        untied; 61.1 GB of bf16 weights), each init after the card's
+        memory is read (at most 1 GB still allocated), through the serving
+        CLI's entry point: static (exactly 144 moe_gmm and 48 flash
+        launches in the prefill and 144 x 33 moe_gmm in the run, the
+        prefill's on "wgmma" at capacity 160, the decode steps' on
+        "wgmma_small_c" at capacity 8), split at cut 24 in int8 (33 frames
+        of 4,259,840 + 32 x 8,320 B, equal to the bills), then g's request
+        mix (the init's peak at most the parameters' bytes + 2.5 GB;
+        launches by prefill chunk and decode step; the engine's tokens
+        (budgets 8 and 32) against a teacher-forced decode from its own
+        prefill bucket, the
+        (token, layer) expert choices that flip counted and, where any
+        do, the engine's choices replayed; the request's solo decode
+        printed beside it with the prefill assignments its own capacity
+        keeps or drops otherwise, ROADMAP Queue 3 fault 18);
+     o. serving rwkv6-3b at full width (after n) through the same entry
+        point: static (exactly 32 + 32 x 32 wkv6 launches, every one on
+        "chunked", the decode steps' S = 1 calls from the cached state
+        too), a 64-token prompt with and without --token-loop-prefill (32
+        x (64 + 8) launches against 32 x 9; the tokens compared), split
+        at cut 16 in int8 (5,324,800 + 32 x 10,400 B), then g's request
+        mix (32 wkv6 launches a prefill chunk and a decode step, the
+        captured step included), and the same engine in f32 against solo
+        decodes within RS_F32_TOL (bf16 amplifies roundings, fault 20);
      e. serving granite-moe-3b-a800m (32 MoE layers, 40 experts top-8, 24
         heads on 8 kv heads of 64, tied embeddings; batch 4, prompt 512, 32
         greedy tokens) through the serving CLI's entry point: tokens in
@@ -238,7 +269,9 @@ Phases (any failure exits non-zero; nothing is caught):
      the main paths coded (qwen's prefill hop and decode steps, the
      training hop), each row with the launches at its shape; for moe_gmm
      and flash also the achieved TFLOP/s and the share of the bound; the
-     codec at compress_grads' largest call (f32 [1519360, 256], the
+     kernels at n's and o's shapes (flash at 32 q on 4 kv heads, moe_gmm
+     at E 128 in prefill and decode, WKV6 at rwkv6's prefill and decode
+     calls); the codec at compress_grads' largest call (f32 [1519360, 256], the
      embedding's and the head's); for
      WKV6 and the RG-LRU scan the route, ptxas' registers and spills, and
      for WKV6 the f32 call's (SIMT) time in the same run; the flash
@@ -370,7 +403,35 @@ GR_RUN = {"moe_gmm": 3 * GR_LAYERS * (GEN + 1), "flash_attention": GR_LAYERS}
 GR_GMM = (40, 512, 1536, 512)                   # E, C, D, F of w1 and w3
 GR_GMM_DECODE = (40, 8, 1536, 512)
 GR_HEADS = (24, 8, 64)                          # q heads, kv heads, dh
-QM_ARCH = "qwen3-moe-30b-a3b"                   # its SMOKE config splits
+# the qwen3-moe-30b-a3b serving path at full width (48 MoE layers, 128
+# experts of d_ff 768, top 8, 32 q heads on 4 kv heads of 128, untied; 61.1
+# GB of bf16 weights): static at the qwen batch and lengths, split at cut
+# 24 (int8), and the continuous phase's request mix.  Capacity
+# _capacity(4 * 512, 8, 128, 1.25) = 160 in a 4-prompt prefill, 8 in a
+# decode step (static B 4, and the engine's 8 dropless lanes).  Before its
+# first init the card must hold at most QM_HELD bytes; the init's peak is
+# at most the parameters' bytes plus QM_INIT_SLACK (one layer's draw: 1.21
+# GB of bf16 experts and a 0.81 GB f32 transient of torch.randn)
+QM_ARCH, QM_LAYERS, QM_CUT = "qwen3-moe-30b-a3b", 48, 24
+QM_HEADS = (32, 4, 128)                         # q heads, kv heads, dh
+QM_GMM = (128, 160, 2048, 768)                  # E, C, D, F of w1 and w3
+QM_GMM_DECODE = (128, 8, 2048, 768)
+QM_PREFILL = {"moe_gmm": 3 * QM_LAYERS, "flash_attention": QM_LAYERS}
+QM_RUN = {"moe_gmm": 3 * QM_LAYERS * (GEN + 1), "flash_attention": QM_LAYERS}
+QM_HELD, QM_INIT_SLACK = 1e9, 2.5e9
+# rwkv6-3b serving at full width (32 layers, d 2560, 40 heads of 64): static,
+# split at cut 16 (int8) and the continuous mix; one wkv6 launch a layer in a
+# prefill and in a decode step, every one on the chunked route; then the
+# static path at a 64-token prompt and 8 tokens with and without
+# --token-loop-prefill (the prompt through the decode step, S = 1 a launch)
+RS_LAYERS, RS_CUT = 32, 16
+RS_DECODE = (BATCH, 1, 40, 64)                  # a static decode step's call
+RS_LOOP = (64, 8)                               # prompt, gen of the loop run
+# random-weight rwkv6-3b in bf16 amplifies single roundings through its 32
+# layers (ROADMAP Queue 3, fault 20): its engine is held to solo decodes
+# in f32, where the largest gap measured on an H100 is 4.8e-5 of the
+# largest |logit| (PERF.md); bf16 takes no teacher-forced reference
+RS_F32_TOL = 2e-4
 # the MoE training path: granite-moe-3b-a800m FULL through the training CLI
 # at the rwkv / qwen spec (S 2 cut at 16, k 4, int8 hop, batch 8 x 512, 3
 # steps); a micro-batch of 2 x 512 tokens gives the capacity
@@ -602,7 +663,8 @@ def check_codec(torch, wc, dev):
 
 def check_flash(torch, fa, dev):
     """Flash kernel against the plain version; returns the max error at
-    each main path's bf16 shape, by head dim."""
+    each main path's bf16 shape, by head dim (qwen3-moe's 32 q heads on 4
+    kv heads under "gqa8")."""
     gen = torch.Generator(device=dev).manual_seed(2)
     tol = {getattr(torch, name): t for name, t in FLASH_TOL.items()}
     hq, hkv, dh, w = RG_HEADS
@@ -616,6 +678,10 @@ def check_flash(torch, fa, dev):
              (BATCH, GR_HEADS[0], GR_HEADS[1], PROMPT, GR_HEADS[2], True, 0,
               torch.bfloat16, True),
              (BATCH, GR_HEADS[0], GR_HEADS[1], PROMPT, GR_HEADS[2], True, 0,
+              torch.float32, True),
+             (BATCH, QM_HEADS[0], QM_HEADS[1], PROMPT, QM_HEADS[2], True, 0,
+              torch.bfloat16, True),
+             (BATCH, QM_HEADS[0], QM_HEADS[1], PROMPT, QM_HEADS[2], True, 0,
               torch.float32, True),
              (2, 8, 4, 200, 64, True, 0, torch.float32, False),
              (2, 8, 4, 200, 64, True, 0, torch.bfloat16, False),
@@ -647,7 +713,7 @@ def check_flash(torch, fa, dev):
             fail(f"{name}: max abs err {err} > {tol[dt]}")
         print(f"{name} [{want}]: max abs err {err:.3e} (tol {tol[dt]})")
         if bshd and dt == torch.bfloat16:
-            main_err[dh] = err
+            main_err["gqa8" if hq == QM_HEADS[0] else dh] = err
     check_flash_rows_without_keys(torch, fa, dev, gen, tol)
     return main_err
 
@@ -893,12 +959,16 @@ def check_moe_gmm(torch, mg, dev):
     order), 1e-2 in bf16 (the output rounded once, one bf16 step is 2^-8;
     the tensor cores sum in another order).  Each call must take the
     route its dtype and C imply.  Returns the max abs errors at the
-    prefill (w1) and decode shapes in bf16."""
+    prefill (w1) and decode shapes in bf16, granite's and qwen3-moe's (128
+    experts: [128, 160, 2048] @ [128, 2048, 768], its w2 and capacity
+    8)."""
     gen = torch.Generator(device=dev).manual_seed(11)
     e, c, d, f = GR_GMM
+    qe, qc, qd, qf = QM_GMM
     shapes = [GR_GMM, (e, c, f, d), GR_GMM_DECODE, (5, 37, 200, 72),
               (3, 130, 200, 72), (2, 1, 200, 72), (3, 8, 200, 72),
-              (2, 12, 200, 72), (2, 16, 200, 72)]
+              (2, 12, 200, 72), (2, 16, 200, 72), QM_GMM, (qe, qc, qf, qd),
+              QM_GMM_DECODE]
     main = {}
     for shape in shapes:
         for dt in (torch.bfloat16, torch.float32):
@@ -922,7 +992,8 @@ def check_moe_gmm(torch, mg, dev):
                 fail(f"{name}: max rel err {err} > {tol} (or dtype "
                      f"{out.dtype}, shape {tuple(out.shape)})")
             print(f"{name} [{want}]: max rel err {err:.3e} (tol {tol})")
-            if dt == torch.bfloat16 and shape in (GR_GMM, GR_GMM_DECODE):
+            if dt == torch.bfloat16 and shape in (GR_GMM, GR_GMM_DECODE,
+                                                  QM_GMM, QM_GMM_DECODE):
                 main[shape] = float((out.float() - plain.float()).abs().max())
     return main
 
@@ -1242,8 +1313,10 @@ def check_wkv6(torch, rw, dev):
     forward and autograd.  Tolerance relative to the largest value: 1e-4
     in f32 (sums in another order over up to 512 steps); 1e-2 in bf16,
     whose r, k, v, out and dr, dk, dv are rounded to bf16 (step 2^-8).
+    rwkv6-3b serving's calls from a state: a decode step (S = 1) and S =
+    10, on the route ``rwkv6.route`` names (bf16 at dh 64: "chunked").
     Returns the max abs errors of out and of the gradients at the
-    training shape in bf16."""
+    training shape in bf16, and of out at the decode step's."""
     gen = torch.Generator(device=dev).manual_seed(6)
     # (shape [B, S, H, dh], dtype, strong decay, initial state, r based 2
     # bytes off 16); bf16 at dh 64 with aligned bases takes the chunked
@@ -1258,8 +1331,12 @@ def check_wkv6(torch, rw, dev):
              ((1, 70, 2, 16), torch.float32, False, True, False),
              ((2, 64, 3, 64), torch.float32, True, True, False),
              ((2, 64, 3, 64), torch.bfloat16, True, True, False),
-             ((1, 130, 3, 64), torch.bfloat16, False, True, False)]
-    main = None
+             ((1, 130, 3, 64), torch.bfloat16, False, True, False),
+             (RS_DECODE, torch.bfloat16, False, True, False),
+             (RS_DECODE, torch.float32, False, True, False),
+             ((BATCH, 10, 40, 64), torch.bfloat16, False, True, False),
+             ((BATCH, 10, 40, 64), torch.float32, False, True, False)]
+    main = decode = None
     for shape, dt, strong, with_s0, misaligned in cases:
         b, s, h, dh = shape
         rnd = lambda *sh: torch.randn(sh, generator=gen, device=dev)
@@ -1313,8 +1390,10 @@ def check_wkv6(torch, rw, dev):
             main = (float((out.float() - op.detach().float()).abs().max()),
                     max(float((g.float() - gp.float()).abs().max())
                         for g, gp in zip(grads, plain)))
+        if shape == RS_DECODE and dt == torch.bfloat16:
+            decode = float((out.float() - op.detach().float()).abs().max())
     check_wkv6_strong_decay(torch, rw, dev, gen)
-    return main
+    return main + (decode,)
 
 
 def check_wkv6_strong_decay(torch, rw, dev, gen):
@@ -1899,9 +1978,10 @@ def _engine_reqs(vocab, specs, rid0=0):
 def check_small_engines(torch, dev):
     """The continuous-batching engine on small f32 models, its decode step
     captured as a CUDA graph: dense qwen SMOKE, recurrentgemma SMOKE (the
-    RG-LRU scan and windowed flash in prefill, the ring in decode) and
+    RG-LRU scan and windowed flash in prefill, the ring in decode),
     granite-moe SMOKE at 16 slots (5 experts, top 2: the batched step's
-    naive capacity would drop tokens).  Greedy tokens equal the card's
+    naive capacity would drop tokens) and rwkv6 SMOKE (the WKV6 kernel
+    from each lane's state).  Greedy tokens equal the card's
     solo decodes and the CPU engine's exactly; tokens sampled at T = 0.7
     are the same at 1 and 3 slots and equal the card's solo decodes; a
     replayed step leaves an inactive slot's arena bytes as they were; a
@@ -1916,7 +1996,8 @@ def check_small_engines(torch, dev):
     for arch, slots, specs in (
             (ARCH, 2, [(5, 4), (5, 2), (7, 6), (5, 3), (7, 5)]),
             (RG_ARCH, 2, [(12, 6), (5, 3), (12, 4), (9, 8)]),
-            (GR_ARCH, 16, [(4, 3)] * 16)):
+            (GR_ARCH, 16, [(4, 3)] * 16),
+            (T_ARCH, 2, [(5, 4), (5, 2), (7, 6), (5, 3), (7, 5)])):
         cfg = get_arch(arch).smoke
         cpu, card = LM(cfg, "cpu"), LM(cfg, dev)
         params = cpu.init(torch.Generator().manual_seed(SEED))
@@ -2043,52 +2124,283 @@ def _engine_line(name, res, stats, convoy, card):
           + f" ({card})")
 
 
-def run_continuous(torch, ops, serve, card):
-    """Continuous batching of qwen1.5-4b FULL on the card: through the
+def _cb_want(arch, stats):
+    """The launches a continuous run must count, from its prefill chunks
+    and decode steps (and the capture's eager warm-up steps, with all
+    lanes inactive): flash once a layer in a bucket prefill and never in
+    decode; qwen3-moe's three grouped products a layer in both; rwkv6's
+    WKV6 once a layer in both."""
+    from repro_torch.serving.engine import _WARMUP_STEPS
+    chunks = stats["prefill_chunks"]
+    steps = stats["decode_steps"] + (_WARMUP_STEPS if stats["graph"] else 0)
+    if arch == QM_ARCH:
+        return {"flash_attention": QM_LAYERS * chunks,
+                "moe_gmm": 3 * QM_LAYERS * (chunks + steps)}
+    if arch == T_ARCH:
+        return {"wkv6": RS_LAYERS * (chunks + steps)}
+    return {"flash_attention": Q_LAYERS * chunks}
+
+
+def _check_routes(name, launches, fa, mg, rw, small_c=0):
+    """Every flash launch on "mma", every WKV6 launch on "chunked", and
+    moe_gmm's on "wgmma", but ``small_c`` of them (the decode steps'
+    capacity 8) on "wgmma_small_c"."""
+    want = {}
+    if launches.get("flash_attention"):
+        want["flash"] = {"mma": launches["flash_attention"]}
+    if launches.get("moe_gmm"):
+        want["moe_gmm"] = {k: v for k, v in (
+            ("wgmma", launches["moe_gmm"] - small_c),
+            ("wgmma_small_c", small_c)) if v}
+    if launches.get("wkv6"):
+        want["wkv6"] = {"wkv6:chunked": launches["wkv6"]}
+    got = {"flash": dict(fa.ROUTES), "moe_gmm": dict(mg.ROUTES),
+           "wkv6": dict(rw.ROUTES)}
+    got = {k: v for k, v in got.items() if v}
+    if got != want:
+        fail(f"{name}: routes {got} != {want}")
+    return got
+
+
+def _reset_counts(ops, *counters):
+    ops.reset_launches()
+    for c in counters:
+        c.clear()
+
+
+def _free_card(torch, what):
+    """Before a full-width init: what the card still holds after a
+    garbage collection, printed; fails if more than QM_HELD bytes are
+    still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    free, total = torch.cuda.mem_get_info()
+    print(f"before {what}: {held / 1e9:.3f} GB allocated, "
+          f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free")
+    if held > QM_HELD:
+        fail(f"{held / 1e9:.3f} GB still allocated before {what} (> "
+             f"{QM_HELD / 1e9:.1f} GB)")
+
+
+def _guard_and_init(torch, arch, dev):
+    """``LM.init`` from SEED after ``_free_card``, timed and its peak
+    read: (model, params, init s, peak bytes, parameter bytes)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import LM
+    from repro_torch.utils.trees import tree_leaves
+    _free_card(torch, f"{arch}'s init")
+    torch.cuda.reset_peak_memory_stats()
+    model = LM(get_arch(arch).full, dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    leaves = tree_leaves(params)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"{arch} init: {sum(t.numel() for t in leaves):,} parameters, "
+          f"{nbytes / 1e9:.3f} GB, {init_s:.2f} s, peak "
+          f"{peak / 1e9:.3f} GB ({(peak - nbytes) / 1e9:.3f} GB over the "
+          "parameters)")
+    return model, params, init_s, peak, nbytes
+
+
+@contextlib.contextmanager
+def route_tape(torch, moe, replay=None):
+    """While the block runs, ``moe._route`` keeps on the host the expert
+    ids its router picks in every decode call (at most CB_SLOTS token
+    rows) in ``tape["ids"]``, and ``moe._slots`` the keep flags of every
+    prefill call in ``tape["keep"]``.  ``replay`` maps a decode call's
+    number (from 0) to expert ids that replace the router's own top k
+    there (still recorded as its own), the gates taken from the router's
+    own probabilities at them and renormalised: the engine's decisions
+    replayed in a reference run.  Eager runs only: each decode call
+    syncs with the host."""
+    tape = {"ids": [], "keep": []}
+    route, slots = moe._route, moe._slots
+
+    def taped_route(x, router, topk):
+        probs, gate, idx = route(x, router, topk)
+        if x.shape[0] <= CB_SLOTS:
+            n = len(tape["ids"])
+            tape["ids"].append(idx.cpu())
+            if replay is not None and n in replay:
+                idx = replay[n].to(idx.device).reshape(idx.shape)
+                gate = torch.gather(probs, -1, idx)
+                gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True),
+                                              1e-9)
+        return probs, gate, idx
+
+    def taped_slots(idx, n_experts, capacity):
+        slot, keep = slots(idx, n_experts, capacity)
+        if idx.shape[0] > CB_SLOTS:
+            tape["keep"].append(keep.cpu())
+        return slot, keep
+
+    moe._route, moe._slots = taped_route, taped_slots
+    try:
+        yield tape
+    finally:
+        moe._route, moe._slots = route, slots
+
+
+def bucket_solo(torch, model, params, prompts, i, forced, cache_len,
+                np):
+    """Teacher-forced batch-1 decode of prompt ``i`` of a prefill bucket:
+    the bucket's prefill as the engine admits it (``prompts`` in its
+    order), row ``i`` of its cache taken out, then one static decode step
+    a token: the prefill's argmax first, then ``forced``.  -> logits [n,
+    V] on the host."""
+    from repro_torch.serving import kv
+    from repro_torch.utils.trees import tree_map
+    with torch.inference_mode():
+        toks = torch.as_tensor(np.stack(prompts), dtype=torch.int64,
+                               device=model.device)
+        logits, state = model.prefill_with_cache(
+            params, {"tokens": toks}, cache_len, torch.float32)
+        axes = kv.slot_axes(model, cache_len, torch.float32)
+        cache = tree_map(lambda t: t.clone(), kv.expand_slot(
+            kv.take_slot(state["cache"], axes, i), axes))
+        del state
+        tok = torch.argmax(logits[i:i + 1], dim=-1, keepdim=True)
+        pos, out = toks.shape[1], []
+        for j in range(len(forced)):
+            lg, cache = model.decode_step(params, tok, cache, pos)
+            out.append(lg[0].cpu())
+            pos += 1
+            tok = torch.full((1, 1), int(forced[j]), dtype=torch.int64,
+                             device=model.device)
+        return torch.stack(out)
+
+
+def _lane_ids(steps, ids, rid, layers):
+    """One request's expert ids in an engine run: for each decode step it
+    was active in, the ids of its lane at every layer [layers, K]."""
+    out = []
+    for lanes, start in steps:
+        for slot, r in lanes.items():
+            if r == rid:
+                out.append([ids[start + l][slot] for l in range(layers)])
+    return out
+
+
+def _flips(a, b):
+    """(token, layer) pairs whose expert-id sets differ, and the ids of
+    ``a`` not in ``b``, over two runs' [tokens][layers] ids."""
+    pairs = ids = 0
+    for ta, tb in zip(a, b, strict=True):
+        for la, lb in zip(ta, tb, strict=True):
+            sa, sb = set(la.reshape(-1).tolist()), set(lb.reshape(-1).tolist())
+            pairs += sa != sb
+            ids += len(sa - sb)
+    return pairs, ids
+
+
+def moe_references(torch, moe, model, params, req, out, eng_ids, chunk,
+                   np, solo):
+    """qwen3-moe's teacher-forced references of one request against the
+    engine (``out``: its emitted tokens, ``eng_ids``: its lanes' expert
+    ids, ``chunk``: the requests of the prefill bucket it was admitted
+    in, itself among them):
+      * the bucket reference (``bucket_solo``) with the engine's expert
+        choices replayed at every (token, layer), and the count of those
+        where its own router picks another set (the flips);
+      * with ``solo``, the request's solo decode (``solo_decode``: its
+        own prefill, its own routing), whose capacity keeps or drops other
+        assignments of its prompt than the bucket's (ROADMAP Queue 3,
+        fault 18).
+    -> dict of the logits and the counts."""
+    from repro_torch.serving.engine import solo_decode
+    i = [r.rid for r in chunk].index(req.rid)
+    prompts = [r.prompt for r in chunk]
+    replay = {j * QM_LAYERS + l: eng_ids[j][l]
+              for j in range(len(out)) for l in range(QM_LAYERS)}
+    per_token = lambda ids: [ids[j * QM_LAYERS:(j + 1) * QM_LAYERS]
+                             for j in range(len(out))]
+    with route_tape(torch, moe, replay=replay) as tape:
+        res = {"replayed": bucket_solo(torch, model, params, prompts, i, out,
+                                       CB_CACHE, np)}
+    res["flips"] = _flips(eng_ids, per_token(tape["ids"]))
+    if not solo:
+        return res
+    s, k = len(req.prompt), eng_ids[0][0].numel()
+    bucket_keep = [kp[i * s * k:(i + 1) * s * k] for kp in tape["keep"]]
+    with route_tape(torch, moe) as tape:
+        _, res["solo"] = solo_decode(model, params, req.prompt, len(out),
+                                     cache_len=CB_CACHE, forced=out,
+                                     keep_logits=True)
+    res["solo_flips"] = _flips(eng_ids, per_token(tape["ids"]))
+    res["keep_differs"] = sum(int((a != b).sum()) for a, b in
+                              zip(bucket_keep, tape["keep"], strict=True))
+    res["dropped"] = (sum(int((~a).sum()) for a in bucket_keep),
+                      sum(int((~b).sum()) for b in tape["keep"]))
+    return res
+
+
+def run_continuous(torch, ops, serve, card, arch=ARCH,
+                   ref_gens=(8, 32, 128)):
+    """Continuous batching of ``arch`` FULL on the card: through the
     serving CLI (the decode step one CUDA graph), then the engine on the
     same weights captured (logits kept for three requests) and with
-    graph=False.  Fails unless the three emit the same tokens, flash
-    launches 40 times a prefill chunk and never in decode, and three
-    requests, one per budget, decoded solo with teacher forcing on the
-    engine's tokens give the engine's logits within CB_TOL of the largest
-    |logit|, every emitted token the argmax of the engine's own logits."""
+    graph=False.  Fails unless the three emit the same tokens, every
+    kernel launches as ``_cb_want`` counts, each on its route, and one
+    request of each budget in ``ref_gens``, decoded with teacher forcing
+    on the engine's tokens, gives the engine's logits within CB_TOL of the
+    largest
+    |logit| (ROADMAP Queue 3, fault 8's contract), every emitted token
+    the argmax of the engine's own logits.  The teacher-forced run is the
+    request's solo decode; for qwen3-moe it is the decode from the
+    engine's own prefill bucket with the engine's expert choices replayed
+    (``moe_references``; the choices its own router would flip counted),
+    and the shortest request's solo decode is printed beside it with the
+    assignments its own prefill keeps or drops otherwise (fault 18).
+    rwkv6-3b in bf16 takes no reference (fault 20: ``run_engine_f32``
+    holds its engine); qwen3-moe's run eagerly at ~0.2 s a token, for
+    the budgets 8 and 32.
+    The engines' weights come from a full-width init whose peak is
+    printed (``_guard_and_init``: nothing left on the card before
+    it)."""
     import numpy as np
 
-    from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.lm import LM
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.kernels import rwkv6 as rw
+    from repro_torch.models import moe
     from repro_torch.serving.engine import ServingEngine, convoy_units, \
         solo_decode
-    argv = ["--arch", ARCH, "--size", "full", "--continuous", "--requests",
+    argv = ["--arch", arch, "--size", "full", "--continuous", "--requests",
             str(CB_REQUESTS), "--prompt-len", str(PROMPT), "--gen-mix",
             CB_MIX, "--slots", str(CB_SLOTS), "--policy", "longest_first",
             "--prefill-chunk-tokens", str(CB_CHUNK), "--batch", str(BATCH),
             "--seed", str(SEED)]
-    torch.cuda.synchronize()
+    _free_card(torch, f"the {arch} continuous CLI")
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    fa.ROUTES.clear()
+    _reset_counts(ops, fa.ROUTES, mg.ROUTES, rw.ROUTES)
     cli = serve.main(argv)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     stats = cli["stats"]
-    want = {"flash_attention": Q_LAYERS * stats["prefill_chunks"]}
-    if launches != want or dict(fa.ROUTES) != {"mma": want[
-            "flash_attention"]}:
-        fail(f"continuous {ARCH}: launches {launches} (routes "
-             f"{dict(fa.ROUTES)}) != {want}: flash 40 a prefill chunk, "
-             "none in decode")
+    want = _cb_want(arch, stats)
+    if launches != want:
+        fail(f"continuous {arch}: launches {launches} != {want} (prefill "
+             f"chunks {stats['prefill_chunks']}, decode steps "
+             f"{stats['decode_steps']})")
+    routes = _check_routes(f"continuous {arch}", launches, fa, mg, rw,
+                           launches.get("moe_gmm", 0)
+                           - 3 * QM_LAYERS * stats["prefill_chunks"])
     if not stats["graph"] or stats["qos"]["completed"] != CB_REQUESTS:
-        fail(f"continuous {ARCH}: graph {stats['graph']}, "
+        fail(f"continuous {arch}: graph {stats['graph']}, "
              f"{stats['qos']['completed']} of {CB_REQUESTS} completed")
-    print(f"continuous {ARCH} through the CLI: launches "
-          f"{json.dumps(launches)} == 40 x {stats['prefill_chunks']} "
-          f"prefill chunks, all on mma; peak {peak_gb:.2f} GB")
+    print(f"continuous {arch} through the CLI: launches "
+          f"{json.dumps(launches, sort_keys=True)} for "
+          f"{stats['prefill_chunks']} prefill chunks and "
+          f"{stats['decode_steps']} decode steps; routes "
+          f"{json.dumps(routes, sort_keys=True)}; peak {peak_gb:.2f} GB")
     args = serve.parse_args(argv)
-    model = LM(get_arch(ARCH).full, torch.device("cuda", 0))
-    params = model.init(torch.Generator(device=model.device).manual_seed(
-        SEED))
+    model, params, init_s, init_peak, nbytes = _guard_and_init(
+        torch, arch, torch.device("cuda", 0))
     reqs = serve._request_mix(model.cfg, args)
     convoy = convoy_units(reqs, BATCH)
     pick = {}
@@ -2099,57 +2411,362 @@ def run_continuous(torch, ops, serve, card):
                            requests=len(reqs), wall_s=cli["wall_s"],
                            tok_s=cli["tok_s"])}
     _engine_line("CLI, captured", results["cli"], stats, convoy, card)
-    runs, profiles = {}, {}
+    runs, profiles, chunks, lanes = {}, {}, [], None
     for name, graph in (("captured", True), ("eager", False)):
         engine = ServingEngine(
             model, params, slots=CB_SLOTS, cache_len=CB_CACHE,
             prefill_chunk_tokens=CB_CHUNK, policy="longest_first",
             seed=SEED, graph=graph, keep_logits=pick.values())
+        if arch == QM_ARCH and graph:          # the buckets it admits
+            admit = engine._admit_chunk
+            engine._admit_chunk = lambda c, admit=admit: (
+                chunks.append(list(c)), admit(c))[1]
+        tape = contextlib.nullcontext({})
+        if arch == QM_ARCH and not graph:      # its lanes' expert ids
+            tape, steps = route_tape(torch, moe), []
+            run_step = engine._run_step
+            engine._run_step = lambda run_step=run_step: (steps.append((
+                {s: r.rid for s, r in engine._tenant.items()
+                 if engine.active[s]}, len(taped["ids"]))), run_step())[1]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = engine.run(serve._request_mix(model.cfg, args))
+        with tape as taped:
+            out = engine.run(serve._request_mix(model.cfg, args))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        if arch == QM_ARCH:             # the wrappers' cycles, undone
+            engine.__dict__.pop("_admit_chunk", None)
+            engine.__dict__.pop("_run_step", None)
+        if arch == QM_ARCH and not graph:
+            lanes = {rid: _lane_ids(steps, taped["ids"], rid, QM_LAYERS)
+                     for rid in pick.values()}
         emitted = sum(len(v) for v in out.values())
         results[name] = dict(emitted=emitted, requests=len(reqs),
                              wall_s=wall, tok_s=emitted / wall)
         _engine_line(name, results[name], engine.stats(), convoy, card)
         runs[name] = (out, {rid: engine.kept_logits[rid]
                             for rid in pick.values()})
-        profiles[name] = profile_engine_step(torch, engine, name, card)
+        if graph or arch != QM_ARCH:   # qwen3-moe's eager step: 0.2 s
+            profiles[name] = profile_engine_step(torch, engine, name, card)
         del engine
         torch.cuda.empty_cache()
     for rid, toks in cli["tokens"].items():
         for name, (out, _) in runs.items():
             if not np.array_equal(out[rid], toks):
-                fail(f"continuous {ARCH}: request {rid} tokens differ "
+                fail(f"continuous {arch}: request {rid} tokens differ "
                      f"between the CLI's captured run and the {name} run")
-    print(f"continuous {ARCH}: the CLI's, the captured and the eager runs "
-          f"emit the same tokens for all {len(reqs)} requests")
+    same = max(float((runs["captured"][1][rid] - runs["eager"][1][rid])
+                     .abs().max()) for rid in pick.values())
+    print(f"continuous {arch}: the CLI's, the captured and the eager runs "
+          f"emit the same tokens for all {len(reqs)} requests; captured "
+          f"against eager logits of the kept requests: largest gap {same}")
     gaps = []
     for gen, rid in sorted(pick.items()):
         req = reqs[rid]
+        if gen not in ref_gens:
+            continue
         for name, (out, kept) in runs.items():
             if not torch.equal(torch.argmax(kept[rid], -1).to(torch.int32),
                                torch.as_tensor(out[rid])):
-                fail(f"continuous {ARCH} {name}: request {rid}'s tokens "
+                fail(f"continuous {arch} {name}: request {rid}'s tokens "
                      "are not the argmax of the engine's logits")
-        _, solo = solo_decode(model, params, req.prompt, gen,
-                              cache_len=CB_CACHE, forced=runs[
-                                  "captured"][0][rid], keep_logits=True)
         eng = runs["captured"][1][rid]
-        gap = float((solo - eng).abs().max())
         top = float(eng.abs().max())
-        gaps.append(gap / top)
-        print(f"teacher-forced solo decode of request {rid} (gen {gen}) vs "
-              f"the captured engine: largest logit gap {gap:.4e}, largest "
-              f"|logit| {top:.4f}, ratio {gap / top:.4e} (tol {CB_TOL})")
-        if not gap <= CB_TOL * top:
-            fail(f"continuous {ARCH}: request {rid} solo logits differ by "
-                 f"{gap} > {CB_TOL} x {top}")
+        forced = runs["captured"][0][rid]
+        if arch == QM_ARCH:
+            chunk = next(c for c in chunks if rid in [r.rid for r in c])
+            ref = moe_references(torch, moe, model, params, req, forced,
+                                 lanes[rid], chunk, np, solo=gen == min(pick))
+            held = float((ref["replayed"] - eng).abs().max())
+            print(f"teacher-forced request {rid} (gen {gen}, in a bucket of "
+                  f"{len(chunk)}) from the engine's bucket with its expert "
+                  f"choices replayed vs the captured engine: largest logit "
+                  f"gap {held:.4e}, largest |logit| {top:.4f}, ratio "
+                  f"{held / top:.4e} (tol {CB_TOL}); its own router picks "
+                  f"another set at {ref['flips'][0]} (token, layer) pairs "
+                  f"({ref['flips'][1]} ids of "
+                  f"{len(forced) * QM_LAYERS * lanes[rid][0][0].numel()})")
+            if "solo" in ref:
+                solo = float((ref["solo"] - eng).abs().max())
+                print(f"  its solo decode (own prefill and routing): gap "
+                      f"{solo:.4e} ({solo / top:.4e}); {ref['solo_flips'][0]}"
+                      f" flips; its prefill keeps or drops "
+                      f"{ref['keep_differs']} assignments otherwise "
+                      f"(dropped: {ref['dropped'][0]} in the bucket's rows, "
+                      f"{ref['dropped'][1]} alone; fault 18)")
+                if ref["keep_differs"] == 0 and ref["solo_flips"][0] == 0 \
+                        and not solo <= CB_TOL * top:
+                    fail(f"continuous {arch}: request {rid}'s solo decode "
+                         f"differs by {solo} > {CB_TOL} x {top} with the "
+                         "engine's prefill and routing")
+        else:
+            _, ref = solo_decode(model, params, req.prompt, gen,
+                                 cache_len=CB_CACHE, forced=forced,
+                                 keep_logits=True)
+            held = float((ref - eng).abs().max())
+            print(f"teacher-forced solo decode of request {rid} (gen {gen}) "
+                  f"vs the captured engine: largest logit gap {held:.4e}, "
+                  f"largest |logit| {top:.4f}, ratio {held / top:.4e} (tol "
+                  f"{CB_TOL})")
+        gaps.append(held / top)
+        if not held <= CB_TOL * top:
+            fail(f"continuous {arch}: request {rid}'s teacher-forced "
+                 f"logits differ by {held} > {CB_TOL} x {top}")
     del model, params
     torch.cuda.empty_cache()
-    return results, profiles, max(gaps), peak_gb
+    return results, profiles, max(gaps, default=None), peak_gb, {
+        "init_s": init_s, "init_peak": init_peak, "param_bytes": nbytes,
+        "cli_launches": launches, "chunks": stats["prefill_chunks"],
+        "steps": stats["decode_steps"]}
+
+
+def _static_argv(arch, prompt=None, gen=None):
+    return ["--arch", arch, "--size", "full", "--batch", str(BATCH),
+            "--prompt-len", str(prompt or PROMPT), "--gen", str(gen or GEN),
+            "--seed", str(SEED)]
+
+
+def _serve_counted(torch, ops, serve, argv, counters):
+    """``serve.main(argv)`` after ``_free_card``, with every launch and
+    route count set to 0 before it; -> (its result, the launches, peak
+    GB)."""
+    _free_card(torch, " ".join(argv[:2] + argv[-4:]))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(ops, *counters)
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    return res, dict(ops.LAUNCHES), torch.cuda.max_memory_allocated() / 1e9
+
+
+def _check_tokens(name, toks, shape, vocab):
+    if tuple(toks.shape) != shape or int(toks.min()) < 0 \
+            or int(toks.max()) >= vocab:
+        fail(f"{name}: tokens {tuple(toks.shape)} out of range")
+
+
+def _check_split(name, res, d):
+    """gen + 1 INFER frames whose payload bytes equal the bill at d_model
+    ``d`` in int8 (1 byte an element, one f32 scale a block: 256 at the
+    full widths): the prompt's hop, then one a decoded token."""
+    from repro_torch.kernels.wire_codec import wire_block
+    bill = lambda rows: rows * d + rows * d // wire_block(d) * 4
+    want = bill(BATCH * PROMPT) + GEN * bill(BATCH)
+    if res["frames"] != GEN + 1 or res["measured_payload_bytes"] != want \
+            or res["billed_payload_bytes"] != want:
+        fail(f"{name}: {res['frames']} frames, measured "
+             f"{res['measured_payload_bytes']} B, billed "
+             f"{res['billed_payload_bytes']} B; expected {GEN + 1} frames "
+             f"and {want} B")
+    print(f"{name}: {res['frames']} frames, {res['measured_payload_bytes']:,}"
+          f" B measured == billed ({bill(BATCH * PROMPT):,} B for the "
+          f"prompt's hop + {GEN} x {bill(BATCH):,} B); prefill "
+          f"{res['prefill_ms']:.2f} ms, decode {res['decode_tok_s']:.1f} "
+          "tok/s")
+
+
+def _serving_lines(arch, res, card):
+    """The serving phase's summary: static, split and continuous walls,
+    the init and the peaks, beside the card."""
+    print(f"main path {arch} static: prefill "
+          f"{res['static']['prefill_ms']:.2f} ms, decode "
+          f"{res['static']['decode_tok_s']:.1f} tok/s, peak "
+          f"{res['static_peak']:.2f} GB; split int8: prefill "
+          f"{res['split']['prefill_ms']:.2f} ms, decode "
+          f"{res['split']['decode_tok_s']:.1f} tok/s; init "
+          f"{res['init_s']:.2f} s, peak {res['init_peak'] / 1e9:.3f} GB for "
+          f"{res['param_bytes'] / 1e9:.3f} GB of parameters ({card})")
+    for name, r in res["continuous"].items():
+        p = res["profiles"].get(name)
+        print(f"main path continuous {arch} {name}: {r['tok_s']:.1f} tok/s"
+              + (f"; decode step {p['busy_ms']:.3f} device ms, idle share "
+                 f"{p['idle']:.3f} traced, {p['idle_untraced']:.3f} against "
+                 f"the untraced {p['untraced_ms']:.3f} ms" if p else "")
+              + f" ({card})")
+    if "f32_gap" in res:
+        print(f"main path continuous {arch}: teacher-forced logit gap "
+              f"{res['f32_gap']:.4e} of the largest |logit| in f32 (tol "
+              f"{RS_F32_TOL}; bf16's not held, fault 20); peak "
+              f"{res['cb_peak']:.2f} GB")
+        return
+    print(f"main path continuous {arch}: teacher-forced logit gap "
+          f"{res['gap']:.4e} of the largest |logit| (tol {CB_TOL}); peak "
+          f"{res['cb_peak']:.2f} GB")
+
+
+def run_engine_f32(torch, serve, arch, card):
+    """``arch`` FULL in f32 (its weights drawn from SEED in f32; every
+    kernel on its f32 route): the engine, its step captured, on the
+    continuous mix, and one request of each budget decoded solo with
+    teacher forcing on the engine's tokens, within RS_F32_TOL of the
+    largest |logit|.  Returns the largest gap over the largest |logit|."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.engine import ServingEngine, solo_decode
+    _free_card(torch, f"{arch}'s f32 init")
+    cfg = dataclasses.replace(get_arch(arch).full, dtype="float32")
+    model = LM(cfg, torch.device("cuda", 0))
+    params = model.init(torch.Generator(device=model.device).manual_seed(
+        SEED))
+    args = serve.parse_args(["--arch", arch, "--requests", str(CB_REQUESTS),
+                             "--prompt-len", str(PROMPT), "--gen-mix",
+                             CB_MIX, "--seed", str(SEED)])
+    reqs = serve._request_mix(cfg, args)
+    pick = {}
+    for r in reqs:
+        pick.setdefault(r.max_new_tokens, r.rid)
+    engine = ServingEngine(model, params, slots=CB_SLOTS, cache_len=CB_CACHE,
+                           prefill_chunk_tokens=CB_CHUNK,
+                           policy="longest_first", seed=SEED, graph=True,
+                           keep_logits=pick.values())
+    out = engine.run(reqs)
+    gaps = []
+    for gen, rid in sorted(pick.items()):
+        eng = engine.kept_logits[rid]
+        _, solo = solo_decode(model, params, reqs[rid].prompt, gen,
+                              cache_len=CB_CACHE, forced=out[rid],
+                              keep_logits=True)
+        top = float(eng.abs().max())
+        gap = float((solo - eng).abs().max())
+        gaps.append(gap / top)
+        print(f"{arch} f32 engine (captured) vs teacher-forced solo decode "
+              f"of request {rid} (gen {gen}): largest logit gap {gap:.4e}, "
+              f"largest |logit| {top:.4f}, ratio {gap / top:.4e} (tol "
+              f"{RS_F32_TOL}) ({card})")
+        if not (np.array_equal(torch.argmax(eng, -1).numpy(), out[rid])
+                and gap <= RS_F32_TOL * top):
+            fail(f"{arch} f32 engine: request {rid} differs from its solo "
+                 f"decode by {gap} > {RS_F32_TOL} x {top}, or its tokens "
+                 "are not its logits' argmax")
+    del engine, model, params
+    torch.cuda.empty_cache()
+    return max(gaps)
+
+
+def run_qwen3_serving(torch, ops, serve, card):
+    """qwen3-moe-30b-a3b at full width through the serving CLI's entry
+    point, every init from seed 0 after the card's memory is checked
+    (``_free_card``): static (prefill launches QM_PREFILL, the
+    run QM_RUN; moe_gmm on "wgmma" in prefill, capacity 160, and on
+    "wgmma_small_c" in decode, capacity 8; flash on "mma"), split at cut
+    24 in int8 (``_check_split``; the codec's decodes on "warp256"), then
+    the continuous mix (``run_continuous``: the init's peak against the
+    parameters' bytes, the engine against its teacher-forced references
+    and the expert choices that flip).  Returns the phase's numbers."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.kernels import rwkv6 as rw
+    from repro_torch.kernels import wire_codec as wc
+    vocab = get_arch(QM_ARCH).full.vocab
+    counters = (fa.ROUTES, mg.ROUTES, rw.ROUTES, wc.ROUTES)
+    static, launches, peak = _serve_counted(
+        torch, ops, serve, _static_argv(QM_ARCH), counters)
+    _check_tokens(f"{QM_ARCH} static", static["tokens"], (BATCH, GEN), vocab)
+    if static["prefill_launches"] != QM_PREFILL or launches != QM_RUN:
+        fail(f"{QM_ARCH} static: prefill launches "
+             f"{static['prefill_launches']}, run {launches}; expected "
+             f"{QM_PREFILL}, {QM_RUN}")
+    routes = _check_routes(f"{QM_ARCH} static", launches, fa, mg, rw,
+                           3 * QM_LAYERS * GEN)
+    print(f"{QM_ARCH} static: prefill {static['prefill_ms']:.2f} ms, decode "
+          f"{static['decode_tok_s']:.1f} tok/s, peak {peak:.2f} GB; launches "
+          f"{json.dumps(launches, sort_keys=True)}, routes "
+          f"{json.dumps(routes, sort_keys=True)} ({card})")
+    split, split_launches, split_peak = _serve_counted(
+        torch, ops, serve, _static_argv(QM_ARCH) + [
+            "--split-cut", str(QM_CUT), "--wire-dtype", "int8"], counters)
+    _check_tokens(f"{QM_ARCH} split", split["tokens"], (BATCH, GEN), vocab)
+    want = dict(QM_RUN, wire_encode=GEN + 1, wire_decode=GEN + 1)
+    if split_launches != want or dict(wc.ROUTES) != {"warp256": GEN + 1}:
+        fail(f"{QM_ARCH} split: launches {split_launches}, decode routes "
+             f"{dict(wc.ROUTES)}; expected {want}, all on warp256")
+    _check_routes(f"{QM_ARCH} split", split_launches, fa, mg, rw,
+                  3 * QM_LAYERS * GEN)
+    _check_split(f"{QM_ARCH} split at cut {QM_CUT} int8 (peak "
+                 f"{split_peak:.2f} GB)", split, get_arch(QM_ARCH).full.d_model)
+    cb, profiles, gap, cb_peak, cb_info = run_continuous(
+        torch, ops, serve, card, QM_ARCH, ref_gens=(8, 32))
+    if not cb_info["init_peak"] <= cb_info["param_bytes"] + QM_INIT_SLACK:
+        fail(f"{QM_ARCH}: init peak {cb_info['init_peak'] / 1e9:.3f} GB > "
+             f"the parameters' {cb_info['param_bytes'] / 1e9:.3f} GB + "
+             f"{QM_INIT_SLACK / 1e9} GB")
+    return {"static": static, "static_peak": peak, "split": split,
+            "continuous": cb, "profiles": profiles, "gap": gap,
+            "cb_peak": cb_peak, "launches": [launches, split_launches,
+                                             cb_info["cli_launches"]],
+            **cb_info}
+
+
+def run_rwkv_serving(torch, ops, serve, card):
+    """rwkv6-3b at full width through the serving CLI's entry point:
+    static (exactly one wkv6 launch a layer in the prefill and in each
+    decode step, every one on "chunked": the decode steps' S = 1 calls
+    from the cached state too), the same at a RS_LOOP prompt with and
+    without --token-loop-prefill (one launch a layer a prompt token; the
+    tokens compared and printed), split at cut 16 in int8
+    (``_check_split``), then the continuous mix (``run_continuous``).
+    Returns the phase's numbers."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.kernels import rwkv6 as rw
+    from repro_torch.kernels import wire_codec as wc
+    vocab = get_arch(T_ARCH).full.vocab
+    counters = (fa.ROUTES, mg.ROUTES, rw.ROUTES, wc.ROUTES)
+    run = {"wkv6": RS_LAYERS * (GEN + 1)}
+    static, launches, peak = _serve_counted(
+        torch, ops, serve, _static_argv(T_ARCH), counters)
+    _check_tokens(f"{T_ARCH} static", static["tokens"], (BATCH, GEN), vocab)
+    if static["prefill_launches"] != {"wkv6": RS_LAYERS} or launches != run:
+        fail(f"{T_ARCH} static: prefill launches "
+             f"{static['prefill_launches']}, run {launches}; expected "
+             f"{RS_LAYERS} and {run} wkv6")
+    _check_routes(f"{T_ARCH} static", launches, fa, mg, rw)
+    print(f"{T_ARCH} static: prefill {static['prefill_ms']:.2f} ms, decode "
+          f"{static['decode_tok_s']:.1f} tok/s, peak {peak:.2f} GB; "
+          f"{launches['wkv6']} wkv6 launches, every one on chunked "
+          f"({card})")
+    loop = {}
+    for flag in ([], ["--token-loop-prefill"]):
+        res, n, _ = _serve_counted(torch, ops, serve, _static_argv(
+            T_ARCH, *RS_LOOP) + flag, counters)
+        _check_tokens(f"{T_ARCH} {flag}", res["tokens"], (BATCH, RS_LOOP[1]),
+                      vocab)
+        steps = (RS_LOOP[0] if flag else 1) + RS_LOOP[1]
+        if n != {"wkv6": RS_LAYERS * steps}:
+            fail(f"{T_ARCH} prompt {RS_LOOP[0]} {flag}: launches {n}, "
+                 f"expected {RS_LAYERS * steps} wkv6")
+        _check_routes(f"{T_ARCH} prompt {RS_LOOP[0]} {flag}", n, fa, mg, rw)
+        loop[bool(flag)] = res
+    agree = int((loop[True]["tokens"] == loop[False]["tokens"]).sum())
+    print(f"{T_ARCH} prompt {RS_LOOP[0]}, {RS_LOOP[1]} tokens: "
+          f"--token-loop-prefill {loop[True]['prefill_ms']:.2f} ms "
+          f"({RS_LAYERS * RS_LOOP[0]} wkv6 launches at S = 1) against the "
+          f"one-pass prefill's {loop[False]['prefill_ms']:.2f} ms; "
+          f"{agree} of {BATCH * RS_LOOP[1]} tokens equal (bf16)")
+    split, split_launches, split_peak = _serve_counted(
+        torch, ops, serve, _static_argv(T_ARCH) + [
+            "--split-cut", str(RS_CUT), "--wire-dtype", "int8"], counters)
+    _check_tokens(f"{T_ARCH} split", split["tokens"], (BATCH, GEN), vocab)
+    want = dict(run, wire_encode=GEN + 1, wire_decode=GEN + 1)
+    if split_launches != want or dict(wc.ROUTES) != {"warp256": GEN + 1}:
+        fail(f"{T_ARCH} split: launches {split_launches}, decode routes "
+             f"{dict(wc.ROUTES)}; expected {want}, all on warp256")
+    _check_routes(f"{T_ARCH} split", split_launches, fa, mg, rw)
+    _check_split(f"{T_ARCH} split at cut {RS_CUT} int8 (peak "
+                 f"{split_peak:.2f} GB)", split, get_arch(T_ARCH).full.d_model)
+    cb, profiles, gap, cb_peak, cb_info = run_continuous(
+        torch, ops, serve, card, T_ARCH, ref_gens=())
+    cb_info["f32_gap"] = run_engine_f32(torch, serve, T_ARCH, card)
+    return {"static": static, "static_peak": peak, "split": split,
+            "continuous": cb, "profiles": profiles, "gap": gap,
+            "cb_peak": cb_peak, "launches": [launches, split_launches,
+                                             cb_info["cli_launches"]],
+            **cb_info}
 
 
 def _train_argv(wire: str, arch: str = T_ARCH, v: int = 1):
@@ -3398,6 +4015,8 @@ def profile_serving(torch, dev, arch, decode_steps, watch=()):
 
     from repro_torch.configs import get_arch
     from repro_torch.models.lm import LM
+    gc.collect()
+    torch.cuda.empty_cache()
     model = LM(get_arch(arch).full, dev)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
     prompts = torch.randint(0, model.cfg.vocab, (BATCH, PROMPT), device=dev,
@@ -4012,6 +4631,100 @@ def time_moe(torch, mg, fa, dev, prefill_launches, run_launches, gmm_err,
     return out
 
 
+def time_serving_shapes(torch, fa, mg, rw, dev, qm, rs, flash_err, gmm_err,
+                        wkv_err):
+    """The kernels at the shapes the qwen3-moe-30b-a3b and rwkv6-3b
+    serving paths give them, each beside its plain version, its bound and
+    a library call where one computes the same: flash at qwen3's prefill
+    ([4, 32, 512, 128] q on 4 kv heads, bf16, causal; SDPA on the kv heads
+    expanded to 32), moe_gmm at its prefill's w1 ([128, 160, 2048] @
+    [128, 2048, 768]) and a decode step's ([128, 8, 2048] @ [128, 2048,
+    768]; torch.bmm), and WKV6 at rwkv6's prefill ([4, 512, 40, 64] bf16,
+    the final state written) and decode step ([4, 1, 40, 64] from a
+    state; no library call).  Launches: those of the phases' CLI runs
+    (static, split and the continuous run, its capture's warm-up steps
+    included), the prefills' in the prefill rows and the decode steps' in
+    the decode rows."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(13)
+    total = lambda res, name: sum(n.get(name, 0) for n in res["launches"])
+    q_flash = total(qm, "flash_attention")       # one a layer a prefill
+    out = [_gmm_row(torch, mg, dev, "moe_gmm_e128", QM_GMM, 3 * q_flash,
+                    gmm_err[QM_GMM], gen),
+           _gmm_row(torch, mg, dev, "moe_gmm_e128_decode", QM_GMM_DECODE,
+                    total(qm, "moe_gmm") - 3 * q_flash,
+                    gmm_err[QM_GMM_DECODE], gen)]
+    hq, hkv, dh = QM_HEADS
+    b, s = BATCH, PROMPT
+    mk = lambda h_: torch.randn((b, s, h_, dh), generator=gen,
+                                device=dev).to(torch.bfloat16).transpose(1, 2)
+    q, k, v = mk(hq), mk(hkv), mk(hkv)
+    pairs = b * hq * s * (s + 1) // 2
+    b_ms, b_by = bound((2 * hq + 2 * hkv) * b * s * dh * 2, 4 * dh * pairs,
+                       BF16_OPS_S)
+    lib = [q.contiguous()] + [t.repeat_interleave(hq // hkv, dim=1)
+                              .contiguous() for t in (k, v)]
+    out.append({
+        "name": "flash_attention_gqa8", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:73",
+        "launches": q_flash, "max_abs_err": flash_err["gqa8"],
+        "ms": device_ms(lambda: fa.flash_attention_cuda(q, k, v,
+                                                        causal=True)),
+        "plain_ms": device_ms(lambda: fa.attention_plain(q, k, v,
+                                                         causal=True),
+                              iters=10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+            *lib, is_causal=True))})
+    print(rate_line(out[-1], 4 * dh * pairs))
+
+    r_pre = RS_LAYERS * (2 + rs["chunks"])
+    for name, shape, with_s0, n, err in (
+            ("wkv6_serve", (BATCH, PROMPT, 40, 64), False, r_pre, None),
+            ("wkv6_decode", RS_DECODE, True, total(rs, "wkv6") - r_pre,
+             wkv_err[2])):
+        b, s, h, dh = shape
+        nel = b * s * h * dh
+        r, k, v = (torch.randn(shape, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        logw = -torch.exp(torch.rand(shape, generator=gen, device=dev)
+                          * 6.5 - 6.0)
+        u = torch.randn((h, dh), generator=gen, device=dev) * 0.2
+        s0 = torch.randn((b, h, dh, dh), generator=gen,
+                         device=dev) * 0.1 if with_s0 else None
+        state = b * h * dh * dh * 4
+        nbytes = 3 * nel * 2 + nel * 4 + h * dh * 4 + nel * 2 + state \
+            + (state if with_s0 else 0)
+        if with_s0:        # o = r (S + u k v^T), S' = w S + k v^T: f32
+            b_ms, b_by = bound(nbytes, 5 * b * h * dh * dh * s, F32_OPS_S)
+        else:
+            b_ms, b_by = bound(nbytes, wkv6_products(b, s, h, dh)[0],
+                               BF16_OPS_S)
+        if rw.route(r.dtype, dh, [t.data_ptr() for t in (r, k, v, logw)]) \
+                != "chunked":
+            fail(f"{name}: the serving call does not take the chunked "
+                 "route")
+        if err is None:
+            op, _ = rw.wkv6_plain(r, k, v, logw, u, s0)
+            o, _ = rw.wkv6_fwd_cuda(r, k, v, logw, u, s0)
+            err = float((o.float() - op.float()).abs().max())
+        out.append({
+            "name": name, "route": "cuda", "kernel_route": "chunked",
+            "source": "src/repro_torch/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/rwkv6.py:64",
+            "launches": n, "max_abs_err": err,
+            "ms": device_ms(lambda: rw.wkv6_fwd_cuda(r, k, v, logw, u, s0)),
+            "plain_ms": device_ms(lambda: rw.wkv6_plain(r, k, v, logw, u,
+                                                        s0), iters=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        print(f"kernel {name} [chunked] at {list(shape)}: "
+              f"{out[-1]['ms']:.4f} ms, {b_ms / out[-1]['ms']:.3f} of its "
+              f"bound ({b_ms:.4f} ms, {b_by}), plain "
+              f"{out[-1]['plain_ms']:.4f} ms, max abs err {err:.3e}")
+    return out
+
+
 def _ptxas_of(ptxas, *keys):
     """ptxas' registers and spills of the kernels whose names hold one of
     ``keys`` (demangled or mangled spellings)."""
@@ -4284,7 +4997,8 @@ def main():
     torch.cuda.empty_cache()
     phase(f"{GR_ARCH} serving and profile")
 
-    cb, cb_profiles, cb_gap, cb_peak = run_continuous(torch, ops, serve, card)
+    cb, cb_profiles, cb_gap, cb_peak, _ = run_continuous(torch, ops, serve,
+                                                         card)
     for name, r in cb.items():
         p = cb_profiles.get(name)
         print(f"main path continuous {ARCH} {name}: {r['tok_s']:.1f} tok/s"
@@ -4296,6 +5010,16 @@ def main():
           f"{cb_gap:.4e} of the largest |logit| (tol {CB_TOL}); peak "
           f"{cb_peak:.2f} GB")
     phase("continuous serving")
+
+    qm_serve = run_qwen3_serving(torch, ops, serve, card)
+    profile_serving(torch, dev, QM_ARCH, 2)
+    _serving_lines(QM_ARCH, qm_serve, card)
+    phase(f"{QM_ARCH} serving")
+
+    rs_serve = run_rwkv_serving(torch, ops, serve, card)
+    profile_serving(torch, dev, T_ARCH, 4, watch=("wkv6",))
+    _serving_lines(T_ARCH, rs_serve, card)
+    phase(f"{T_ARCH} serving")
 
     rows, train_launches, train_calls = run_training_path(
         torch, ops, train, protocol, dev, wc,
@@ -4384,6 +5108,8 @@ def main():
     kernels += time_backwards(torch, rg, mg, fa, dev, gt_launches,
                               rt_launches, bwd_errs,
                               [r for rows in ptxas.values() for r in rows])
+    kernels += time_serving_shapes(torch, fa, mg, rw, dev, qm_serve,
+                                   rs_serve, flash_err, gmm_err, wkv_err)
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']:.4f} ms, plain "
               f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "

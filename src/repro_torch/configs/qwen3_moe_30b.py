@@ -2,9 +2,12 @@
 d_ff=768 (per expert) vocab=151936, MoE 128 experts top-8
 [hf:Qwen/Qwen3-30B-A3B].
 
-The port runs its SMOKE config (split serving of an MoE model with an
-untied head); the full config does not fit the port's init on one
-80 GB card yet (ROADMAP.md).
+The reference's ``LMConfig`` of it, field for field: no q/k norm, which
+the reference lacks too.  The port serves it at full width on one 80 GB
+card (static, split and continuous): 30.5 B parameters, 61.1 GB in bf16,
+whose init fills each stacked leaf in place (``models/blocks.py::
+_stacked``).  Training it waits for a sharded path: its f32 master
+weights and AdamW's moments alone come to ~366 GB.
 """
 from repro_torch.configs.base import ArchSpec
 from repro_torch.models.config import LMConfig

@@ -129,7 +129,11 @@ def wkv6(r, k, v, logw, u, s0=None):
     (out [B,S,H,dh] in r's dtype, final state [B,H,dh,dh] f32)."""
     if not _on_cuda(r):
         return _rw.wkv6_plain(r, k, v, logw, u, s0)
-    return _WKV6.apply(r, k, v, logw, u, s0)
+    if _records_grad(r, k, v, logw, u, s0):
+        return _WKV6.apply(r, k, v, logw, u, s0)
+    out = _rw.wkv6_fwd_cuda(r, k, v, logw, u, s0)
+    LAUNCHES["wkv6"] += 1
+    return out
 
 
 class _RGLRU(torch.autograd.Function):

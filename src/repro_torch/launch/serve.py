@@ -3,10 +3,12 @@
 Port of the JAX package's ``launch/serve.py``.  Runs on the card unless
 ``--device cpu`` is given; without CUDA and without that flag it raises.
 
-* static (default): prefill a prompt batch with ``LM.prefill_with_cache``,
-  then ``--gen`` decode + sample steps (``serving.engine.make_sample_step``:
-  greedy, or ``--temperature > 0`` with the port's sampling keys, the
-  batch row as the request id).
+* static (default): prefill a prompt batch with ``LM.prefill_with_cache``
+  (or, with ``--token-loop-prefill``, the reference's token-by-token feed
+  through the decode step, ``prefill_into_cache``), then ``--gen`` decode
+  + sample steps (``serving.engine.make_sample_step``: greedy, or
+  ``--temperature > 0`` with the port's sampling keys, the batch row as
+  the request id).
 * ``--continuous``: the continuous-batching engine
   (``serving.engine.ServingEngine``): a slot arena of ``--slots`` lanes
   (or ``--slots auto``: ``analysis/autotune.choose_serving_plan`` on
@@ -19,9 +21,15 @@ Port of the JAX package's ``launch/serve.py``.  Runs on the card unless
   greedy token; prints the measured-vs-billed wire audit and the BS's
   QoS counts.  ``--bw-Bps`` shapes both directions with a
   ``wireless.LinkShaper``.  Homogeneous
-  stacks with an untied head only: a hybrid (recurrentgemma-2b) or tied
-  embeddings (granite-moe-3b-a800m) raise ``ValueError``, as the
-  reference's ``SplitDecode`` does.
+  stacks with an untied head only (qwen1.5-4b, qwen3-moe-30b-a3b,
+  rwkv6-3b): a hybrid (recurrentgemma-2b) or tied embeddings
+  (granite-moe-3b-a800m) raise ``ValueError``, as the reference's
+  ``SplitDecode`` does.
+
+Every registered LM serves static and continuous: qwen1.5-4b,
+recurrentgemma-2b, granite-moe-3b-a800m, qwen3-moe-30b-a3b (at full width
+its bf16 weights take 61.1 GB of the card) and rwkv6-3b (its decode state
+the WKV6 state and the two token shifts).
 
 PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \
     --size full --batch 4 --prompt-len 512 --gen 32
@@ -36,7 +44,19 @@ PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
 PYTHONPATH=src python -m repro_torch.launch.serve \
     --arch granite-moe-3b-a800m --size full --batch 4 --prompt-len 512 --gen 32
 PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
-    --size smoke --split-cut 1 --wire-dtype int8
+    --size full --batch 4 --prompt-len 512 --gen 32
+PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
+    --size full --batch 4 --prompt-len 512 --gen 32 --split-cut 24 \
+    --wire-dtype int8
+PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+    --size full --batch 4 --prompt-len 512 --gen 32 --split-cut 16 \
+    --wire-dtype int8
+PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+    --size full --continuous --requests 12 --prompt-len 512 \
+    --gen-mix 8,32,128 --slots 8 --policy longest_first \
+    --prefill-chunk-tokens 2048
+PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+    --size smoke --batch 2 --prompt-len 10 --gen 4 --token-loop-prefill
 """
 from __future__ import annotations
 
@@ -66,6 +86,19 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+def prefill_into_cache(model, params, tokens, cache):
+    """Token-by-token prompt feed (the reference's path, any family):
+    ``LM.decode_step`` once a prompt token, at positions 0..S-1, into
+    ``cache`` (``LM.init_cache``, updated in place).  Returns (the last
+    token's logits [B, V] f32, the serve state), as
+    ``LM.prefill_with_cache`` does in one full-sequence forward."""
+    logits = None
+    for t in range(tokens.shape[1]):
+        logits, cache = model.decode_step(params, tokens[:, t:t + 1], cache,
+                                          t)
+    return logits, {"cache": cache, "position": int(tokens.shape[1])}
+
+
 def _static_serve(model, params, prompts, args, cache_len) -> dict:
     """Batched convoy serving: one prefill, ``--gen`` decode + sample
     steps.  Emitted tokens [batch, gen]: the prefill's argmax seeds the
@@ -75,9 +108,14 @@ def _static_serve(model, params, prompts, args, cache_len) -> dict:
     _sync(dev)
     before = dict(ops.LAUNCHES)
     t0 = time.perf_counter()
-    logits, state = model.prefill_with_cache(
-        params, {"tokens": prompts}, cache_len=cache_len,
-        cache_dtype=torch.float32)
+    if args.token_loop_prefill:
+        logits, state = prefill_into_cache(
+            model, params, prompts,
+            model.init_cache(prompts.shape[0], cache_len, torch.float32))
+    else:
+        logits, state = model.prefill_with_cache(
+            params, {"tokens": prompts}, cache_len=cache_len,
+            cache_dtype=torch.float32)
     tok = torch.argmax(logits, dim=-1, keepdim=True)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
@@ -266,6 +304,10 @@ def parse_args(argv=None):
     ap.add_argument("--cache-len", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--token-loop-prefill", action="store_true",
+                    help="static mode: the reference's prefill path (the "
+                         "prompt through the decode step, token by token) "
+                         "instead of the one-pass prefill")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous-batching engine instead of the "
                          "static convoy loop")
@@ -307,6 +349,9 @@ def main(argv=None) -> dict:
         raise ValueError("--split-cut serves the static batch greedily, as "
                          "the reference's split path does: not with "
                          "--continuous or --temperature > 0")
+    if args.token_loop_prefill and (args.continuous or args.split_cut):
+        raise ValueError("--token-loop-prefill feeds the static path's "
+                         "prompt: not with --continuous or --split-cut")
     spec = get_arch(args.arch)
     cfg = spec.smoke if args.size == "smoke" else spec.full
     model = LM(cfg, device)

@@ -1,13 +1,15 @@
 """Per-layer blocks: init, full-sequence apply, prefill and decode.
 
-Port of four kinds of the JAX package's ``models/blocks.py``:
-  * ``"attn"``  — global causal attention (apply, prefill, decode);
+Port of four kinds of the JAX package's ``models/blocks.py``, each with
+its full-sequence apply, its prefill and its decode:
+  * ``"attn"``  — global causal attention;
   * ``"local"`` — sliding-window causal attention, its decode cache a ring
     buffer of the last ``min(window, cache_len)`` tokens (recurrentgemma);
   * ``"rglru"`` — the Griffin recurrent block (conv1d + RG-LRU), its
     decode state ``{"h", "conv"}`` in f32;
-  * ``"rwkv"``  — RWKV6 time-mix + channel-mix (the full-sequence apply
-    that training runs).
+  * ``"rwkv"``  — RWKV6 time-mix + channel-mix, its decode state the WKV
+    state ``"s"`` [B, H, dh, dh] in f32 and the two token shifts
+    ``"shift_t"`` / ``"shift_c"`` [B, D] at the cache dtype.
 The second half of an ``"attn"`` or ``"local"`` block of an MoE config is
 the mixture of experts (``models/moe.py``), of the others a dense MLP.
 The other kinds (xattn, enc) are listed in ROADMAP.md.
@@ -18,7 +20,7 @@ copy.  Every use casts a matmul weight to the compute dtype, as the
 reference does.
 
 Decode state is updated IN PLACE: the K/V cache tensors a block is given
-are written at ``position`` (or its ring slot), the recurrent state is
+are written at ``position`` (or its ring slot), the recurrent states are
 overwritten (the reference returns new buffers; the port saves the copy
 of the whole cache per token).
 """
@@ -39,9 +41,8 @@ from repro_torch.models.rwkv import (apply_rwkv_channel, apply_rwkv_time,
                                      init_rwkv_channel, init_rwkv_time)
 from repro_torch.utils.trees import tree_map
 
-# kinds with a decode state (prefill and decode); "rwkv" has init and the
-# full-sequence apply only
-SERVE_KINDS = ("attn", "local", "rglru")
+# kinds with a decode state (prefill and decode)
+SERVE_KINDS = ("attn", "local", "rglru", "rwkv")
 
 
 def _require(kind: str):
@@ -56,11 +57,24 @@ def _require(kind: str):
 
 def _stacked(fn, layers):
     """``fn()`` once, or ``layers`` draws (tensors or trees) stacked on a
-    leading axis."""
+    leading axis.
+
+    Each ``[layers, ...]`` leaf is allocated once, from the first draw's
+    shape and dtype, and layer ``i``'s draw is copied into slot ``i`` and
+    dropped: the peak is the stack plus one layer's draw (qwen3-moe's
+    experts: 58 GB stacked, 1.2 GB a layer), where stacking a list of
+    draws held both whole.  The generator sees the calls of
+    ``torch.stack([fn() for _ in range(layers)])`` in the same order,
+    so the values are the same bits."""
     if layers is None:
         return fn()
-    draws = [fn() for _ in range(layers)]
-    return tree_map(lambda *ts: torch.stack(ts), draws[0], *draws[1:])
+    first = fn()
+    out = tree_map(lambda t: t.new_empty((layers,) + tuple(t.shape)), first)
+    tree_map(lambda o, t: o[0].copy_(t), out, first)
+    del first
+    for i in range(1, layers):
+        tree_map(lambda o, t, i=i: o[i].copy_(t), out, fn())
+    return out
 
 
 def _zeros(n, layers, device):
@@ -131,10 +145,19 @@ def init_block_state(cfg: LMConfig, kind: str, batch: int, cache_len: int,
                      dtype=torch.bfloat16, *, device, layers: int | None = None):
     """Zeroed decode state of one layer (``[L, ...]`` when ``layers`` is
     given): a K/V cache ``[B, cache_len, n_kv, hd]`` ("attn"), a ring of
-    ``min(window, cache_len)`` slots ("local"), or the recurrent state
-    ``{"h": [B, R], "conv": [B, W-1, R]}`` in f32 ("rglru")."""
+    ``min(window, cache_len)`` slots ("local"), the recurrent state
+    ``{"h": [B, R], "conv": [B, W-1, R]}`` in f32 ("rglru"), or the WKV
+    state ``{"s": [B, H, dh, dh]}`` in f32 with the token shifts
+    ``"shift_t"`` and ``"shift_c"`` [B, D] at ``dtype`` ("rwkv")."""
     _require(kind)
     lead = () if layers is None else (layers,)
+    if kind == "rwkv":
+        dh = cfg.rwkv_head_dim
+        shift = lead + (batch, cfg.d_model)
+        return {"s": torch.zeros(lead + (batch, cfg.d_model // dh, dh, dh),
+                                 dtype=torch.float32, device=device),
+                "shift_t": torch.zeros(shift, dtype=dtype, device=device),
+                "shift_c": torch.zeros(shift, dtype=dtype, device=device)}
     if kind == "rglru":
         st = init_recurrent_state(batch, cfg.r_width, cfg.conv_width,
                                   device=device)
@@ -200,6 +223,22 @@ def _attn_out(p, att, x, cfg: LMConfig, dt):
     return x + out
 
 
+def _rwkv(p, x, cfg: LMConfig, dt, state=None):
+    """An RWKV block: time-mix and channel-mix, each with its residual,
+    from ``state``'s token shifts and WKV state (zeros when None).
+    -> (x, the state after x's last token: {"s", "shift_t", "shift_c"})."""
+    past = (lambda name: None) if state is None else state.get
+    h = apply_norm(x, p["ln1"], cfg.norm)
+    t_out, (shift_t, s) = apply_rwkv_time(
+        p["time"], h, cfg.rwkv_head_dim, shift_in=past("shift_t"),
+        state_in=past("s"), dt=dt)
+    x = x + t_out
+    h = apply_norm(x, p["ln2"], cfg.norm)
+    c_out, shift_c = apply_rwkv_channel(p["channel"], h,
+                                        shift_in=past("shift_c"), dt=dt)
+    return x + c_out, {"s": s, "shift_t": shift_t, "shift_c": shift_c}
+
+
 def _kv_into_cache(k, v, state, ring: bool = False):
     """Write full-sequence K/V [B, S, kv, hd] into the layer's decode
     cache [B, C, kv, hd] in place, cast to the cache dtype.  Global
@@ -231,20 +270,13 @@ def apply_block(p, x, cfg: LMConfig, kind: str, *, positions=None):
     that training runs; positions are 0..S-1 (RWKV uses none).  An
     attention or recurrent block is the prefill without a state to fill;
     its aux loss is the MoE's, or 0."""
-    no_aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if kind != "rwkv":
-        if positions is None:
-            positions = torch.arange(x.shape[1], device=x.device)
-        x, aux = apply_block_prefill(p, x, cfg, kind, positions=positions,
-                                     state=None)
-        return x, no_aux if aux is None else aux
-    dt = x.dtype
-    h = apply_norm(x, p["ln1"], cfg.norm)
-    t_out, _ = apply_rwkv_time(p["time"], h, cfg.rwkv_head_dim, dt=dt)
-    x = x + t_out
-    h = apply_norm(x, p["ln2"], cfg.norm)
-    c_out, _ = apply_rwkv_channel(p["channel"], h, dt=dt)
-    return x + c_out, no_aux
+    if positions is None and kind != "rwkv":
+        positions = torch.arange(x.shape[1], device=x.device)
+    x, aux = apply_block_prefill(p, x, cfg, kind, positions=positions,
+                                 state=None)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 # --------------------------------------------------------------------------
@@ -253,9 +285,16 @@ def apply_block(p, x, cfg: LMConfig, kind: str, *, positions=None):
 
 def apply_block_prefill(p, x, cfg: LMConfig, kind: str, *, positions, state):
     """x: [B, S, D] -> ([B, S, D], the MoE's aux loss or None); fills
-    ``state`` (this layer's decode state) in place, unless it is None."""
+    ``state`` (this layer's decode state) in place, unless it is None.
+    An RWKV block takes no positions: it is causal by its recurrence."""
     _require(kind)
     dt = x.dtype
+    if kind == "rwkv":
+        x, new = _rwkv(p, x, cfg, dt)
+        if state is not None:
+            for name, t in new.items():
+                state[name].copy_(t)
+        return x, None
     h = apply_norm(x, p["ln1"], cfg.norm)
     if kind == "rglru":
         out, st = apply_recurrent(p["rec"], h, dt=dt, return_state=True)
@@ -290,7 +329,8 @@ def apply_block_decode(p, x, state, cfg: LMConfig, kind: str, *,
                        position, active=None):
     """x: [B, 1, D] -> [B, 1, D]; updates ``state`` in place: this token's
     K/V at ``position`` ("attn") or at its ring slot ``position % C``
-    ("local"), or the recurrent state ("rglru").
+    ("local"), or the recurrent state ("rglru", and "rwkv", which reads
+    no position: its WKV state and token shifts carry the past).
 
     ``position`` is an ``int`` for the whole batch (the static path), or
     an int64 tensor [B] with one position per row: each row is then one
@@ -306,6 +346,12 @@ def apply_block_decode(p, x, state, cfg: LMConfig, kind: str, *,
     if active is not None and not lanes:
         raise ValueError("active lanes need a tensor of positions")
     dt = x.dtype
+    if kind == "rwkv":
+        x, new = _rwkv(p, x, cfg, dt, state)
+        for name, t in new.items():
+            state[name].copy_(_lanes(active, t.to(state[name].dtype),
+                                     state[name]))
+        return x
     h = apply_norm(x, p["ln1"], cfg.norm)
     if kind == "rglru":
         out, st = apply_recurrent_decode(p["rec"], h, state, dt=dt)

@@ -1,9 +1,8 @@
 """Top-level language model: init, training forward, prefill, decode.
 
 Port of the JAX package's ``models/lm.py`` for
-  * homogeneous stacks with an untied head: ``"attn"`` decoders (training
-    forward, prefill with cache, decode) and ``"rwkv"`` stacks (training
-    forward);
+  * homogeneous stacks with an untied head: ``"attn"`` decoders and
+    ``"rwkv"`` stacks (training forward, prefill with cache, decode);
   * MoE stacks of ``"attn"`` layers, tied or untied (granite-moe,
     qwen3-moe: forward with the aux loss, prefill with cache, decode);
   * hybrid stacks (recurrentgemma: ``"rglru"`` and ``"local"`` layers,
@@ -199,7 +198,7 @@ class LM:
 
         def normal(shape, std):
             w = torch.randn(shape, generator=generator, device=dev,
-                            dtype=torch.float32) * std
+                            dtype=torch.float32).mul_(std)
             return w.to(dt)
 
         kw = dict(device=dev, weight_dtype=dt)

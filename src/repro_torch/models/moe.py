@@ -27,7 +27,7 @@ def init_moe(generator: torch.Generator, d_model: int, d_ff: int,
     sqrt(d_ff); expert weights stored at ``weight_dtype``."""
     def normal(shape, scale):
         w = torch.randn(shape, generator=generator, device=device,
-                        dtype=torch.float32) * scale
+                        dtype=torch.float32).mul_(scale)
         return w.to(weight_dtype)
 
     return {

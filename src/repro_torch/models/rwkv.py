@@ -40,7 +40,7 @@ def _drawer(generator, device, layers):
 
     def normal(*shape, std=1.0):
         return torch.randn(lead + shape, generator=generator,
-                           device=device) * std
+                           device=device).mul_(std)
 
     def full(value, *shape):
         return torch.full(lead + shape, value, dtype=torch.float32,
@@ -79,6 +79,15 @@ def init_rwkv_channel(generator, d_model: int, d_ff: int, *, device,
             for n, t in p.items()}
 
 
+def _last(x, shift_in):
+    """The token before x's first: zeros, or ``shift_in`` (a decode
+    cache's shift, which may be stored wider than x) at x's dtype."""
+    if shift_in is None:
+        return torch.zeros((x.shape[0], x.shape[2]), dtype=x.dtype,
+                           device=x.device)
+    return shift_in.to(x.dtype)
+
+
 def _token_shift(x, last):
     """shifted_t = x_{t-1}; position 0 uses ``last``."""
     return torch.cat([last[:, None], x[:, :-1]], dim=1)
@@ -99,8 +108,7 @@ def apply_rwkv_time(p, x, head_dim: int, *, shift_in=None, state_in=None,
     """Time-mix.  x: [B, S, D].  Returns (out, (last_x, state))."""
     b, s, d = x.shape
     h = d // head_dim
-    last = torch.zeros((b, d), dtype=x.dtype, device=x.device) \
-        if shift_in is None else shift_in
+    last = _last(x, shift_in)
     sh = _token_shift(x, last)
     mix = lambda mu: x + (sh - x) * p[mu].to(x.dtype)
     w_ = lambda n: p[n].to(dt)
@@ -123,9 +131,7 @@ def apply_rwkv_time(p, x, head_dim: int, *, shift_in=None, state_in=None,
 
 
 def apply_rwkv_channel(p, x, *, shift_in=None, dt=torch.bfloat16):
-    b, s, d = x.shape
-    last = torch.zeros((b, d), dtype=x.dtype, device=x.device) \
-        if shift_in is None else shift_in
+    last = _last(x, shift_in)
     sh = _token_shift(x, last)
     mix = lambda mu: x + (sh - x) * p[mu].to(x.dtype)
     w_ = lambda n: p[n].to(dt)

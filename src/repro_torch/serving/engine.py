@@ -9,7 +9,8 @@ slots:
   ``LM.decode_step`` over all slots with an int64 tensor of per-lane
   positions, which computes what the reference's ``vmap`` of a batch-1
   step over the arena computes (``models/blocks.py``: per-lane K/V
-  writes and masks, dropless MoE routing);
+  writes and masks, per-lane recurrent and RWKV states, dropless MoE
+  routing);
 * temperature sampling runs inside the step with per-request keys, so
   sampled tokens are reproducible and independent of slot assignment
   and batch composition (``sample_tokens``);
@@ -64,10 +65,6 @@ _WARMUP_STEPS = 2       # eager steps on a side stream before the capture
 
 
 def _check_servable(cfg):
-    if "rwkv" in cfg.layer_kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: RWKV serving (its decode state) is not ported yet "
-            "(ROADMAP.md, Queue 1, item 9)")
     if getattr(cfg, "enc_layers", 0) or cfg.family in ("audio", "vlm"):
         raise ValueError(
             f"continuous batching serves decoder-only token LMs; "

@@ -311,6 +311,9 @@ async def _run_split_infer(model, params, *, cut, prompts, gen,
         tokens = await client.run(host, port, prompts, gen)
     finally:
         await server.close()
+        # the closed server stays in reference cycles with the event
+        # loop's objects until a garbage collection: drop its weights now
+        server.bs_params = client.ue_params = None
     measured = sum(m for m, _ in server.audit)
     billed = sum(b for _, b in server.audit)
     decode_s = max(client.t_done - client.t_first, 1e-9)

@@ -2,13 +2,14 @@
 
 Port of the JAX package's ``serving/kv.py``.  The decode state of every
 served family (K/V buffers, local-window rings, RG-LRU recurrent
-states) is a tree whose leaves all carry ONE batch axis, but not the
-same one: a homogeneous stacked cache puts layers first (``[L, B,
-cache_len, ...]``), a heterogeneous tuple of per-layer dicts puts batch
-first.  The arena treats that axis as the SLOT axis: a fixed-shape
-``[.., slots, ..]`` arena that requests are written into when admitted
-and freed from when they complete, so the decode step keeps one shape
-(one CUDA graph on the card) while requests join and leave.
+states, RWKV's WKV state and token shifts) is a tree whose leaves all
+carry ONE batch axis, but not the same one: a homogeneous stacked cache
+puts layers first (``[L, B, cache_len, ...]``), a heterogeneous tuple of
+per-layer dicts puts batch first.  The arena treats that axis as the
+SLOT axis: a fixed-shape ``[.., slots, ..]`` arena that requests are
+written into when admitted and freed from when they complete, so the
+decode step keeps one shape (one CUDA graph on the card) while requests
+join and leave.
 
 ``slot_axes`` finds the per-leaf slot axis the reference's way, with two
 probes at batch sizes 5 and 7 that ``LM.init_cache`` builds on

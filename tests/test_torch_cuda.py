@@ -37,6 +37,7 @@ FLASH_CASES = [  # (b, hq, hkv, s, dh, causal, window)
     (4, 10, 1, 512, 256, True, 2048),   # recurrentgemma-2b's local layers
     (1, 10, 1, 3072, 256, True, 2048),  # ... where the window bites
     (4, 24, 8, 512, 64, True, 0),    # granite-moe-3b-a800m, GQA rep 3
+    (4, 32, 4, 512, 128, True, 0),   # qwen3-moe-30b-a3b, GQA rep 8
 ]
 
 
@@ -144,6 +145,8 @@ WKV_CASES = [  # (b, s, h, dh, strong decay, initial state)
     (2, 64, 3, 64, True, True),
     (1, 130, 3, 64, False, True),    # ragged third chunk, an initial state
     (2, 200, 2, 64, True, False),
+    (4, 1, 40, 64, False, True),     # rwkv6-3b's decode step: S 1 from a state
+    (4, 10, 40, 64, False, True),    # S 10 from a state (token-loop length)
 ]
 
 
@@ -838,6 +841,9 @@ GMM_CASES = [  # (E, C, D, F)
     (3, 8, 200, 72),
     (2, 12, 200, 72),         # small-C variant, N = 16, ragged
     (2, 16, 200, 72),
+    (128, 160, 2048, 768),    # qwen3-moe-30b-a3b prefill (B 4 x S 512): w1, w3
+    (128, 160, 768, 2048),    # ... w2
+    (128, 8, 2048, 768),      # its decode step (capacity 8)
 ]
 
 
@@ -1635,7 +1641,7 @@ ENGINE_SPECS = [(5, 4), (5, 2), (7, 6), (5, 3), (7, 5)]
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-4b", "recurrentgemma-2b",
-                                  "granite-moe-3b-a800m"])
+                                  "granite-moe-3b-a800m", "rwkv6-3b"])
 def test_engine_graph_equals_eager_and_cpu(arch):
     """The captured step against the eager one on the card (tokens, and
     one step's logits bit for bit) and against the CPU engine (tokens)."""

@@ -7,8 +7,9 @@ must emit, greedy, exactly the tokens of the reference's
 ``ServingEngine`` on the same weights (``bridge.py``) and of the port's
 own batch-1 ``solo_decode``, on a dense model (the small config of
 ``tests/test_serving.py``), the recurrentgemma SMOKE model (RG-LRU state,
-a local-attention ring that wraps) and the granite-moe SMOKE model (5
-experts, top 2), under staggered submits, slot reuse and chunked
+a local-attention ring that wraps), the granite-moe SMOKE model (5
+experts, top 2) and the rwkv6 SMOKE model (the WKV state and token
+shifts), under staggered submits, slot reuse and chunked
 prefill; the slot arena's helpers and the admission counts are held to
 the reference's too.  ``tests/test_torch_engine_units.py`` (no JAX)
 holds the rest to ``solo_decode`` and to the reference's numpy-only
@@ -43,7 +44,8 @@ DENSE = RefLMConfig(name="serve-test", num_layers=2, d_model=32, n_heads=2,
                     n_kv=1, d_ff=32, vocab=64, dtype="float32")
 CONFIGS = {"dense": DENSE,
            "hybrid": ref_arch("recurrentgemma-2b").smoke,
-           "moe": ref_arch("granite-moe-3b-a800m").smoke}
+           "moe": ref_arch("granite-moe-3b-a800m").smoke,
+           "rwkv": ref_arch("rwkv6-3b").smoke}
 # (prompt, gen) of the staggered runs: the first two are submitted, then
 # three engine steps run (the second request leaves), then the rest join.
 # The dense run is the reference test's; the others keep one prompt
@@ -51,8 +53,8 @@ CONFIGS = {"dense": DENSE,
 # 4-token budget (one prompt a chunk)
 STAGGER = {"dense": [(3, 4), (5, 2), (3, 6), (4, 3), (5, 5)],
            "hybrid": [(4, 4), (4, 2), (4, 6), (4, 3), (4, 5)]}
-STAGGER["moe"] = STAGGER["hybrid"]
-BUDGET = {"dense": 256, "hybrid": 4, "moe": 4}
+STAGGER["moe"] = STAGGER["rwkv"] = STAGGER["hybrid"]
+BUDGET = {"dense": 256, "hybrid": 4, "moe": 4, "rwkv": 4}
 CACHE = 16
 
 

@@ -42,7 +42,8 @@ CACHE = 16
 def _model(name):
     cfg = {"dense": DENSE,
            "hybrid": get_arch("recurrentgemma-2b").smoke,
-           "moe": get_arch("granite-moe-3b-a800m").smoke}[name]
+           "moe": get_arch("granite-moe-3b-a800m").smoke,
+           "rwkv": get_arch("rwkv6-3b").smoke}[name]
     port = LM(cfg, "cpu")
     return port, port.init(torch.Generator().manual_seed(0))
 
@@ -84,7 +85,7 @@ def test_moe_at_16_slots_routes_dropless(monkeypatch):
     assert any(not np.array_equal(naive[r.rid], solo[r.rid]) for r in reqs)
 
 
-@pytest.mark.parametrize("name", ["dense", "hybrid"])
+@pytest.mark.parametrize("name", ["dense", "hybrid", "rwkv"])
 def test_prompt_plus_gen_equal_to_cache_len(name):
     """A request whose prompt + gen fills the cache exactly (its lane's
     position reaches cache_len once it finishes, while the other lane
@@ -102,11 +103,12 @@ def test_prompt_plus_gen_equal_to_cache_len(name):
     assert eng.positions.max() == CACHE
 
 
-@pytest.mark.parametrize("name", ["dense", "hybrid"])
+@pytest.mark.parametrize("name", ["dense", "hybrid", "rwkv"])
 def test_inactive_slots_unchanged_bit_for_bit(name):
     """A decode step changes only the active lanes' rows: every leaf of
-    the inactive slots (K/V, the ring, the RG-LRU h and conv states)
-    keeps its bytes, including a slot whose tenant just finished."""
+    the inactive slots (K/V, the ring, the RG-LRU h and conv states,
+    RWKV's WKV state and token shifts) keeps its bytes, including a slot
+    whose tenant just finished."""
     port, params = _model(name)
     eng = ServingEngine(port, params, slots=3, cache_len=CACHE)
     for r in _specs([(5, 1), (5, 5)], port.cfg.vocab):
@@ -122,7 +124,7 @@ def test_inactive_slots_unchanged_bit_for_bit(name):
     assert any(not torch.equal(a, b) for a, b in zip(before[1], after[1]))
 
 
-@pytest.mark.parametrize("name", ["dense", "hybrid", "moe"])
+@pytest.mark.parametrize("name", ["dense", "hybrid", "moe", "rwkv"])
 def test_sampled_tokens_slot_independent_and_solo(name):
     """Sampling at T = 0.7 with the port's keys: each request's tokens are
     the same at 1 and 3 slots and equal to its solo decode's."""
@@ -166,12 +168,8 @@ def test_prefill_chunk_budget_equivalence():
 
 
 def test_engine_refuses_what_it_cannot_serve():
-    """RWKV serving is not ported (refused by name before any weight is
-    read); a graph needs the card; the card is used unless the CPU is
-    asked for."""
-    rwkv = LM(get_arch("rwkv6-3b").smoke, "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        ServingEngine(rwkv, None, slots=2, cache_len=8)
+    """A graph needs the card; the slot count must be positive; the card
+    is used unless the CPU is asked for."""
     port, params = _model("dense")
     with pytest.raises(ValueError, match="graph=True"):
         ServingEngine(port, params, slots=2, cache_len=8, graph=True)
