@@ -64,7 +64,14 @@ Phases (any failure exits non-zero; nothing is caught):
      [2, 10, 4096, 256] bf16 on one kv head with window 2048, ragged S
      and rows without keys in bf16 on "mma", and [1, 10, 300, 256] f32
      with window 100 on "simt", within FLASH_TOL and the element gate,
-     twice bit for bit).  Small f32 models on the card are held to the same
+     twice bit for bit); flash at whisper-small's calls (check_flash_whisper:
+     [8, 12, 1500, 64] and [8, 12, 224, 64] on [8, 12, 1500, 64]
+     non-causal, [8, 12, 224, 64] causal, model-layout views, bf16 on
+     "mma" and f32 on "simt", within FLASH_TOL, the element gate and an
+     lse within 1e-4; the backward at [8, 12, 448, 64] on
+     [8, 12, 1500, 64] and [32, 12, 1500, 64] non-causal bf16, and
+     [1, 4, 100, 64] on [1, 4, 300, 64] f32).  Small f32 models on the
+     card are held to the same
      models on the CPU: a qwen prefill, a recurrentgemma prefill of a
      12-token prompt (window 8: the ring wraps) and 8 decode steps, a
      granite-moe prefill and 8 decode steps (the router's top-k expert ids
@@ -251,6 +258,26 @@ Phases (any failure exits non-zero; nothing is caught):
         RT_LAUNCHES (216 rglru_scan, 108 rglru_scan_bwd, 96 flash and 48
         flash backwards at dh 256, all on "mma"), peak GB, one more step
         traced;
+     p. whisper-small, the encoder-decoder, at full width (after l; 12
+        "enc" and 12 "xattn" layers of d 768, 12 heads of 64, 1500 stub
+        frames, vocab 51865 padded to 51872; 278.2 M parameters): static
+        serving through the serving CLI, 8 segments of 1500 frames,
+        prompt 224, 224 tokens (cache 448): greedy, sampled at T 0.8 and
+        with --token-loop-prefill (exactly 36 flash launches, 12 a call
+        shape: the encoder [8, 12, 1500, 64] and the cross-attention
+        [8, 12, 224 -> 1500, 64] non-causal, the self-attention causal;
+        the token loop the encoder's 12; none in decode; all on "mma"),
+        --continuous and --split-cut refused with ValueError; the token
+        loop against the one-pass prefill in f32 (every kernel on its f32
+        route) within 3e-3 + 3e-3 |logit|, the last logits and 4 greedy
+        steps, and the bf16 gap printed beside it; then C2P2SL training
+        through the training CLI (f32 master weights, AdamW, 32 x 448 with
+        32 x 1500 frames, S 2 cut at 6, k 4, int8, 3 steps): finite
+        losses, every parameter moved but the cross path's four unread
+        biases (still zero), hop bytes the bills of h alone, exactly 648 /
+        324 flash launches on "mma" (by shape: the encoder once a step
+        over the batch) and 24 + 24 codec calls at [3584, 768]; one more
+        step traced, and one prefill and four decode steps traced;
   5. timings: torch.profiler traces of one prefill and four decode steps
      of qwen, one prefill and one decode step each of recurrentgemma and
      granite-moe, and one training step of each of rwkv6-3b and qwen1.5-4b
@@ -280,7 +307,10 @@ Phases (any failure exits non-zero; nothing is caught):
      and its backward (torch.autograd.grad) as their library yardsticks,
      the backward's SIMT route at the same shape (q based 2 bytes off 16)
      as ``simt_ms``, and its two tensor-core kernels' ptxas registers and
-     spills.
+     spills; flash at whisper-small's calls (time_whisper: the forward at
+     its encoder, cross- and self-attention serving calls, the backward
+     at its training cross-attention and encoder calls, with SDPA's time
+     and the factor of each call slower than it).
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -482,6 +512,12 @@ FLASH_TOL = {"float32": 2e-4, "bfloat16": 5e-2}  # forward and backward
 # rounds each gradient to 2^-8 of its size, so rtol 2^-7 leaves a factor 2
 # and atol 1e-3 covers the f32 sums' error near zero (~1e-6 in f32 cases)
 FLASH_BWD_ELEM = {"float32": (2e-5, 1e-4), "bfloat16": (1e-3, 2 ** -7)}
+# the forward element by element at whisper's calls: |o - p| <= atol + rtol
+# P|V|, P the plain softmax (f32).  On "mma" P rounds to bf16 (2^-9 of each
+# p) before P V and o rounds at 2^-9 of |o| <= P|V|, so the error is under
+# 2^-8 P|V| and rtol 2^-7 leaves a factor 2; |o| itself cancels to ~0.04
+# over 1500 keys, so a gate on |o| fails a right kernel's causal rows
+FLASH_FWD_ELEM = {"float32": (2e-5, 1e-4), "bfloat16": (1e-3, 2 ** -7)}
 # qwen1.5-4b's three int8 training losses through the SIMT backward (the
 # flash backward's first kernels, before its tensor-core route): the first
 # step's loss depends on the forward alone, so it must agree to 5 digits
@@ -491,6 +527,40 @@ Q_LOSSES_SIMT = (12.45325, 12.44874, 12.42027)
 # tensor-core routes sum in another order: printed beside, not required)
 GT_LOSSES_SIMT = (11.65197, 11.64274)
 RT_LOSSES_SIMT = (14.13339, 13.91081)
+# whisper-small, the encoder-decoder (12 "enc" and 12 "xattn" layers of d
+# 768, 12 heads of 64 q on 12 kv, 1500 stub frames, vocab 51865 padded to
+# 51872; 278.2 M parameters): static serving of WH_BATCH audio segments,
+# prompt WH_PROMPT and WH_GEN tokens (the cache 448, whisper's decoder
+# context), greedy, sampled at WH_TEMP and by --token-loop-prefill; the f32
+# token loop against the one-pass prefill within the reference test's
+# WH_LOOP_TOL for the last logits and WH_LOOP_STEPS decode steps; C2P2SL
+# training at WH_T_BATCH x WH_T_SEQ with frames, S 2 cut at 6, k 4, int8.
+# A prefill launches 12 encoder and 12 + 12 decoder flash calls (none in
+# decode: decode attention is plain), a token loop the encoder's 12; a
+# training step 2 x 12 encoder forwards (once over the batch, each twice
+# under its checkpoint) and 2 x 2 x 12 decoder forwards a micro-batch, one
+# backward each
+WH_ARCH, WH_LAYERS, WH_FRAMES, WH_HEADS = "whisper-small", 12, 1500, 12
+WH_BATCH, WH_PROMPT, WH_GEN, WH_TEMP = 8, 224, 224, 0.8
+WH_LOOP_TOL, WH_LOOP_STEPS = 3e-3, 4
+WH_PREFILL = {"flash_attention": 3 * WH_LAYERS}
+WH_LOOP = {"flash_attention": WH_LAYERS}
+WH_T_BATCH, WH_T_SEQ, WH_T_CUT = 32, 448, 6
+WH_MB = WH_T_BATCH // T_K                       # a micro-batch's rows
+WH_T_LAUNCHES = {"flash_attention": (2 * WH_LAYERS + 4 * WH_LAYERS * T_K)
+                 * T_STEPS,
+                 "flash_attention_bwd": (WH_LAYERS + 2 * WH_LAYERS * T_K)
+                 * T_STEPS,
+                 "wire_encode": 2 * T_K * T_STEPS,
+                 "wire_decode": 2 * T_K * T_STEPS}
+# the flash calls of the path (B, H, Sq, Skv, dh, causal), forward
+# (serving's, the encoder at the serving batch) and backward (training's)
+WH_FLASH = {"enc": (WH_BATCH, WH_HEADS, WH_FRAMES, WH_FRAMES, 64, False),
+            "cross": (WH_BATCH, WH_HEADS, WH_PROMPT, WH_FRAMES, 64, False),
+            "self": (WH_BATCH, WH_HEADS, WH_PROMPT, WH_PROMPT, 64, True)}
+WH_FLASH_BWD = {"cross": (WH_MB, WH_HEADS, WH_T_SEQ, WH_FRAMES, 64, False),
+                "enc": (WH_T_BATCH, WH_HEADS, WH_FRAMES, WH_FRAMES, 64,
+                        False)}
 
 
 def fail(msg: str):
@@ -715,7 +785,62 @@ def check_flash(torch, fa, dev):
         if bshd and dt == torch.bfloat16:
             main_err["gqa8" if hq == QM_HEADS[0] else dh] = err
     check_flash_rows_without_keys(torch, fa, dev, gen, tol)
+    main_err.update(check_flash_whisper(torch, fa, dev, gen, tol))
     return main_err
+
+
+def check_flash_whisper(torch, fa, dev, gen, tol):
+    """whisper-small's forward calls (``WH_FLASH``) in the model layout
+    ([B, S, H, 64] views), bf16 on "mma" and f32 on "simt": the encoder
+    non-causal over 1500 frames, the cross-attention of 224 rows on 1500
+    keys (23 tiles of 64 and a ragged 28; Sq != Skv), the decoder's
+    causal self-attention.  Held to ``FLASH_TOL`` absolute against the
+    plain version, and, with and without lse, element by element to
+    ``FLASH_FWD_ELEM`` against the plain version in f32 on the inputs
+    upcast: over 1500 keys a typical |o| is ~0.04, under the absolute
+    bf16 gate, while a route that leaves out the ragged tile's P V fails
+    the element gate (tests/test_torch_flash_fwd_gate.py emulates both).
+    The kernel's lse within 1e-4 of the plain lse.  Returns the bf16 max
+    error by call."""
+    errs = {}
+    for name, (b, h, sq, skv, dh, causal) in WH_FLASH.items():
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn((b, s, h, dh), generator=gen, device=dev)
+                       .to(dt).transpose(1, 2) for s in (sq, skv, skv))
+            want = "mma" if dt == torch.bfloat16 else "simt"
+            fa.ROUTES.clear()
+            o = fa.flash_attention_cuda(q, k, v, causal=causal)
+            o2, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                              with_lse=True)
+            op = fa.attention_plain(q, k, v, causal=causal)
+            up = [t.float() for t in (q, k, v)]
+            op32, lse_p = fa.attention_plain_lse(*up, causal=causal)
+            mag = fa.attention_plain(up[0], up[1], up[2].abs(), causal=causal)
+            torch.cuda.synchronize()
+            err = float((o.float() - op.float()).abs().max())
+            atol, rtol = FLASH_FWD_ELEM[str(dt).split(".")[-1]]
+            share = max(float(((x.float() - op32).abs()
+                               / (atol + rtol * mag)).max())
+                        for x in (o, o2))
+            lse_err = float((lse - lse_p).abs().max())
+            label = (f"flash whisper {name} B{b} H{h} Sq{sq} Skv{skv} dh{dh} "
+                     f"causal={causal} {dt} [B,S,H,dh] view")
+            if dict(fa.ROUTES) != {want: 2} or o.stride() != q.stride():
+                fail(f"{label}: routes {dict(fa.ROUTES)}, expected {want} "
+                     f"twice; out strides {o.stride()} != q's {q.stride()}")
+            if not err <= tol[dt]:
+                fail(f"{label}: max abs err {err} > {tol[dt]}")
+            if not (share <= 1.0 and lse_err <= 1e-4):
+                fail(f"{label}: an element's error is {share:.3f} of its "
+                     f"limit {atol} + {rtol} P|V| (in f32), or lse err "
+                     f"{lse_err} > 1e-4")
+            print(f"{label} [{want}]: max abs err {err:.3e} (tol {tol[dt]});"
+                  f" worst element {share:.3f} of {atol:g} + {rtol:g} P|V|;"
+                  f" lse err {lse_err:.1e}")
+            if dt == torch.bfloat16:
+                errs[f"whisper_{name}"] = err
+            del q, k, v, o, o2, lse, op, up, op32, lse_p, mag
+    return errs
 
 
 def check_flash_rows_without_keys(torch, fa, dev, gen, tol):
@@ -767,7 +892,12 @@ def check_flash_bwd(torch, fa, dev):
     dk).  Every case runs the backward twice on the same inputs: the same
     bits.  Each case's backward route is asserted (``BWD_ROUTES``): bf16 on
     "mma" (head dims 64 and 128), f32 and a bf16 q based 2 bytes off 16 on
-    "simt".  Returns the max abs error at qwen's call."""
+    "simt".  Then whisper-small's training calls, non-causal with Sq !=
+    Skv and a ragged Skv of 1500 (23 key tiles of 64 and one of 28 live
+    rows): the cross-attention [8, 12, 448, 64] on [8, 12, 1500, 64] and
+    the encoder at [32, 12, 1500, 64], bf16 on "mma", and [1, 4, 100, 64]
+    on [1, 4, 300, 64] f32 on "simt".  Returns (the max abs error at
+    qwen's call, whisper's by call)."""
     gen = torch.Generator(device=dev).manual_seed(13)
     bf16, f32 = torch.bfloat16, torch.float32
     b, h, s, dh = Q_TRAIN
@@ -784,8 +914,19 @@ def check_flash_bwd(torch, fa, dev):
              (1, 1, 1, 256, 128, 64, True, 16, bf16, False, "bhsd", False),
              (1, 1, 1, 256, 128, 64, True, 16, f32, False, "bhsd", False),
              (2, 4, 4, 130, 130, 64, True, 0, bf16, False, "bhsd", True)]
-    main_err = None
-    for bb, hq, hkv, sq, skv, d, causal, window, dt, bshd, dol, mis in cases:
+    # whisper-small's training calls (WH_FLASH_BWD: the cross-attention of
+    # 448 rows on 1500 keys, the encoder at the training batch), non-causal,
+    # dO in the model layout as autograd gives it, and a small f32 case
+    # whose Skv is ragged and longer than Sq
+    whisper = {}
+    for name, (wb, wh, wsq, wskv, wdh, wcausal) in WH_FLASH_BWD.items():
+        whisper[len(cases)] = f"whisper_{name}"
+        cases.append((wb, wh, wh, wsq, wskv, wdh, wcausal, 0, bf16, True,
+                      "bshd", False))
+    cases.append((1, 4, 4, 100, 300, 64, False, 0, f32, True, "bshd", False))
+    main_err, whisper_err = None, {}
+    for i, (bb, hq, hkv, sq, skv, d, causal, window, dt, bshd, dol,
+            mis) in enumerate(cases):
         def mk(h_, s_, layout):
             shape = {"bshd": (bb, s_, h_, d), "bhsd": (bb, h_, s_, d),
                      "bhds": (bb, h_, d, s_)}[layout]
@@ -843,7 +984,10 @@ def check_flash_bwd(torch, fa, dev):
               + f"; lse err {lse_err:.1e}; second call: the same bits")
         if main_err is None:
             main_err = max(errs.values())
-    return main_err
+        if i in whisper:
+            whisper_err[whisper[i]] = max(errs.values())
+        del q, k, v, do, o, lse, grads, again, up, plain
+    return main_err, whisper_err
 
 
 RGLRU_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
@@ -1694,10 +1838,12 @@ def stream_decisions(torch, replay):
 
 
 def flat_leaves(tree, prefix="") -> dict:
-    """A parameter tree's leaves by dotted path."""
-    if isinstance(tree, dict):
+    """A parameter tree's leaves by dotted path (a tuple's items by
+    index)."""
+    if isinstance(tree, (dict, tuple, list)):
         out = {}
-        for k, v in tree.items():
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for k, v in items:
             out.update(flat_leaves(v, f"{prefix}{k}."))
         return out
     return {prefix[:-1]: tree.detach()}
@@ -1815,6 +1961,33 @@ def codec_calls(wc):
         yield calls
     finally:
         wc.encode_cuda, wc.decode_cuda = enc, dec
+
+
+@contextlib.contextmanager
+def flash_calls(fa):
+    """Count each call of the flash wrappers while the block runs, under
+    (kernel, B, Hq, Sq, Skv, dh, causal, dtype): the flash launches split
+    by shape.  Yields the Counter."""
+    calls = collections.Counter()
+    fwd, bwd = fa.flash_attention_cuda, fa.flash_attention_bwd_cuda
+
+    def key(kernel, q, k, causal):
+        return (kernel, *q.shape[:3], k.shape[2], q.shape[3], bool(causal),
+                str(q.dtype).split(".")[-1])
+
+    def forward(q, k, v, *, causal=True, **kw):
+        calls[key("flash_attention", q, k, causal)] += 1
+        return fwd(q, k, v, causal=causal, **kw)
+
+    def backward(q, k, v, o, lse, do, *, causal=True, **kw):
+        calls[key("flash_attention_bwd", q, k, causal)] += 1
+        return bwd(q, k, v, o, lse, do, causal=causal, **kw)
+
+    fa.flash_attention_cuda, fa.flash_attention_bwd_cuda = forward, backward
+    try:
+        yield calls
+    finally:
+        fa.flash_attention_cuda, fa.flash_attention_bwd_cuda = fwd, bwd
 
 
 def check_codec_calls(wc, where, launches, calls, routes):
@@ -2777,29 +2950,33 @@ def _train_argv(wire: str, arch: str = T_ARCH, v: int = 1):
                 ["--virtual-stages", str(v)] if v > 1 else [])
 
 
-def billed_step_bytes(protocol, spec, d: int, act_bytes: int):
+def billed_step_bytes(protocol, spec, d: int, act_bytes: int,
+                      rows: int = T_BATCH * T_SEQ):
     """A pipelined step's billed hop bytes (up, down): S*v - 1 hops of
-    the whole batch, up at the forward rate, down at the backward one."""
+    the whole batch (``rows`` tokens), up at the forward rate, down at the
+    backward one."""
     hops = spec.num_stages * spec.virtual_stages - 1
-    n = T_BATCH * T_SEQ * d
+    n = rows * d
     return tuple(hops * protocol.billed_hop_bytes(
         n, d, spec.wire_dtype, act_bytes, backward=bwd)
         for bwd in (False, True))
 
 
-def check_training_run(torch, protocol, dev, res, name, wire):
+def check_training_run(torch, protocol, dev, res, name, wire,
+                       rows: int = T_BATCH * T_SEQ, unread=()):
     """A training CLI run's result: every loss finite, the hop's bytes up
-    and down each step equal to the billed bytes (``billed_step_bytes``),
-    and every parameter tensor changed from its initial value (drawn
-    again from the run's seed).  Returns (parameter tensors, billed bytes
-    a step up, down)."""
+    and down each step equal to the billed bytes (``billed_step_bytes`` of
+    ``rows`` tokens), and every parameter tensor changed from its initial
+    value (drawn again from the run's seed) but those named in ``unread``
+    (dotted paths), which no forward reads: they must keep their zeros.
+    Returns (parameter tensors, billed bytes a step up, down)."""
     from repro_torch.models.lm import LM
-    from repro_torch.utils.trees import tree_leaves
     model, spec = res["model"], res["pipeline"]
     if (spec.wire_dtype if spec else "none") != wire:
         fail(f"{name}: the run's codec is not {wire}")
     up, down = billed_step_bytes(protocol, spec, model.cfg.d_model,
-                                 model.dtype.itemsize) if spec else (0, 0)
+                                 model.dtype.itemsize, rows) \
+        if spec else (0, 0)
     for row in res["rows"]:
         if not math.isfinite(row["loss"]):
             fail(f"{name}: step {row['step']} loss {row['loss']}")
@@ -2807,14 +2984,15 @@ def check_training_run(torch, protocol, dev, res, name, wire):
             fail(f"{name} step {row['step']}: hop bytes up "
                  f"{row['hop_bytes_up']} down {row['hop_bytes_down']} != "
                  f"billed {up} / {down}")
-    fresh = LM(model.cfg, dev).init(
-        torch.Generator(device=dev).manual_seed(SEED), master=True)
-    pairs = zip(tree_leaves(res["state"]["params"]), tree_leaves(fresh))
-    same = sum(bool(torch.equal(a, b)) for a, b in pairs)
-    n = len(tree_leaves(fresh))
-    if same:
-        fail(f"{name}: {same} of {n} parameter tensors did not change")
-    return n, up, down
+    fresh = flat_leaves(LM(model.cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(SEED), master=True))
+    got = flat_leaves(res["state"]["params"])
+    same = {k for k, t in fresh.items() if torch.equal(got[k], t)}
+    if same != set(unread) or any(got[k].any() for k in unread):
+        fail(f"{name}: {len(same)} of {len(fresh)} parameter tensors did "
+             f"not change ({sorted(same)}); expected {sorted(unread)}, "
+             "at zero")
+    return len(fresh), up, down
 
 
 def run_training_path(torch, ops, train, protocol, dev, wc, profile_int8):
@@ -2985,6 +3163,196 @@ def run_granite_training(torch, ops, train, protocol, dev, wc, card):
     del res
     torch.cuda.empty_cache()
     return rows, launches, calls
+
+
+def _whisper_argv(*extra):
+    return ["--arch", WH_ARCH, "--size", "full", "--batch", str(WH_BATCH),
+            "--prompt-len", str(WH_PROMPT), "--gen", str(WH_GEN), "--seed",
+            str(SEED), *extra]
+
+
+def whisper_loop_gap(torch, serve, dev, dtype):
+    """whisper-small FULL at ``dtype`` (its weights drawn from SEED at that
+    dtype; f32 takes every kernel's f32 route) on the serve CLI's prompts
+    and frames: the one-pass prefill against ``_encode`` +
+    ``fill_cross_kv`` + the token loop, then WH_LOOP_STEPS greedy decode
+    steps from both caches.  Returns (the largest |gap| of each step's
+    logits, whether each step is within WH_LOOP_TOL + WH_LOOP_TOL |one
+    pass| element by element, the largest |logit|)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import LM
+    cfg = dataclasses.replace(get_arch(WH_ARCH).full,
+                              dtype=str(dtype).split(".")[-1])
+    model = LM(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                           (WH_BATCH, WH_PROMPT)), device=dev)
+    frames = torch.as_tensor(rng.standard_normal(
+        (WH_BATCH, cfg.enc_seq, cfg.d_model)).astype(np.float32),
+        device=dev).to(model.dtype)
+    cache_len = WH_PROMPT + WH_LOOP_STEPS
+    gaps, within, top = [], [], 0.0
+    with torch.inference_mode():
+        la, sa = model.prefill_with_cache(
+            params, {"tokens": prompts, "frames": frames}, cache_len,
+            torch.float32)
+        cache = model.fill_cross_kv(params, model._encode(params, frames),
+                                    model.init_cache(WH_BATCH, cache_len,
+                                                     torch.float32))
+        lb, sb = serve.prefill_into_cache(model, params, prompts, cache)
+        for i in range(WH_LOOP_STEPS + 1):
+            if i:
+                tok = torch.argmax(la, -1, keepdim=True)
+                la, _ = model.decode_step(params, tok, sa["cache"],
+                                          WH_PROMPT + i - 1)
+                lb, _ = model.decode_step(params, tok, sb["cache"],
+                                          WH_PROMPT + i - 1)
+            gaps.append(float((la - lb).abs().max()))
+            within.append(bool(((la - lb).abs()
+                                <= WH_LOOP_TOL * (1 + la.abs())).all()))
+            top = max(top, float(la.abs().max()))
+    del model, params, sa, sb, cache
+    return gaps, within, top
+
+
+def run_whisper(torch, ops, serve, train, protocol, dev, wc, card):
+    """whisper-small at full width, the encoder-decoder: static serving
+    through the serving CLI (greedy, sampled at WH_TEMP, and
+    --token-loop-prefill; exactly WH_PREFILL / WH_LOOP flash launches,
+    every one on "mma", by call shape), the f32 and bf16 token loops
+    against the one-pass prefill (f32 held within WH_LOOP_TOL), the
+    refusals of --continuous and --split-cut, then C2P2SL training
+    through the training CLI (S 2 cut at 6, k 4, int8, WH_T_BATCH x
+    WH_T_SEQ with frames, 3 steps): finite losses, every parameter moved
+    but the cross path's four unread biases (their zeros kept), hop bytes
+    equal to the bills of h alone, exactly WH_T_LAUNCHES, every flash
+    forward and backward on "mma", the codec's calls at [WH_MB x
+    WH_T_SEQ, 768]; one more step traced.  Returns the phase's numbers:
+    the runs, the flash calls by shape (serving's and training's) and the
+    launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.kernels import rwkv6 as rw
+    cfg = get_arch(WH_ARCH).full
+    counters = (fa.ROUTES, fa.BWD_ROUTES, mg.ROUTES, rw.ROUTES, wc.ROUTES)
+    out, serve_calls = {}, collections.Counter()
+    serve_launches = collections.Counter()
+    for name, extra, want in (
+            ("static", [], WH_PREFILL),
+            (f"sampled T {WH_TEMP}", ["--temperature", str(WH_TEMP)],
+             WH_PREFILL),
+            ("--token-loop-prefill", ["--token-loop-prefill"], WH_LOOP)):
+        with flash_calls(fa) as calls:
+            res, launches, peak = _serve_counted(
+                torch, ops, serve, _whisper_argv(*extra), counters)
+        _check_tokens(f"{WH_ARCH} {name}", res["tokens"],
+                      (WH_BATCH, WH_GEN), cfg.vocab)
+        if res["prefill_launches"] != want or launches != want:
+            fail(f"{WH_ARCH} {name}: prefill launches "
+                 f"{res['prefill_launches']}, run {launches}; expected "
+                 f"{want} in both (decode attention is plain)")
+        _check_routes(f"{WH_ARCH} {name}", launches, fa, mg, rw)
+        serve_calls.update(calls)
+        serve_launches.update(launches)
+        out[name] = dict(res, peak=peak)
+        print(f"{WH_ARCH} {name}: B {WH_BATCH} x prompt {WH_PROMPT} with "
+              f"{WH_BATCH} x {WH_FRAMES} frames, {WH_GEN} tokens: prefill "
+              f"{res['prefill_ms']:.2f} ms, decode "
+              f"{res['decode_tok_s']:.1f} tok/s, peak {peak:.2f} GB; flash "
+              f"{launches['flash_attention']} on mma by (B, H, Sq, Skv, dh, "
+              f"causal): " + "; ".join(
+                  f"{k[1:7]}: {v}" for k, v in sorted(calls.items()))
+              + f" ({card})")
+    toks = {k: r["tokens"] for k, r in out.items()}
+    print(f"{WH_ARCH} tokens: token loop == static in "
+          f"{int((toks['--token-loop-prefill'] == toks['static']).sum())} "
+          f"of {WH_BATCH * WH_GEN} (bf16), sampled == greedy in "
+          f"{int((toks[f'sampled T {WH_TEMP}'] == toks['static']).sum())}")
+    for flag, match in ((["--continuous", "--requests", "2"],
+                         "continuous batching"),
+                        (["--split-cut", "6", "--wire-dtype", "int8"],
+                         "SplitDecode")):
+        try:
+            serve.main(_whisper_argv(*flag))
+        except ValueError as e:
+            if match not in str(e):
+                fail(f"{WH_ARCH} {flag[0]}: raised {e!r}")
+            print(f"{WH_ARCH} {' '.join(flag)}: refused ({e})")
+        else:
+            fail(f"{WH_ARCH} {flag[0]}: served; the reference refuses it")
+    gaps = {}
+    for dt in (torch.float32, torch.bfloat16):
+        _free_card(torch, f"{WH_ARCH} {dt} token loop")
+        gaps[dt] = whisper_loop_gap(torch, serve, dev, dt)
+        g, ok, top = gaps[dt]
+        print(f"{WH_ARCH} {str(dt).split('.')[-1]}: token loop against the "
+              f"one-pass prefill, the last logits then {WH_LOOP_STEPS} "
+              f"greedy steps: max |gap| {', '.join(f'{x:.3e}' for x in g)} "
+              f"(largest |logit| {top:.3f}); within {WH_LOOP_TOL} + "
+              f"{WH_LOOP_TOL} |logit|: {ok}"
+              + ("" if dt == torch.float32 else " (not held)"))
+    if not all(gaps[torch.float32][1]):
+        fail(f"{WH_ARCH} f32 token loop: gaps {gaps[torch.float32][0]} "
+             f"outside {WH_LOOP_TOL}")
+
+    _free_card(torch, f"{WH_ARCH} training")
+    torch.cuda.synchronize()
+    _reset_counts(ops, *counters)
+    with codec_calls(wc) as ccalls, flash_calls(fa) as tcalls:
+        res = train.main(["--arch", WH_ARCH, "--size", "full",
+                          "--pipeline-stages", "2", "--pipeline-k", str(T_K),
+                          "--batch", str(WH_T_BATCH), "--seq", str(WH_T_SEQ),
+                          "--steps", str(T_STEPS), "--seed", str(SEED),
+                          "--wire-dtype", "int8", "--log-every", "1"])
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    _check_train_launches(WH_ARCH, launches, {
+        "flash": (dict(fa.ROUTES), {"mma": WH_T_LAUNCHES["flash_attention"]}),
+        "flash backward": (dict(fa.BWD_ROUTES),
+                           {"mma": WH_T_LAUNCHES["flash_attention_bwd"]})},
+        WH_T_LAUNCHES)
+    unread = [f"blocks.cross.{b}" for b in ("qb", "kb", "vb", "ob")]
+    n, up, down = check_training_run(torch, protocol, dev, res,
+                                     f"train {WH_ARCH}", "int8",
+                                     WH_T_BATCH * WH_T_SEQ, unread)
+    check_codec_calls(wc, f"{WH_ARCH} training path", launches, ccalls,
+                      dict(wc.ROUTES))
+    want = {(kern, WH_MB * WH_T_SEQ, cfg.d_model, "bfloat16", "int8"):
+            WH_T_LAUNCHES[kern] for kern in ("wire_encode", "wire_decode")}
+    if dict(ccalls) != want:
+        fail(f"train {WH_ARCH}: codec calls {dict(ccalls)} != {want}")
+    if res["pipeline"].microbatches != T_K or len(
+            res["model"].cfg.layer_kinds) // res["pipeline"].num_stages \
+            != WH_T_CUT:
+        fail(f"train {WH_ARCH}: the pipeline is not S 2, k {T_K}, cut at "
+             f"{WH_T_CUT}")
+    for r in res["rows"]:
+        print(f"main path train {WH_ARCH} int8 step {r['step']}: loss "
+              f"{r['loss']:.5f}, {r['step_ms']:.1f} ms, "
+              f"{r['tokens_per_s']:.0f} tokens/s, peak {r['peak_gb']:.2f} "
+              f"GB, hop up {r['hop_bytes_up']} B (billed {up:.0f}), down "
+              f"{r['hop_bytes_down']} B (billed {down:.0f}) ({card})")
+    print(f"train {WH_ARCH}: all {n} parameter tensors changed but the "
+          f"{len(unread)} unread cross biases (still zero); launches "
+          f"{json.dumps(launches, sort_keys=True)}; flash by (kernel, B, H, "
+          f"Sq, Skv, dh, causal): " + "; ".join(
+              f"{k[:7]}: {v}" for k, v in sorted(tcalls.items())))
+    rows = res["rows"]
+    profile_training_step(torch, res, {"flash forward": "flash_fwd",
+                                       "flash backward": "flash_bwd"},
+                          shape=(WH_T_BATCH, WH_T_SEQ))
+    del res
+    torch.cuda.empty_cache()
+    return {"serve": out, "serve_calls": serve_calls,
+            "serve_launches": dict(serve_launches), "gaps": gaps,
+            "train_rows": rows, "train_launches": launches,
+            "train_calls": tcalls}
 
 
 def run_hybrid_training(torch, ops, train, protocol, dev, card):
@@ -3959,7 +4327,7 @@ def profile_training_step(torch, res, watch, shape=(T_BATCH, T_SEQ),
     whose device time and launches are summed."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.data.synthetic import TokenTaskConfig, token_batches
+    from repro_torch.launch.train import build_batch_iter
     from repro_torch.parallel.steps import make_lm_train_step
     from repro_torch.training.optim import adamw, cosine_schedule
     model, state = res["model"], res["state"]
@@ -3968,8 +4336,7 @@ def profile_training_step(torch, res, watch, shape=(T_BATCH, T_SEQ),
     step = make_lm_train_step(model, opt, pipeline=res["pipeline"],
                               microbatches=microbatches)
     batch = {n: torch.as_tensor(a, device=model.device) for n, a in next(
-        token_batches(TokenTaskConfig(vocab=model.cfg.vocab), *shape,
-                      seed=SEED + 1)).items()}
+        build_batch_iter(model.cfg, *shape, seed=SEED + 1)).items()}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -4005,12 +4372,15 @@ def report_trace(prof, wall, label, watch=None):
               f"{e.key[:70]}")
 
 
-def profile_serving(torch, dev, arch, decode_steps, watch=()):
+def profile_serving(torch, dev, arch, decode_steps, watch=(), batch=BATCH,
+                    prompt=PROMPT, gen=GEN):
     """Where the time of the static path goes: one prefill and
     ``decode_steps`` decode steps traced with torch.profiler; wall time
     (host clock, ends in a synchronise), device busy time (sum of kernel
     time) and the device's idle share, with the kernels that take the most
-    time and those whose names hold a string of ``watch``."""
+    time and those whose names hold a string of ``watch``.  An
+    encoder-decoder's prefill encodes ``batch`` segments of random
+    frames."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_arch
@@ -4019,13 +4389,19 @@ def profile_serving(torch, dev, arch, decode_steps, watch=()):
     torch.cuda.empty_cache()
     model = LM(get_arch(arch).full, dev)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
-    prompts = torch.randint(0, model.cfg.vocab, (BATCH, PROMPT), device=dev,
-                            generator=torch.Generator(device=dev).manual_seed(5))
-    cache_len = PROMPT + GEN
+    g = torch.Generator(device=dev).manual_seed(5)
+    inputs = {"tokens": torch.randint(0, model.cfg.vocab, (batch, prompt),
+                                      device=dev, generator=g)}
+    if model.cfg.enc_layers:
+        inputs["frames"] = torch.randn(
+            (batch, model.cfg.enc_seq, model.cfg.d_model), device=dev,
+            generator=g).to(model.dtype)
+    prompts = inputs["tokens"]
+    cache_len = prompt + gen
 
     def prefill():
-        return model.prefill_with_cache(params, {"tokens": prompts},
-                                        cache_len, torch.float32)
+        return model.prefill_with_cache(params, inputs, cache_len,
+                                        torch.float32)
 
     def decode(state, steps):
         cache, pos = state["cache"], state["position"]
@@ -4725,6 +5101,110 @@ def time_serving_shapes(torch, fa, mg, rw, dev, qm, rs, flash_err, gmm_err,
     return out
 
 
+def time_whisper(torch, fa, dev, wh, flash_err):
+    """The flash kernels at whisper-small's calls: the forward at serving's
+    encoder, cross-attention and self-attention calls (``WH_FLASH``) and
+    the backward at training's cross-attention and encoder calls
+    (``WH_FLASH_BWD``), bf16 in the model layout.  The forward rows take
+    torch.profiler's device time, the kernel's from cold data
+    (``cold_ms``), as the other flash rows do, with both calls' times
+    between CUDA events printed beside them; the backward rows take the
+    kernel's and SDPA's backward between CUDA events (``cuda_ms``, calls
+    back to back on one input: milliseconds a call, where the host's
+    launches hide behind the device), since torch.profiler recorded a
+    third of SDPA's backward in one call.  Launches: the
+    phase's calls at that shape (the flash wrappers' calls counted by
+    shape, ``flash_calls``).  Bounds: q, k, v
+    and O (and for the backward dO read and dq, dk, dv written, and lse)
+    once at 3.35 TB/s, against 4 dh operations a (q, k) pair forward and
+    10 dh backward (S, PV; S, dP, dV, dK, dQ) at the bf16 tensor-core rate.
+    The library yardstick: SDPA on contiguous copies (its backward through
+    ``torch.autograd.grad``), timed here only.  A call slower than SDPA
+    prints its factor."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(16)
+    rows = []
+
+    def inputs(b, h, sq, skv, dh, n):
+        return [torch.randn((b, s, h, dh), generator=gen, device=dev)
+                .to(torch.bfloat16).transpose(1, 2)
+                for s in (sq, skv, skv, sq)[:n]]
+
+    for name, (b, h, sq, skv, dh, causal) in WH_FLASH.items():
+        q, k, v = inputs(b, h, sq, skv, dh, 3)
+        pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * skv)
+        nbytes = 2 * (2 * b * h * sq * dh + 2 * b * h * skv * dh)
+        b_ms, b_by = bound(nbytes, 4 * dh * pairs, BF16_OPS_S)
+        lib = [t.contiguous() for t in (q, k, v)]
+        fwd = lambda *a, c=causal: fa.flash_attention_cuda(*a, causal=c)
+        rows.append({
+            "name": f"flash_attention_whisper_{name}", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:73",
+            "shape": [b, h, sq, skv, dh], "causal": causal,
+            "dtype": "bfloat16",
+            "launches": wh["serve_calls"].get(
+                ("flash_attention", b, h, sq, skv, dh, causal, "bfloat16"),
+                0),
+            "max_abs_err": flash_err[f"whisper_{name}"],
+            "ms": cold_ms(fwd, (q, k, v), nbytes),
+            "plain_ms": device_ms(lambda c=causal: fa.attention_plain(
+                q, k, v, causal=c), iters=5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": device_ms(lambda c=causal, t=lib:
+                                    F.scaled_dot_product_attention(
+                                        *t, is_causal=c))})
+        print(rate_line(rows[-1], 4 * dh * pairs))
+        sdpa = lambda c=causal, t=lib: F.scaled_dot_product_attention(
+            *t, is_causal=c)
+        print(f"flash whisper {name} between CUDA events: kernel "
+              f"{cuda_ms(lambda: fwd(q, k, v)):.4f} ms, SDPA "
+              f"{cuda_ms(sdpa):.4f} ms")
+        del q, k, v, lib
+    for name, (b, h, sq, skv, dh, causal) in WH_FLASH_BWD.items():
+        q, k, v, do = inputs(b, h, sq, skv, dh, 4)
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                         with_lse=True)
+        pairs = b * h * sq * skv
+        nbytes = 2 * (4 * b * h * sq * dh + 4 * b * h * skv * dh) \
+            + 4 * b * h * sq
+        b_ms, b_by = bound(nbytes, 10 * dh * pairs, BF16_OPS_S)
+        lib = [t.contiguous().requires_grad_(True) for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*lib, is_causal=causal)
+        lib_do = do.contiguous()
+        bwd = lambda *a, c=causal: fa.flash_attention_bwd_cuda(*a, causal=c)
+        fa.BWD_ROUTES.clear()
+        bwd(q, k, v, o, lse, do)
+        if dict(fa.BWD_ROUTES) != {"mma": 1}:
+            fail(f"flash_attention_bwd at whisper's {name} call: routes "
+                 f"{dict(fa.BWD_ROUTES)}")
+        rows.append({
+            "name": f"flash_attention_bwd_whisper_{name}", "route": "cuda",
+            "kernel_route": "mma",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/common.py:88",
+            "shape": [b, h, sq, skv, dh], "causal": causal,
+            "dtype": "bfloat16",
+            "launches": wh["train_calls"].get(
+                ("flash_attention_bwd", b, h, sq, skv, dh, causal,
+                 "bfloat16"), 0),
+            "max_abs_err": flash_err[f"bwd_whisper_{name}"],
+            "ms": cuda_ms(lambda: bwd(q, k, v, o, lse, do)),
+            "plain_ms": cuda_ms(lambda c=causal: fa.attention_bwd_plain(
+                q, k, v, o, lse, do, causal=c), iters=3, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                lib_out, lib, lib_do, retain_graph=True))})
+        print(rate_line(rows[-1], 10 * dh * pairs))
+        del q, k, v, do, o, lse, lib, lib_out, lib_do
+        torch.cuda.empty_cache()
+    for r in rows:
+        if r["ms"] > r["library_ms"]:
+            print(f"kernel {r['name']}: {r['ms'] / r['library_ms']:.2f}x "
+                  f"SDPA's time at {r['shape']} (ROADMAP Queue 2)")
+    return rows
+
+
 def _ptxas_of(ptxas, *keys):
     """ptxas' registers and spills of the kernels whose names hold one of
     ``keys`` (demangled or mangled spellings)."""
@@ -4949,7 +5429,8 @@ def main():
 
     check_codec(torch, wc, dev)
     flash_err = check_flash(torch, fa, dev)
-    flash_err["bwd"] = check_flash_bwd(torch, fa, dev)
+    flash_err["bwd"], bwd_whisper = check_flash_bwd(torch, fa, dev)
+    flash_err.update({f"bwd_{k}": v for k, v in bwd_whisper.items()})
     rglru_err = check_rglru(torch, rg, dev)
     wkv_err = check_wkv6(torch, rw, dev)
     gmm_err = check_moe_gmm(torch, mg, dev)
@@ -5089,6 +5570,11 @@ def main():
               f"GB ({card})")
     phase(f"{RG_ARCH} training and profile")
 
+    wh = run_whisper(torch, ops, serve, train, protocol, dev, wc, card)
+    profile_serving(torch, dev, WH_ARCH, 4, batch=WH_BATCH, prompt=WH_PROMPT,
+                    gen=WH_GEN)
+    phase(f"{WH_ARCH} serving and training")
+
     rg_all = dict(collections.Counter(rg_launches) + collections.Counter(
         {k: v for k, v in rt_launches.items() if not k.endswith("_bwd")}))
     kernels = time_kernels(torch, wc, fa, rw, rg, dev, launches, rg_all,
@@ -5110,6 +5596,7 @@ def main():
                               [r for rows in ptxas.values() for r in rows])
     kernels += time_serving_shapes(torch, fa, mg, rw, dev, qm_serve,
                                    rs_serve, flash_err, gmm_err, wkv_err)
+    kernels += time_whisper(torch, fa, dev, wh, flash_err)
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']:.4f} ms, plain "
               f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "

@@ -16,3 +16,7 @@ class ArchSpec:
     name: str
     full: LMConfig
     smoke: LMConfig
+
+
+WHISPER_LONG_SKIP = ("whisper decoder context is architecturally 448; the "
+                     "encoder is fixed-length — no 500k variant exists")

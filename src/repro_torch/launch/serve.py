@@ -26,10 +26,17 @@ Port of the JAX package's ``launch/serve.py``.  Runs on the card unless
   (granite-moe-3b-a800m) raise ``ValueError``, as the reference's
   ``SplitDecode`` does.
 
-Every registered LM serves static and continuous: qwen1.5-4b,
-recurrentgemma-2b, granite-moe-3b-a800m, qwen3-moe-30b-a3b (at full width
-its bf16 weights take 61.1 GB of the card) and rwkv6-3b (its decode state
-the WKV6 state and the two token shifts).
+Every registered decoder-only LM serves static and continuous:
+qwen1.5-4b, recurrentgemma-2b, granite-moe-3b-a800m, qwen3-moe-30b-a3b (at
+full width its bf16 weights take 61.1 GB of the card) and rwkv6-3b (its
+decode state the WKV6 state and the two token shifts).  The
+encoder-decoder whisper-small serves static only: ``--batch`` segments of
+stub frame embeddings [enc_seq, d_model] f32 (drawn after the prompts from
+the same seed, cast to the compute dtype) go through the encoder; the
+one-pass prefill caches each decoder layer's cross K/V, and
+``--token-loop-prefill`` encodes, fills them (``LM.fill_cross_kv``) and
+then feeds the prompt.  ``--continuous`` and ``--split-cut`` raise
+``ValueError`` on it, as the reference's engine and ``SplitDecode`` do.
 
 PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \
     --size full --batch 4 --prompt-len 512 --gen 32
@@ -57,6 +64,10 @@ PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
     --prefill-chunk-tokens 2048
 PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
     --size smoke --batch 2 --prompt-len 10 --gen 4 --token-loop-prefill
+PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+    --size full --batch 8 --prompt-len 224 --gen 224
+PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+    --size full --batch 8 --prompt-len 224 --gen 224 --token-loop-prefill
 """
 from __future__ import annotations
 
@@ -99,23 +110,28 @@ def prefill_into_cache(model, params, tokens, cache):
     return logits, {"cache": cache, "position": int(tokens.shape[1])}
 
 
-def _static_serve(model, params, prompts, args, cache_len) -> dict:
+def _static_serve(model, params, prompts, args, cache_len,
+                  frames=None) -> dict:
     """Batched convoy serving: one prefill, ``--gen`` decode + sample
     steps.  Emitted tokens [batch, gen]: the prefill's argmax seeds the
     first decode, and each decode's sampled token is emitted after it
-    runs."""
+    runs.  ``frames`` (an encoder-decoder's stub frame embeddings) are
+    encoded in the prefill; the decode steps read the cached cross K/V."""
     dev = model.device
     _sync(dev)
     before = dict(ops.LAUNCHES)
     t0 = time.perf_counter()
     if args.token_loop_prefill:
-        logits, state = prefill_into_cache(
-            model, params, prompts,
-            model.init_cache(prompts.shape[0], cache_len, torch.float32))
+        cache = model.init_cache(prompts.shape[0], cache_len, torch.float32)
+        if frames is not None:
+            model.fill_cross_kv(params, model._encode(params, frames), cache)
+        logits, state = prefill_into_cache(model, params, prompts, cache)
     else:
+        batch = {"tokens": prompts}
+        if frames is not None:
+            batch["frames"] = frames
         logits, state = model.prefill_with_cache(
-            params, {"tokens": prompts}, cache_len=cache_len,
-            cache_dtype=torch.float32)
+            params, batch, cache_len=cache_len, cache_dtype=torch.float32)
     tok = torch.argmax(logits, dim=-1, keepdim=True)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
@@ -368,10 +384,16 @@ def main(argv=None) -> dict:
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)),
         device=device)
+    frames = None
+    if cfg.enc_layers:         # enc-dec: stub frames -> encoder memory
+        frames = torch.as_tensor(rng.standard_normal(
+            (args.batch, cfg.enc_seq, cfg.d_model)).astype(np.float32),
+            device=device).to(model.dtype)
     with torch.inference_mode():
         if args.split_cut:
             return _split_serve(model, params, prompts, args, cache_len)
-        return _static_serve(model, params, prompts, args, cache_len)
+        return _static_serve(model, params, prompts, args, cache_len,
+                             frames)
 
 
 if __name__ == "__main__":

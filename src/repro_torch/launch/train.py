@@ -41,10 +41,14 @@ cell and, for an MoE model, the load-balance aux; ``--metrics-out`` writes
 every step's row as a JSON list.
 
 Which arch trains by which path: the homogeneous stacks (``rwkv6-3b``,
-``qwen1.5-4b``, ``granite-moe-3b-a800m``) by either; the hybrid
+``qwen1.5-4b``, ``granite-moe-3b-a800m`` and the
+encoder-decoder ``whisper-small``) by either; the hybrid
 ``recurrentgemma-2b`` (RG-LRU and local-attention layers) by
 ``--microbatches`` accumulation only, since the pipeline takes a
-homogeneous stack, as the reference asserts.
+homogeneous stack, as the reference asserts.  whisper-small's batches
+carry stub frame embeddings [batch, enc_seq, d_model] f32 from a stream of
+their own (``build_batch_iter``, seed + 2, as the reference draws them);
+its encoder runs once a batch, outside the pipeline's hop.
 
 PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-4b \
     --size full --pipeline-stages 2 --virtual-stages 2 --pipeline-k 4 \
@@ -54,6 +58,9 @@ PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-4b \
     --batch 8 --seq 512 --steps 3 --ckpt-dir ckpts/qwen --ckpt-every 2
 PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \
     --size full --microbatches 2 --batch 4 --seq 4096 --steps 3
+PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \
+    --size full --pipeline-stages 2 --pipeline-k 4 --wire-dtype int8 \
+    --batch 32 --seq 448 --steps 3 --log-every 1
 """
 from __future__ import annotations
 
@@ -63,6 +70,7 @@ import json
 import math
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -116,6 +124,24 @@ def parse_args(argv=None):
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the kernels' plain versions)")
     return ap.parse_args(argv)
+
+
+def build_batch_iter(cfg, batch: int, seq: int, seed: int = 0):
+    """The training batches (the reference's ``build_batch_iter``): the
+    token task's, and for an encoder-decoder stub frames [batch, enc_seq,
+    d_model] f32 drawn from ``default_rng(seed + 2)``, one draw a batch."""
+    gen = token_batches(TokenTaskConfig(vocab=cfg.vocab), batch, seq,
+                        seed=seed)
+    if not cfg.enc_layers:
+        return gen
+    rng = np.random.default_rng(seed + 2)
+
+    def it():
+        for b in gen:
+            b["frames"] = rng.standard_normal(
+                (batch, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+            yield b
+    return it()
 
 
 def _parse_auto_int(value, flag: str):
@@ -423,8 +449,7 @@ def main(argv=None) -> dict:
     else:
         step_fn = make_step(pipeline)
 
-    batches = token_batches(TokenTaskConfig(vocab=cfg.vocab), args.batch,
-                            args.seq, seed=args.seed)
+    batches = build_batch_iter(cfg, args.batch, args.seq, seed=args.seed)
     for _ in range(start):       # the batches the checkpoint trained on
         next(batches)
     cuda = device.type == "cuda"

@@ -1,7 +1,7 @@
 """Per-layer blocks: init, full-sequence apply, prefill and decode.
 
-Port of four kinds of the JAX package's ``models/blocks.py``, each with
-its full-sequence apply, its prefill and its decode:
+Port of the six kinds of the JAX package's ``models/blocks.py``; each but
+``"enc"`` has its full-sequence apply, its prefill and its decode:
   * ``"attn"``  — global causal attention;
   * ``"local"`` — sliding-window causal attention, its decode cache a ring
     buffer of the last ``min(window, cache_len)`` tokens (recurrentgemma);
@@ -9,10 +9,17 @@ its full-sequence apply, its prefill and its decode:
     decode state ``{"h", "conv"}`` in f32;
   * ``"rwkv"``  — RWKV6 time-mix + channel-mix, its decode state the WKV
     state ``"s"`` [B, H, dh, dh] in f32 and the two token shifts
-    ``"shift_t"`` / ``"shift_c"`` [B, D] at the cache dtype.
+    ``"shift_t"`` / ``"shift_c"`` [B, D] at the cache dtype;
+  * ``"xattn"`` — whisper's decoder layer: causal self-attention with
+    RoPE, then ``lnx`` and cross-attention over the encoder memory
+    ``enc_out`` [B, Se, D] (non-causal, no RoPE, no bias: the reference
+    draws ``cross.qb/kb/vb/ob`` and never adds them); its decode state
+    the self K/V cache and the cross K/V ``"ck"`` / ``"cv"``
+    [B, Se, kv, hd], filled at prefill (or by ``LM.fill_cross_kv``);
+  * ``"enc"``   — whisper's encoder layer: non-causal self-attention
+    without RoPE (full sequence only: the encoder is never decoded).
 The second half of an ``"attn"`` or ``"local"`` block of an MoE config is
 the mixture of experts (``models/moe.py``), of the others a dense MLP.
-The other kinds (xattn, enc) are listed in ROADMAP.md.
 
 Parameters keep the reference's layout (``x @ W`` with ``W`` shaped
 ``[d_in, d_out]``, norm weights in f32) so that ``bridge.py`` is a plain
@@ -42,13 +49,15 @@ from repro_torch.models.rwkv import (apply_rwkv_channel, apply_rwkv_time,
 from repro_torch.utils.trees import tree_map
 
 # kinds with a decode state (prefill and decode)
-SERVE_KINDS = ("attn", "local", "rglru", "rwkv")
+SERVE_KINDS = ("attn", "local", "rglru", "rwkv", "xattn")
+# every ported kind: the serving kinds and the encoder's full-sequence one
+BLOCK_KINDS = SERVE_KINDS + ("enc",)
 
 
-def _require(kind: str):
-    if kind not in SERVE_KINDS:
+def _require(kind: str, kinds=BLOCK_KINDS):
+    if kind not in kinds:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (have {SERVE_KINDS})")
+            f"block kind {kind!r} is not ported yet (have {kinds})")
 
 
 # --------------------------------------------------------------------------
@@ -87,7 +96,7 @@ def init_block(generator: torch.Generator, cfg: LMConfig, kind: str, *,
     """One layer's parameters, or ``layers`` of them stacked ``[L, ...]``
     (the reference's scan layout).  Matmul weights are drawn in f32 and
     stored at ``weight_dtype``; norms and biases stay f32."""
-    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+    d, f = cfg.d_model, cfg.d_ff
 
     def norm():
         n = init_norm(d, cfg.norm, device=device)
@@ -109,23 +118,27 @@ def init_block(generator: torch.Generator, cfg: LMConfig, kind: str, *,
                                            device=device, dtype=weight_dtype),
                         layers)
 
+    def attn():
+        hd = cfg.hd
+        a = {"q": dense(d, cfg.n_heads * hd),
+             "k": dense(d, cfg.n_kv * hd),
+             "v": dense(d, cfg.n_kv * hd),
+             "o": dense(cfg.n_heads * hd, d)}
+        if cfg.qkv_bias or cfg.mlp_bias:
+            a["qb"] = _zeros(cfg.n_heads * hd, layers, device)
+            a["kb"] = _zeros(cfg.n_kv * hd, layers, device)
+            a["vb"] = _zeros(cfg.n_kv * hd, layers, device)
+        if cfg.mlp_bias:
+            a["ob"] = _zeros(d, layers, device)
+        return a
+
     p = {"ln1": norm(), "ln2": norm()}
     if kind == "rglru":
         p["rec"] = _stacked(lambda: init_recurrent(
             generator, d, cfg.r_width, cfg.conv_width, device=device,
             weight_dtype=weight_dtype), layers)
     else:
-        attn = {"q": dense(d, cfg.n_heads * hd),
-                "k": dense(d, cfg.n_kv * hd),
-                "v": dense(d, cfg.n_kv * hd),
-                "o": dense(cfg.n_heads * hd, d)}
-        if cfg.qkv_bias or cfg.mlp_bias:
-            attn["qb"] = _zeros(cfg.n_heads * hd, layers, device)
-            attn["kb"] = _zeros(cfg.n_kv * hd, layers, device)
-            attn["vb"] = _zeros(cfg.n_kv * hd, layers, device)
-        if cfg.mlp_bias:
-            attn["ob"] = _zeros(d, layers, device)
-        p["attn"] = attn
+        p["attn"] = attn()
     if cfg.is_moe and kind in ("attn", "local"):
         p["moe"] = _stacked(lambda: init_moe(
             generator, d, f, cfg.moe_experts, device=device,
@@ -138,6 +151,10 @@ def init_block(generator: torch.Generator, cfg: LMConfig, kind: str, *,
         mlp["b1"] = _zeros(f, layers, device)
         mlp["b2"] = _zeros(d, layers, device)
     p["mlp"] = mlp
+    if kind == "xattn":
+        # drawn last, so every other kind draws what it drew before
+        p["lnx"] = norm()
+        p["cross"] = attn()
     return p
 
 
@@ -146,10 +163,12 @@ def init_block_state(cfg: LMConfig, kind: str, batch: int, cache_len: int,
     """Zeroed decode state of one layer (``[L, ...]`` when ``layers`` is
     given): a K/V cache ``[B, cache_len, n_kv, hd]`` ("attn"), a ring of
     ``min(window, cache_len)`` slots ("local"), the recurrent state
-    ``{"h": [B, R], "conv": [B, W-1, R]}`` in f32 ("rglru"), or the WKV
+    ``{"h": [B, R], "conv": [B, W-1, R]}`` in f32 ("rglru"), the WKV
     state ``{"s": [B, H, dh, dh]}`` in f32 with the token shifts
-    ``"shift_t"`` and ``"shift_c"`` [B, D] at ``dtype`` ("rwkv")."""
-    _require(kind)
+    ``"shift_t"`` and ``"shift_c"`` [B, D] at ``dtype`` ("rwkv"), or the
+    K/V cache with the cross K/V ``"ck"`` / ``"cv"`` [B, enc_seq, n_kv,
+    hd] ("xattn")."""
+    _require(kind, SERVE_KINDS)
     lead = () if layers is None else (layers,)
     if kind == "rwkv":
         dh = cfg.rwkv_head_dim
@@ -166,8 +185,13 @@ def init_block_state(cfg: LMConfig, kind: str, batch: int, cache_len: int,
     if kind == "local":
         slots = min(cfg.window, cache_len) or cache_len
     shape = lead + (batch, slots, cfg.n_kv, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    state = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "xattn":
+        cross = lead + (batch, cfg.enc_seq, cfg.n_kv, cfg.hd)
+        state["ck"] = torch.zeros(cross, dtype=dtype, device=device)
+        state["cv"] = torch.zeros(cross, dtype=dtype, device=device)
+    return state
 
 
 # --------------------------------------------------------------------------
@@ -223,6 +247,32 @@ def _attn_out(p, att, x, cfg: LMConfig, dt):
     return x + out
 
 
+def cross_kv(p, enc_out, cfg: LMConfig, dt):
+    """The cross-attention K/V of the encoder memory enc_out [B, Se, D]:
+    two [B, Se, kv, hd] projections, without bias."""
+    b, se, _ = enc_out.shape
+    return ((enc_out @ p["k"].to(dt)).reshape(b, se, cfg.n_kv, cfg.hd),
+            (enc_out @ p["v"].to(dt)).reshape(b, se, cfg.n_kv, cfg.hd))
+
+
+def _cross(p, x, cfg: LMConfig, dt, enc_out=None, state=None):
+    """An "xattn" block's cross-attention with its residual: ``lnx``, q
+    from x [B, S, D], K/V from ``enc_out`` (and written into ``state``'s
+    ``"ck"`` / ``"cv"`` when a state is given), non-causal attention over
+    all Se keys, the output projection.  No bias and no RoPE, as in the
+    reference."""
+    h = apply_norm(x, p["lnx"], cfg.norm)
+    b, s, _ = h.shape
+    c = p["cross"]
+    q = (h @ c["q"].to(dt)).reshape(b, s, cfg.n_heads, cfg.hd)
+    ck, cv = cross_kv(c, enc_out, cfg, dt)
+    if state is not None:
+        state["ck"].copy_(ck)
+        state["cv"].copy_(cv)
+    att = chunked_attention(q, ck, cv, causal=False)
+    return x + att.reshape(b, s, cfg.n_heads * cfg.hd) @ c["o"].to(dt)
+
+
 def _rwkv(p, x, cfg: LMConfig, dt, state=None):
     """An RWKV block: time-mix and channel-mix, each with its residual,
     from ``state``'s token shifts and WKV state (zeros when None).
@@ -265,15 +315,17 @@ def _kv_into_cache(k, v, state, ring: bool = False):
 # apply (full sequence)
 # --------------------------------------------------------------------------
 
-def apply_block(p, x, cfg: LMConfig, kind: str, *, positions=None):
+def apply_block(p, x, cfg: LMConfig, kind: str, *, positions=None,
+                enc_out=None):
     """x: [B, S, D] -> ([B, S, D], aux loss).  The full-sequence forward
-    that training runs; positions are 0..S-1 (RWKV uses none).  An
-    attention or recurrent block is the prefill without a state to fill;
-    its aux loss is the MoE's, or 0."""
-    if positions is None and kind != "rwkv":
+    that training runs; positions are 0..S-1 (RWKV and the encoder use
+    none).  An attention or recurrent block is the prefill without a
+    state to fill; its aux loss is the MoE's, or 0.  An "xattn" block
+    attends to the encoder memory ``enc_out`` [B, Se, D]."""
+    if positions is None and kind not in ("rwkv", "enc"):
         positions = torch.arange(x.shape[1], device=x.device)
     x, aux = apply_block_prefill(p, x, cfg, kind, positions=positions,
-                                 state=None)
+                                 state=None, enc_out=enc_out)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
@@ -283,11 +335,14 @@ def apply_block(p, x, cfg: LMConfig, kind: str, *, positions=None):
 # prefill: full-sequence forward that also fills the decode state
 # --------------------------------------------------------------------------
 
-def apply_block_prefill(p, x, cfg: LMConfig, kind: str, *, positions, state):
+def apply_block_prefill(p, x, cfg: LMConfig, kind: str, *, positions, state,
+                        enc_out=None):
     """x: [B, S, D] -> ([B, S, D], the MoE's aux loss or None); fills
     ``state`` (this layer's decode state) in place, unless it is None.
-    An RWKV block takes no positions: it is causal by its recurrence."""
-    _require(kind)
+    An RWKV block takes no positions: it is causal by its recurrence.  An
+    "enc" block is non-causal and takes no RoPE (and no state); an
+    "xattn" block also fills the cross K/V of ``enc_out``."""
+    _require(kind, SERVE_KINDS if state is not None else BLOCK_KINDS)
     dt = x.dtype
     if kind == "rwkv":
         x, new = _rwkv(p, x, cfg, dt)
@@ -303,13 +358,16 @@ def apply_block_prefill(p, x, cfg: LMConfig, kind: str, *, positions, state):
                 state[name].copy_(st[name])
         return _ffn(p, x + out, cfg, dt)
     q, k, v = _proj_qkv(p["attn"], h, cfg, dt)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if kind != "enc":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     window = cfg.window if kind == "local" else 0
-    att = chunked_attention(q, k, v, causal=True, window=window)
+    att = chunked_attention(q, k, v, causal=kind != "enc", window=window)
     if state is not None:
         _kv_into_cache(k, v, state, ring=kind == "local")
     x = _attn_out(p["attn"], att, x, cfg, dt)
+    if kind == "xattn":
+        x = _cross(p, x, cfg, dt, enc_out, state)
     return _ffn(p, x, cfg, dt)
 
 
@@ -326,11 +384,14 @@ def _lanes(mask, new, old):
 
 
 def apply_block_decode(p, x, state, cfg: LMConfig, kind: str, *,
-                       position, active=None):
+                       position, active=None, enc_out=None):
     """x: [B, 1, D] -> [B, 1, D]; updates ``state`` in place: this token's
-    K/V at ``position`` ("attn") or at its ring slot ``position % C``
-    ("local"), or the recurrent state ("rglru", and "rwkv", which reads
-    no position: its WKV state and token shifts carry the past).
+    K/V at ``position`` ("attn", "xattn") or at its ring slot
+    ``position % C`` ("local"), or the recurrent state ("rglru", and
+    "rwkv", which reads no position: its WKV state and token shifts carry
+    the past).  An "xattn" block then attends to the cross K/V of its
+    state, cast to the compute dtype, or, where the state holds none, to
+    those of ``enc_out`` computed anew (the reference's two branches).
 
     ``position`` is an ``int`` for the whole batch (the static path), or
     an int64 tensor [B] with one position per row: each row is then one
@@ -341,7 +402,7 @@ def apply_block_decode(p, x, state, cfg: LMConfig, kind: str, *,
     the inactive lanes inert: the rows they would write keep their old
     values bit for bit.  An inactive lane's position may be
     ``cache_len`` (a finished request), so its write index is clamped."""
-    _require(kind)
+    _require(kind, SERVE_KINDS)
     lanes = torch.is_tensor(position)
     if active is not None and not lanes:
         raise ValueError("active lanes need a tensor of positions")
@@ -383,4 +444,21 @@ def apply_block_decode(p, x, state, cfg: LMConfig, kind: str, *,
                                       cache[rows, idx])
     att = decode_attention(q, state["k"], state["v"], position=last)
     x = _attn_out(p["attn"], att, x, cfg, dt)
+    if kind == "xattn":
+        x = _cross_decode(p, x, state, cfg, dt, enc_out)
     return _ffn(p, x, cfg, dt, dropless=lanes)[0]
+
+
+def _cross_decode(p, x, state, cfg: LMConfig, dt, enc_out=None):
+    """One token's cross-attention with its residual, over all Se cached
+    (or recomputed) keys."""
+    h = apply_norm(x, p["lnx"], cfg.norm)
+    b = h.shape[0]
+    c = p["cross"]
+    q = (h @ c["q"].to(dt)).reshape(b, 1, cfg.n_heads, cfg.hd)
+    if "ck" in state:
+        ck, cv = state["ck"].to(dt), state["cv"].to(dt)
+    else:
+        ck, cv = cross_kv(c, enc_out, cfg, dt)
+    att = decode_attention(q, ck, cv, position=ck.shape[1] - 1)
+    return x + att.reshape(b, 1, cfg.n_heads * cfg.hd) @ c["o"].to(dt)

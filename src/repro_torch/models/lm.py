@@ -6,7 +6,11 @@ Port of the JAX package's ``models/lm.py`` for
   * MoE stacks of ``"attn"`` layers, tied or untied (granite-moe,
     qwen3-moe: forward with the aux loss, prefill with cache, decode);
   * hybrid stacks (recurrentgemma: ``"rglru"`` and ``"local"`` layers,
-    tied embeddings; forward, prefill with cache, decode).
+    tied embeddings; forward, prefill with cache, decode);
+  * the encoder-decoder (whisper: stub frame embeddings + sinusoids
+    through a stack of ``"enc"`` blocks and ``enc_norm``, ``_encode``; a
+    homogeneous decoder of ``"xattn"`` blocks that attend to its output;
+    untied head; forward, prefill with cache, ``fill_cross_kv``, decode).
 Parameters are a tree of nested dicts in the reference's layout: block
 weights stacked ``[L, ...]`` for a homogeneous stack, a tuple of
 per-layer trees for a heterogeneous one (and the decode cache likewise).
@@ -31,7 +35,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.blocks import (SERVE_KINDS, apply_block,
+from repro_torch.models.blocks import (SERVE_KINDS, cross_kv, apply_block,
                                        apply_block_decode,
                                        apply_block_prefill, init_block,
                                        init_block_state)
@@ -74,26 +78,41 @@ def _kinds(cfg: LMConfig, blocks) -> tuple:
     return (cfg.layer_kinds[0],) * tree_leaves(blocks)[0].shape[0]
 
 
-def prefill_blocks(cfg: LMConfig, blocks, x, cache):
+def _sin_pos(seq: int, d: int, offset: int = 0, *, device=None):
+    """Sinusoidal positions [seq, d] f32: sin then cos of ``pos * freq``,
+    ``freq = 10000^(-i / max(d/2 - 1, 1))`` (the reference's ``_sin_pos``,
+    whose divisor is d/2 - 1, not d/2)."""
+    pos = torch.arange(seq, device=device, dtype=torch.float32) + offset
+    half = d // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, device=device, dtype=torch.float32) / max(half - 1, 1))
+    ang = pos[:, None] * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def prefill_blocks(cfg: LMConfig, blocks, x, cache, enc_out=None):
     """Run a block tree over x [B, S, D] (positions 0..S-1), filling
-    ``cache`` (one decode state per layer, ``init_cache``) in place."""
+    ``cache`` (one decode state per layer, ``init_cache``) in place; an
+    "xattn" layer attends to (and caches the K/V of) ``enc_out``."""
     positions = torch.arange(x.shape[1], device=x.device)
     for p, st, kind in zip(layers_of(blocks), layers_of(cache),
                            _kinds(cfg, blocks), strict=True):
         x, _ = apply_block_prefill(p, x, cfg, kind, positions=positions,
-                                   state=st)        # serving drops the aux
-    return x
+                                   state=st, enc_out=enc_out)
+    return x                                         # serving drops the aux
 
 
-def decode_blocks(cfg: LMConfig, blocks, x, cache, position, active=None):
+def decode_blocks(cfg: LMConfig, blocks, x, cache, position, active=None,
+                  enc_out=None):
     """One token x [B, 1, D] through a block tree; updates each layer's
     decode state in ``cache`` in place.  ``position``: an ``int``, or an
     int64 tensor [B] of per-lane positions with ``active`` lanes
-    (``apply_block_decode``)."""
+    (``apply_block_decode``); ``enc_out`` is read only by an "xattn"
+    layer whose state holds no cross K/V."""
     for p, st, kind in zip(layers_of(blocks), layers_of(cache),
                            _kinds(cfg, blocks), strict=True):
         x = apply_block_decode(p, x, st, cfg, kind, position=position,
-                               active=active)
+                               active=active, enc_out=enc_out)
     return x
 
 
@@ -142,39 +161,52 @@ def unstack(blocks, dt) -> list:
             for i in range(len(parts[0]))]
 
 
-def run_blocks(cfg: LMConfig, layers: list, x, kinds: tuple | None = None):
+def run_blocks(cfg: LMConfig, layers: list, x, kinds: tuple | None = None,
+               enc_out=None):
     """Per-layer block trees (``unstack``) of ``kinds`` (default: all of
     the stack's one kind) over x [B, S, D] (positions 0..S-1), one
-    activation checkpoint per block when autograd records.
-    -> (x, summed aux loss)."""
+    activation checkpoint per block when autograd records; the encoder
+    memory ``enc_out`` (for "xattn" layers) enters each checkpoint as an
+    argument.  -> (x, summed aux loss)."""
     kinds = kinds or (cfg.layer_kinds[0],) * len(layers)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(layers, kinds, strict=True):
-        fn = lambda h, p=p, kind=kind: apply_block(p, h, cfg, kind,
-                                                   positions=positions)
+        fn = lambda h, e, p=p, kind=kind: apply_block(  # noqa: E731
+            p, h, cfg, kind, positions=positions, enc_out=e)
         if torch.is_grad_enabled():
-            x, a = checkpoint(fn, x, use_reentrant=False)
+            x, a = checkpoint(fn, x, enc_out, use_reentrant=False)
         else:
-            x, a = fn(x)
+            x, a = fn(x, enc_out)
         aux = aux + a
     return x, aux
 
 
 class LM:
-    """Decoder-only LM over a homogeneous stack of attention or RWKV
-    blocks with an untied head, a stack of MoE attention blocks, or a
-    hybrid stack of recurrent and local attention blocks (MoE and hybrid
-    stacks tied or untied)."""
+    """LM over a homogeneous stack of attention or RWKV blocks with an
+    untied head, a stack of MoE attention blocks, a hybrid stack of
+    recurrent and local attention blocks (MoE and hybrid stacks tied or
+    untied), or an encoder-decoder: a homogeneous "xattn" decoder over
+    an "enc" encoder, untied (the "audio" family)."""
 
     def __init__(self, cfg: LMConfig, device):
-        if cfg.family == "hybrid":
-            bad = sorted(set(cfg.layer_kinds) - set(SERVE_KINDS))
-            if bad or cfg.is_moe or cfg.enc_layers:
+        if "xattn" in cfg.layer_kinds or cfg.enc_layers \
+                or cfg.family == "audio":
+            if not (cfg.family == "audio" and cfg.enc_layers
+                    and set(cfg.layer_kinds) == {"xattn"}
+                    and not cfg.tie_embeddings):
                 raise NotImplementedError(
-                    f"{cfg.name}: hybrid stacks of {SERVE_KINDS} with a "
-                    f"dense MLP are ported; not {bad or 'MoE / encoders'}")
-        elif not cfg.homogeneous or cfg.enc_layers \
+                    f"{cfg.name}: 'xattn' blocks are ported as a "
+                    "homogeneous audio decoder over an encoder "
+                    "(enc_layers) with an untied head only")
+        elif cfg.family == "hybrid":
+            kinds = tuple(k for k in SERVE_KINDS if k != "xattn")
+            bad = sorted(set(cfg.layer_kinds) - set(kinds))
+            if bad or cfg.is_moe:
+                raise NotImplementedError(
+                    f"{cfg.name}: hybrid stacks of {kinds} with a dense "
+                    f"MLP are ported; not {bad or 'MoE'}")
+        elif not cfg.homogeneous \
                 or cfg.family not in ("dense", "ssm", "moe") \
                 or (cfg.tie_embeddings and cfg.family != "moe"):
             raise NotImplementedError(
@@ -213,6 +245,10 @@ class LM:
         }
         if not cfg.tie_embeddings:
             params["head"] = normal((cfg.d_model, cfg.padded_vocab), 0.02)
+        if cfg.enc_layers:
+            params["enc_blocks"] = init_block(generator, cfg, "enc",
+                                              layers=cfg.enc_layers, **kw)
+            params["enc_norm"] = init_norm(cfg.d_model, cfg.norm, device=dev)
         return params
 
     # ---------------- pieces ----------------
@@ -228,9 +264,28 @@ class LM:
             return params["embed"].to(dt).t()
         return params["head"].to(dt)
 
-    def _run_blocks(self, params, x):
+    def _run_blocks(self, params, x, enc_out=None):
         return run_blocks(self.cfg, unstack(params["blocks"], x.dtype), x,
-                          _kinds(self.cfg, params["blocks"]))
+                          _kinds(self.cfg, params["blocks"]), enc_out)
+
+    def _encode(self, params, frames):
+        """The encoder on stub frame embeddings [B, T, D] (in the compute
+        dtype): the sinusoids added, the "enc" stack (one activation
+        checkpoint per block when autograd records), ``enc_norm``."""
+        cfg = self.cfg
+        dt, t = frames.dtype, frames.shape[1]
+        pos = _sin_pos(t, cfg.d_model, device=frames.device)
+        x = frames + pos.to(dt)[None]
+        layers = unstack(params["enc_blocks"], dt)
+        x, _ = run_blocks(cfg, layers, x, ("enc",) * len(layers))
+        return apply_norm(x, params["enc_norm"], cfg.norm)
+
+    def _encoder_memory(self, params, batch):
+        """``_encode`` of the batch's frames for an encoder-decoder, else
+        None."""
+        if not self.cfg.enc_layers:
+            return None
+        return self._encode(params, batch["frames"].to(self.dtype))
 
     # ---------------- training ----------------
 
@@ -271,7 +326,8 @@ class LM:
         """Training forward.  Returns (loss, metrics); with no labels,
         (final hidden states, {"aux": ...})."""
         x = self._embed(params, batch["tokens"], self.dtype)
-        x, aux = self._run_blocks(params, x)
+        x, aux = self._run_blocks(params, x,
+                                  self._encoder_memory(params, batch))
         x = apply_norm(x, params["final_norm"], self.cfg.norm)
         labels = batch.get("labels")
         if labels is None:
@@ -314,22 +370,41 @@ class LM:
         """One full-sequence forward that also fills the decode cache.
 
         Returns (last-position logits [B, V] f32, serve_state) with
-        ``serve_state = {"cache": ..., "position": S}``.
+        ``serve_state = {"cache": ..., "position": S}``.  The audio family
+        encodes ``batch["frames"]`` first; each "xattn" layer caches the
+        cross K/V of the encoder memory.
         """
         tokens = batch["tokens"]
+        enc_out = self._encoder_memory(params, batch)
         x = self._embed(params, tokens, self.dtype)
         cache = self.init_cache(x.shape[0], cache_len, cache_dtype)
-        x = prefill_blocks(self.cfg, params["blocks"], x, cache)
+        x = prefill_blocks(self.cfg, params["blocks"], x, cache, enc_out)
         return self.logits(params, x), {"cache": cache,
                                         "position": int(x.shape[1])}
 
-    def decode_step(self, params, tokens, cache, position, active=None):
+    def fill_cross_kv(self, params, enc_out, cache):
+        """Write each "xattn" layer's cross K/V of the encoder memory
+        ``enc_out`` [B, Se, D] into ``cache`` (``init_cache``), in place,
+        at the cache dtype; returns ``cache``.  Done once before a
+        token-by-token prefill: the decode steps then read them."""
+        dt = enc_out.dtype
+        for p, st in zip(layers_of(params["blocks"]), layers_of(cache),
+                         strict=True):
+            ck, cv = cross_kv(p["cross"], enc_out, self.cfg, dt)
+            st["ck"].copy_(ck)
+            st["cv"].copy_(cv)
+        return cache
+
+    def decode_step(self, params, tokens, cache, position, active=None,
+                    enc_out=None):
         """One serving step: tokens [B, 1] -> (logits [B, V] f32, cache).
         ``cache`` is updated in place and returned.  ``position`` is an
         ``int`` for the batch, or an int64 tensor [B] of per-lane
         positions, with ``active`` [B] bool marking the lanes whose state
-        the step may change (the serving engine's slots)."""
+        the step may change (the serving engine's slots).  ``enc_out``
+        serves an "xattn" cache without cross K/V (they are then
+        recomputed each step, the reference's other branch)."""
         x = self._embed(params, tokens, self.dtype)
         x = decode_blocks(self.cfg, params["blocks"], x, cache, position,
-                          active)
+                          active, enc_out)
         return self.logits(params, x), cache

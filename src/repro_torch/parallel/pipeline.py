@@ -25,6 +25,12 @@ buffer (``wire_ef_zeros``), the receiving stage's slot at that tick, as
 the reference's backward rule runs on the receiving device.  The other
 slots see no gradient and stay zero.  ``PipelineSpec.auto_k`` picks k by
 the paper's Lemma 1.
+
+An encoder-decoder (the audio family) runs its encoder once over the whole
+batch, pads the memory with the zero rows that pad ``x`` and hands
+micro-batch m's memory to every chunk's "xattn" layers, as the reference
+hands it to every stage outside the hop: the hop, its codec and its
+bytes carry the cut activation ``h`` alone.
 """
 from __future__ import annotations
 
@@ -177,11 +183,17 @@ def make_pipelined_loss(model, spec: PipelineSpec):
 
     def _loss(params, batch, wire_ef):
         x = model._embed(params, batch["tokens"], model.dtype)
+        enc = model._encoder_memory(params, batch)
         b, seq, d = x.shape
         pad_rows = (-b) % k
         if pad_rows:
             x = torch.cat([x, x.new_zeros((pad_rows, seq, d))])
+            if enc is not None:
+                enc = torch.cat([enc, enc.new_zeros((pad_rows,)
+                                                    + enc.shape[1:])])
         xs = x.reshape(k, (b + pad_rows) // k, seq, d)
+        encs = None if enc is None else enc.reshape(
+            (k, xs.shape[1]) + enc.shape[1:])
         if needs_ef:
             want = (n_stages, wire_ef_ticks(spec)) + tuple(xs.shape[1:])
             if wire_ef is None or tuple(wire_ef.shape) != want:
@@ -201,7 +213,8 @@ def make_pipelined_loss(model, spec: PipelineSpec):
                     ef = wire_ef[c % n_stages, t0 + c - 1] if needs_ef \
                         else None
                     h = wire.coded_hop(h, spec.wire_dtype, meter, ef)
-                h, a = run_blocks(cfg, chunk, h)
+                h, a = run_blocks(cfg, chunk, h, enc_out=None
+                                  if encs is None else encs[m])
                 aux = aux + a
             outs.append(h)
         h = torch.cat(outs)[:b]

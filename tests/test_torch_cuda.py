@@ -80,6 +80,56 @@ def test_flash_kernel_matches_plain(case, dt, tol):
     assert float((o.float() - op.float()).abs().max()) <= tol
 
 
+# whisper-small's calls (12 heads of 64): the encoder non-causal over its
+# 1500 frames, the cross-attention of 224 or 448 decoder rows on 1500 keys
+# (23 full tiles of 64 and a ragged 28), and a small ragged Skv
+FLASH_XATTN_CASES = [  # (b, h, sq, skv, causal)
+    (1, 12, 1500, 1500, False),
+    (2, 12, 224, 1500, False),
+    (1, 12, 448, 1500, False),
+    (1, 4, 100, 300, False),
+    (2, 12, 224, 224, True),
+]
+
+# the forward element by element: |o - p| <= atol + rtol P|V|, P the plain
+# softmax.  The tensor-core route rounds P to bf16 before P V and o to
+# bf16, together under 2^-8 P|V|; |o| itself cancels (~0.04 over 1500
+# keys), so a gate on |o| would fail a right kernel's causal rows
+FLASH_FWD_ELEM = {"float32": (2e-5, 1e-4), "bfloat16": (1e-3, 2 ** -7)}
+
+
+@pytest.mark.parametrize("case", FLASH_XATTN_CASES, ids=str)
+@pytest.mark.parametrize("dt,tol", [("float32", 2e-4), ("bfloat16", 5e-2)])
+def test_flash_kernel_at_whisper_calls(case, dt, tol):
+    """Model-layout [B, S, H, 64] views, Sq != Skv where the cross path
+    calls, bf16 on "mma" and f32 on "simt": within ``tol`` absolute of the
+    plain version, and, with and without lse, within ``FLASH_FWD_ELEM``
+    element by element of the plain version in f32 (over 1500 keys |o| is
+    ~0.04, under the absolute bf16 gate); the lse within 1e-4."""
+    dev = cuda_device()
+    b, h, sq, skv, causal = case
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((b, s, h, 64), generator=g, device=dev).to(
+        TORCH_DT[dt]).transpose(1, 2) for s in (sq, skv, skv))
+    fa.ROUTES.clear()
+    out = fa.flash_attention_cuda(q, k, v, causal=causal)
+    assert dict(fa.ROUTES) == {"mma" if dt == "bfloat16" else "simt": 1}
+    want = fa.attention_plain(q, k, v, causal=causal)
+    assert out.shape == q.shape and out.stride() == q.stride()
+    assert float((out.float() - want.float()).abs().max()) <= tol
+    out2, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                        with_lse=True)
+    f32 = [t.float() for t in (q, k, v)]
+    want32, lse_p = fa.attention_plain_lse(*f32, causal=causal)
+    mag = fa.attention_plain(f32[0], f32[1], f32[2].abs(), causal=causal)
+    atol, rtol = FLASH_FWD_ELEM[dt]
+    for got in (out, out2):
+        err = (got.float() - want32).abs()
+        assert bool((err <= atol + rtol * mag).all()), float(err.max())
+    assert float((lse - lse_p).abs().max()) <= 1e-4
+
+
+
 def test_flash_kernel_reads_the_model_layout():
     """[B, S, H, dh] activations pass as transposed views; the output
     keeps that layout, so the model reshapes it without a copy."""
@@ -332,6 +382,9 @@ FLASH_BWD_CASES = [  # (b, hq, hkv, sq, skv, dh, causal, window, bshd)
     (1, 2, 2, 90, 90, 128, False, 0, False),
     (1, 2, 1, 96, 96, 64, False, 32, True),       # bidirectional window
     (1, 1, 1, 256, 128, 64, True, 16, False),     # rows 143-255: no key
+    (1, 4, 4, 100, 300, 64, False, 0, True),      # Sq < Skv, ragged Skv
+    (1, 12, 12, 448, 1500, 64, False, 0, True),   # whisper's cross call
+    (1, 12, 12, 1500, 1500, 64, False, 0, True),  # whisper's encoder
 ]
 
 
@@ -542,6 +595,9 @@ def _small_training_step_on_card_and_cpu(arch, wire_dtype, **step_kw):
     gen = torch.Generator().manual_seed(2)
     batch = {n: torch.randint(0, cfg.vocab, (4, 40), generator=gen)
              for n in ("tokens", "labels")}
+    if cfg.enc_layers:
+        batch["frames"] = torch.randn((4, cfg.enc_seq, cfg.d_model),
+                                      generator=gen)
     out = {}
     for where in ("cpu", dev):
         opt = sgd(0.1, momentum=0.9)
@@ -595,6 +651,19 @@ def test_small_granite_training_step_on_card_matches_cpu():
     assert launches == {"flash_attention": 8, "flash_attention_bwd": 4,
                         "moe_gmm": 24, "moe_gmm_bwd": 12,
                         "wire_encode": 4, "wire_decode": 4}
+
+
+@pytest.mark.parametrize("wire_dtype", ["none", "int8"])
+def test_small_whisper_training_step_on_card_matches_cpu(wire_dtype):
+    """The f32 smoke whisper (2 encoder and 2 decoder layers), S = 2, k =
+    2: the encoder once over the batch (2 flash a layer under its
+    checkpoint, 1 backward), each decoder layer's self- and
+    cross-attention per micro-batch (4 flash, 2 backwards); the hop
+    carries h alone."""
+    launches = _small_training_step_on_card_and_cpu("whisper-small",
+                                                    wire_dtype)
+    assert launches["flash_attention"] == 2 * 2 + 2 * 2 * 2 * 2
+    assert launches["flash_attention_bwd"] == 2 + 2 * 2 * 2
 
 
 def test_small_hybrid_training_step_on_card_matches_cpu():

@@ -185,22 +185,33 @@ def test_token_loop_prefill_matches_chunked_prefill(arch, monkeypatch):
     from both states, within the reference test's 3e-3.  An MoE's
     one-pass prefill runs dropless here: its capacity drops assignments
     that the loop, one token a step, never drops (ROADMAP Queue 3, fault
-    18; ``test_moe_prefill_drops_what_the_token_loop_keeps``)."""
+    18; ``test_moe_prefill_drops_what_the_token_loop_keeps``).  The
+    encoder-decoder's prompts come with frames: the one-pass prefill
+    encodes them, the loop starts from ``fill_cross_kv`` of their
+    encoding, as the serve CLI's two paths do."""
     cfg = get_arch(arch).smoke
     model = LM(cfg, "cpu")
     params = model.init(torch.Generator().manual_seed(3))
-    toks = torch.from_numpy(np.random.default_rng(7).integers(
-        0, cfg.vocab, (2, S))).long()
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, S))).long()
+    batch = {"tokens": toks}
+    if cfg.enc_layers:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
     cache_len = S + G
     with torch.inference_mode():
         if cfg.is_moe:
             orig = _dropless_prefill(monkeypatch)
-        la, sa = model.prefill_with_cache(params, {"tokens": toks},
-                                          cache_len, torch.float32)
+        la, sa = model.prefill_with_cache(params, batch, cache_len,
+                                          torch.float32)
         if cfg.is_moe:
             monkeypatch.setattr(blocks, "apply_moe", orig)
-        lb, sb = prefill_into_cache(model, params, toks, model.init_cache(
-            2, cache_len, torch.float32))
+        cache = model.init_cache(2, cache_len, torch.float32)
+        if cfg.enc_layers:
+            model.fill_cross_kv(params, model._encode(params,
+                                                      batch["frames"]),
+                                cache)
+        lb, sb = prefill_into_cache(model, params, toks, cache)
         assert sa["position"] == sb["position"] == S
         np.testing.assert_allclose(la.numpy(), lb.numpy(), rtol=3e-3,
                                    atol=3e-3)
