@@ -70,14 +70,24 @@ Phases (any failure exits non-zero; nothing is caught):
      "mma" and f32 on "simt", within FLASH_TOL, the element gate and an
      lse within 1e-4; the backward at [8, 12, 448, 64] on
      [8, 12, 1500, 64] and [32, 12, 1500, 64] non-causal bf16, and
-     [1, 4, 100, 64] on [1, 4, 300, 64] f32).  Small f32 models on the
-     card are held to the same
-     models on the CPU: a qwen prefill, a recurrentgemma prefill of a
+     [1, 4, 100, 64] on [1, 4, 300, 64] f32); flash under paligemma-3b's
+     prefix-LM mask both ways (check_flash_prefix: the training call
+     [2, 8, 768, 256] and the patch prefill [4, 8, 384, 256] on one kv
+     head with prefix 256, a prefix of 200 splitting a key tile, prefixes
+     at and past Sq that give the non-causal call's bits, bf16 on "mma",
+     f32 on "simt" at dh 16 and 256; the forward within FLASH_TOL, on P|V|
+     within FLASH_FWD_ELEM and its lse within 1e-4, the backward within
+     FLASH_TOL and FLASH_BWD_ELEM, twice bit for bit).  Small f32 models
+     on the card are held to the same
+     models on the CPU: a qwen prefill, the paligemma SMOKE forward
+     loss, every gradient and the patch prefill (8 patches + 40 tokens),
+     a recurrentgemma prefill of a
      12-token prompt (window 8: the ring wraps) and 8 decode steps, a
      granite-moe prefill and 8 decode steps (the router's top-k expert ids
      compared first), qwen3-moe split at cut 1 ('none' tokens equal the
      static tokens, measured bytes equal billed bytes), and one pipelined
-     training step each of an RWKV, a qwen and a granite-moe model (loss
+     training step each of an RWKV, a qwen, a granite-moe and a
+     paligemma model (int8 hop; loss
      and updated parameters; the qwen step through the flash backward
      kernel, granite's through the grouped matmul's backward too) and
      one accumulated (k 2) step of a recurrentgemma model (the RG-LRU
@@ -196,10 +206,12 @@ Phases (any failure exits non-zero; nothing is caught):
         tokens);
      m. "qwen1.5-4b checkpoint, resume and replan" (after j, the earlier
         phases' state freed), through the training CLI, in ckpts/chip_smoke
-        of the checkout (deleted at the end): (a) the int8 k 4 run of 3
-        steps checkpoints at step 2 (exactly one checkpoint on disk, its
-        bytes against the 47.4 GB of f32 weights and AdamW's m and v, by
-        the count), then the same flags resume there and train step 3:
+        of the checkout (deleted at the end): (a) at qwen1.5-4b's widths
+        with its depth cut to CK_LAYERS = 8 of 40 (``depth_cut``), the int8
+        k 4 run of 3 steps checkpoints at step 2 (exactly one checkpoint on
+        disk, its bytes against the 16.9 GB of f32 weights and AdamW's m
+        and v, by the count), then the same flags resume there and train
+        step 3:
         its loss equal to the uninterrupted run's bit for bit, and every
         leaf's checksum of the final f32 master weights; the disk, save
         and restore seconds and the peak host RSS printed; (b) 8 steps at
@@ -278,6 +290,23 @@ Phases (any failure exits non-zero; nothing is caught):
         324 flash launches on "mma" (by shape: the encoder once a step
         over the batch) and 24 + 24 codec calls at [3584, 768]; one more
         step traced, and one prefill and four decode steps traced;
+     q. paligemma-3b, the prefix-LM, at full width (after p; 18 "attn"
+        layers of d 2048, 8 q heads on 1 kv head of 256, d_ff 16384
+        gated GELU, vocab 257216 tied, 256 stub patches; 2.51 B
+        parameters): static serving through the serving CLI at batch 4,
+        prompt 128, 32 tokens, which takes the token loop without patches
+        as the reference's does (no kernel launched), --continuous and
+        --split-cut refused with ValueError; the patch prefill through
+        LM.prefill_with_cache (4 x (256 patches + 128 tokens), cache 416)
+        and 32 greedy steps: exactly 18 flash launches, all on "mma" at
+        [4, 8, 384, 256] with the prefix 256, none in decode; then C2P2SL
+        training through the training CLI (f32 master weights, AdamW, 8 x
+        512 tokens with 256 patches each, S 2 cut at 9, k 4, int8, 3
+        steps): finite losses, every parameter moved, hop bytes
+        12,779,520 each way a step (the bills at 768 rows a sequence),
+        exactly 432 / 216 flash launches on "mma" with the prefix and 24 +
+        24 codec calls at [1536, 2048]; one more step traced, and the
+        patch prefill and four decode steps traced;
   5. timings: torch.profiler traces of one prefill and four decode steps
      of qwen, one prefill and one decode step each of recurrentgemma and
      granite-moe, and one training step of each of rwkv6-3b and qwen1.5-4b
@@ -310,7 +339,11 @@ Phases (any failure exits non-zero; nothing is caught):
      spills; flash at whisper-small's calls (time_whisper: the forward at
      its encoder, cross- and self-attention serving calls, the backward
      at its training cross-attention and encoder calls, with SDPA's time
-     and the factor of each call slower than it).
+     and the factor of each call slower than it); flash at paligemma's
+     prefix calls (time_paligemma, between CUDA events: the forward with
+     lse at the training call and without at the patch prefill, the
+     backward at the training call, SDPA with the prefix as a boolean mask
+     their yardstick).
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -387,8 +420,14 @@ RP_FLASH = {"flash_attention": 2 * Q_LAYERS * T_K,
 # a step's codec calls: int8 codes both hops, the top-k hop codes only
 # the forward one (its gradient hop launches no codec kernel)
 RP_CODEC = {"int8": 2 * T_K, TK_WIRE: T_K}
-# the state a checkpoint holds: f32 master weights, AdamW's m and v, step
-CKPT_STATE_GB = 47.4
+# part (a) runs qwen1.5-4b's widths with the depth cut to CK_LAYERS of its
+# 40 layers (the CLI has no depth flag: ``depth_cut`` swaps the registry's
+# FULL config while the run lasts), to keep the script inside its time
+# limit: the state a checkpoint holds (f32 master weights, AdamW's m and v,
+# the step) is then 16.9 GB, not 47.4.  Part (b) keeps the 40 layers: at 8
+# the planner picks k 2 and switches at step 1, not RP_PLAN and RP_SWITCH
+CK_LAYERS = 8
+CKPT_STATE_GB = 16.9
 # the compressed run (--compress-grads): qwen1.5-4b's widths, its depth cut
 # to 20 layers, since the f32 error-feedback tree adds 4 B a parameter
 # (15.8 GB at 40 layers on a 74.60 GB step); the same spec, batch, steps
@@ -561,6 +600,35 @@ WH_FLASH = {"enc": (WH_BATCH, WH_HEADS, WH_FRAMES, WH_FRAMES, 64, False),
 WH_FLASH_BWD = {"cross": (WH_MB, WH_HEADS, WH_T_SEQ, WH_FRAMES, 64, False),
                 "enc": (WH_T_BATCH, WH_HEADS, WH_FRAMES, WH_FRAMES, 64,
                         False)}
+# paligemma-3b, the prefix-LM (18 "attn" layers of d 2048, 8 q heads on 1
+# kv head of 256, d_ff 16384 gated GELU, vocab 257216 tied, 256 stub
+# patches before the tokens, attended bidirectionally; 2.51 B parameters
+# drawn): static serving through the CLI at batch 4, prompt PG_PROMPT,
+# PG_GEN tokens, which takes the token loop without patches as the
+# reference's CLI does (no flash launch: decode attention is plain); the
+# patch prefill through LM.prefill_with_cache, 256 patches + PG_PROMPT
+# tokens (S 384, cache PG_CACHE), one flash a layer with the prefix, then
+# PG_GEN greedy steps; C2P2SL training at T_BATCH x T_SEQ tokens + 256
+# patches (768 rows a sequence on every hop), S 2 cut at 9, k 4, int8, 3
+# steps: each block's flash forward twice a micro-batch (its checkpoint)
+# and its backward once.  A step's hop bytes: 4 micro-batch hops of 2 x
+# 768 rows of 2048 int8 and 12,288 f32 scales, each way
+PG_ARCH, PG_LAYERS, PG_PATCHES = "paligemma-3b", 18, 256
+PG_PROMPT, PG_GEN = 128, 32
+PG_CACHE = PG_PATCHES + PG_PROMPT + PG_GEN      # 416
+PG_T_CUT, PG_T_ROWS = 9, T_SEQ + PG_PATCHES     # 768 rows a sequence
+PG_PREFILL = {"flash_attention": PG_LAYERS}
+PG_T_LAUNCHES = {"flash_attention": 2 * PG_LAYERS * T_K * T_STEPS,
+                 "flash_attention_bwd": PG_LAYERS * T_K * T_STEPS,
+                 "wire_encode": 2 * T_K * T_STEPS,
+                 "wire_decode": 2 * T_K * T_STEPS}
+PG_HOP_BYTES = T_K * (T_BATCH // T_K * PG_T_ROWS * 2048
+                      + T_BATCH // T_K * PG_T_ROWS * 2048 // 256 * 4)
+# the flash calls of the path (B, Hq, Hkv, S, dh, prefix): training's (a
+# micro-batch) and the patch prefill's
+PG_FLASH = {"train": (T_BATCH // T_K, 8, 1, PG_T_ROWS, 256, PG_PATCHES),
+            "prefill": (BATCH, 8, 1, PG_PATCHES + PG_PROMPT, 256,
+                        PG_PATCHES)}
 
 
 def fail(msg: str):
@@ -1266,6 +1334,62 @@ def check_small_model(torch, dev):
     print(f"small f32 model, card vs CPU prefill logits: max err {err:.3e}")
 
 
+def check_small_paligemma(torch, ops, dev):
+    """paligemma-3b SMOKE in f32 (2 layers, d 64, 4 q heads on 1 kv head
+    of 16, 8 patches) on the card against the CPU: the training forward's
+    loss and every parameter's gradient with 8 patches before 40 tokens
+    (the card's through the flash forward and backward kernels with the
+    prefix: 2 layers, each forward again under its checkpoint), within
+    1e-4 of the loss and of the largest gradient; then the patch prefill's
+    last logits within 1e-3, as ``check_small_model``.  The C²P²SL step
+    is ``check_small_training``'s."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import LM
+    from repro_torch.utils.trees import tree_leaves, tree_map
+    cfg = get_arch(PG_ARCH).smoke
+    params = LM(cfg, "cpu").init(torch.Generator().manual_seed(SEED),
+                                 master=True)
+    gen = torch.Generator().manual_seed(8)
+    batch = {n: torch.randint(0, cfg.vocab, (4, 40), generator=gen)
+             for n in ("tokens", "labels")}
+    batch["patch_embeds"] = torch.randn((4, cfg.num_patches, cfg.d_model),
+                                        generator=gen)
+    out = {}
+    for where in ("cpu", dev):
+        model = LM(cfg, where)
+        p = tree_map(lambda t: t.detach().clone().to(where)
+                     .requires_grad_(True), params)
+        b = {n: t.to(where) for n, t in batch.items()}
+        ops.reset_launches()
+        loss, _ = model.forward(p, b)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        launches = dict(ops.LAUNCHES)
+        with torch.no_grad():
+            logits, st = model.prefill_with_cache(
+                p, {n: t for n, t in b.items() if n != "labels"}, 56,
+                torch.float32)
+        out[str(where)] = (float(loss), grads, logits.cpu(), launches,
+                           st["position"])
+    (lc, gc_, xc, _, _), (lg, gg, xg, launches, pos) = (out["cpu"],
+                                                        out[str(dev)])
+    top = max(float(g.abs().max()) for g in gc_)
+    gerr = max(float((a.cpu() - b_).abs().max()) for a, b_ in zip(gg, gc_))
+    xerr = float((xg - xc).abs().max())
+    want = {"flash_attention": 4, "flash_attention_bwd": 2}
+    if not (abs(lg - lc) <= 1e-4 * abs(lc) and gerr <= 1e-4 * max(top, 1.0)
+            and xerr <= 1e-3 and pos == 48):
+        fail(f"small {PG_ARCH}, card vs CPU: loss {lg} vs {lc}, max grad "
+             f"diff {gerr} (largest {top}), prefill logits {xerr}, "
+             f"position {pos}")
+    if launches != want:
+        fail(f"small {PG_ARCH} forward and backward: launches {launches}, "
+             f"expected {want}")
+    print(f"small f32 {PG_ARCH} (8 patches + 40 tokens), card vs CPU: loss "
+          f"{lg:.6f} vs {lc:.6f}, max gradient diff {gerr:.2e} (largest "
+          f"{top:.3e}, tol 1e-4 of it), prefill logits {xerr:.2e} (tol "
+          f"1e-3), position {pos}; launches {launches}")
+
+
 def check_rglru_bwd(torch, rg, dev):
     """The RG-LRU backward kernel against ``rglru_bwd_plain`` on the
     kernel's own forward h, within 2e-4 (f32) / 1e-2 (bf16) of the largest
@@ -1441,6 +1565,98 @@ def check_flash_bwd256(torch, fa, dev):
     return path_err
 
 
+def check_flash_prefix(torch, fa, dev):
+    """The flash forward and backward under paligemma-3b's prefix-LM mask
+    (causal, the first ``prefix_len`` keys seen by every row), the
+    extension of ``check_flash`` / ``check_flash_bwd``: its training call
+    [2, 8, 768, 256] and its patch prefill [4, 8, 384, 256] (8 q heads on
+    one kv head, prefix 256), a prefix of 200 that splits a key tile, a
+    prefix at Sq (300) and one past it (400), both then the non-causal
+    call's bits both ways, bf16 on "mma" (the backward on ``bwd256``); f32
+    on "simt" at dh 16 (prefix 37) and dh 256 (prefix 64).  q, k, v and dO
+    in the model layout.  The output, with and without lse, within
+    ``FLASH_TOL`` and element by element within ``FLASH_FWD_ELEM`` of the
+    plain version in f32 on the inputs upcast (on P|V|), the lse within
+    1e-4, dq, dk and dv within ``FLASH_TOL`` and ``FLASH_BWD_ELEM``, two
+    backward calls bit for bit.  Returns the max abs errors of the
+    forward ("paligemma_<call>") and backward ("bwd_paligemma_<call>") at
+    the path's two calls."""
+    gen = torch.Generator(device=dev).manual_seed(29)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(name, *PG_FLASH[name], bf16) for name in ("train", "prefill")]
+    cases += [("ragged prefix", 1, 8, 1, 512, 256, 200, bf16),
+              ("prefix at Sq", 1, 4, 1, 300, 256, 300, bf16),
+              ("prefix past Sq", 1, 4, 1, 300, 256, 400, bf16),
+              ("f32 dh 16", 1, 4, 1, 100, 16, 37, f32),
+              ("f32 dh 256", 1, 4, 1, 130, 256, 64, f32)]
+    errs = {}
+    for name, b, hq, hkv, s, dh, prefix, dt in cases:
+        q, k, v, do = (torch.randn((b, s, h, dh), generator=gen, device=dev)
+                       .to(dt).transpose(1, 2) for h in (hq, hkv, hkv, hq))
+        kw = dict(causal=True, prefix_len=prefix)
+        dtn = str(dt).split(".")[-1]
+        route = "mma" if dt == bf16 else "simt"
+        bwd_route = route if dh in fa.BWD_MMA_HEAD_DIMS else "simt"
+        fa.ROUTES.clear()
+        fa.BWD_ROUTES.clear()
+        out = fa.flash_attention_cuda(q, k, v, **kw)
+        o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+        grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        up = [t.float() for t in (q, k, v)]
+        want, lse_p = fa.attention_plain_lse(*up, **kw)
+        mag = fa.attention_plain(up[0], up[1], up[2].abs(), **kw)
+        plain = fa.attention_bwd_plain(*up, o.float(), lse_p, do.float(),
+                                       **kw)
+        torch.cuda.synchronize()
+        label = (f"flash prefix {name} [{b}, {hq}/{hkv}, {s}, {dh}] prefix "
+                 f"{prefix} {dtn}")
+        if (dict(fa.ROUTES), dict(fa.BWD_ROUTES)) != ({route: 2},
+                                                      {bwd_route: 2}):
+            fail(f"{label}: routes {dict(fa.ROUTES)} / "
+                 f"{dict(fa.BWD_ROUTES)}, expected {route} / {bwd_route}")
+        tol = FLASH_TOL[dtn]
+        atol, rtol = FLASH_FWD_ELEM[dtn]
+        err = max(float((x.float() - want).abs().max()) for x in (out, o))
+        share = max(float(((x.float() - want).abs() / (atol + rtol * mag))
+                          .max()) for x in (out, o))
+        lse_err = float((lse - lse_p).abs().max())
+        batol, brtol = FLASH_BWD_ELEM[dtn]
+        berr = max(float((g.float() - p).abs().max())
+                   for g, p in zip(grads, plain))
+        bshare = max(float(((g.float() - p).abs() / (batol + brtol * p.abs()))
+                           .max()) for g, p in zip(grads, plain))
+        if not (err <= tol and share <= 1.0 and lse_err <= 1e-4):
+            fail(f"{label}: forward max err {err} (tol {tol}), element "
+                 f"share {share:.3f} of {atol} + {rtol} P|V|, lse err "
+                 f"{lse_err}")
+        if not (berr <= tol and bshare <= 1.0):
+            fail(f"{label}: backward max err {berr} (tol {tol}), element "
+                 f"share {bshare:.3f} of {batol} + {brtol} |p|")
+        if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+            fail(f"{label}: a second backward call gave other bits")
+        same = ""
+        if prefix >= s:
+            o2, lse2 = fa.flash_attention_cuda(q, k, v, causal=False,
+                                               with_lse=True)
+            free = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                               causal=False)
+            if not (torch.equal(o, o2) and torch.equal(lse, lse2) and all(
+                    torch.equal(x, y) for x, y in zip(grads, free))):
+                fail(f"{label}: not the non-causal call's bits")
+            same = "; the non-causal call's bits both ways"
+        print(f"{label} [forward {route}, backward {bwd_route}]: forward "
+              f"max err {err:.3e}, worst element {share:.3f} of {atol:g} + "
+              f"{rtol:g} P|V|, lse err {lse_err:.1e}; backward max err "
+              f"{berr:.3e}, worst element {bshare:.3f} of {batol:g} + "
+              f"{brtol:g} |p|, two calls bit for bit{same}")
+        if name in PG_FLASH:
+            errs[f"paligemma_{name}"] = max(err, lse_err)
+            errs[f"bwd_paligemma_{name}"] = berr
+        del q, k, v, do, out, o, lse, grads, again, up, want, mag, plain
+    return errs
+
+
 WKV_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 
 
@@ -1582,8 +1798,10 @@ def check_wkv6_strong_decay(torch, rw, dev, gen):
 
 
 def check_small_training(torch, ops, dev):
-    """One training step of small f32 RWKV, qwen and granite-moe models
-    (the 2-stage, 2-micro-batch pipeline) and of the small recurrentgemma
+    """One training step of small f32 RWKV, qwen, granite-moe and
+    paligemma models (the 2-stage, 2-micro-batch pipeline; paligemma's
+    8 patches before 40 tokens, the int8 hop only) and of the small
+    recurrentgemma
     (k 2 by accumulation: a mixed stack does not pipeline) on the card
     against the same step on the CPU, the pipeline's hop raw and
     int8-coded (the codec is bit-exact on both devices, so the coded hop's
@@ -1609,13 +1827,17 @@ def check_small_training(torch, ops, dev):
              ("none", "int8")),
             (RG_ARCH, {"rglru_scan": 8, "rglru_scan_bwd": 4,
                        "flash_attention": 4, "flash_attention_bwd": 2},
-             ("k 2",))):
+             ("k 2",)),
+            (PG_ARCH, flash, ("int8",))):
         cfg = get_arch(arch).smoke
         params = LM(cfg, "cpu").init(torch.Generator().manual_seed(SEED),
                                      master=True)
         gen = torch.Generator().manual_seed(7)
         batch = {n: torch.randint(0, cfg.vocab, (4, 40), generator=gen)
                  for n in ("tokens", "labels")}
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = torch.randn(
+                (4, cfg.num_patches, cfg.d_model), generator=gen)
         for wire in wires:
             kw = dict(microbatches=2) if wire == "k 2" else dict(
                 pipeline=PipelineSpec(num_stages=2, microbatches=2,
@@ -1966,21 +2188,21 @@ def codec_calls(wc):
 @contextlib.contextmanager
 def flash_calls(fa):
     """Count each call of the flash wrappers while the block runs, under
-    (kernel, B, Hq, Sq, Skv, dh, causal, dtype): the flash launches split
-    by shape.  Yields the Counter."""
+    (kernel, B, Hq, Sq, Skv, dh, causal, dtype, prefix_len): the flash
+    launches split by shape and mask.  Yields the Counter."""
     calls = collections.Counter()
     fwd, bwd = fa.flash_attention_cuda, fa.flash_attention_bwd_cuda
 
-    def key(kernel, q, k, causal):
+    def key(kernel, q, k, causal, kw):
         return (kernel, *q.shape[:3], k.shape[2], q.shape[3], bool(causal),
-                str(q.dtype).split(".")[-1])
+                str(q.dtype).split(".")[-1], int(kw.get("prefix_len", 0)))
 
     def forward(q, k, v, *, causal=True, **kw):
-        calls[key("flash_attention", q, k, causal)] += 1
+        calls[key("flash_attention", q, k, causal, kw)] += 1
         return fwd(q, k, v, causal=causal, **kw)
 
     def backward(q, k, v, o, lse, do, *, causal=True, **kw):
-        calls[key("flash_attention_bwd", q, k, causal)] += 1
+        calls[key("flash_attention_bwd", q, k, causal, kw)] += 1
         return bwd(q, k, v, o, lse, do, causal=causal, **kw)
 
     fa.flash_attention_cuda, fa.flash_attention_bwd_cuda = forward, backward
@@ -3355,6 +3577,197 @@ def run_whisper(torch, ops, serve, train, protocol, dev, wc, card):
             "train_calls": tcalls}
 
 
+def _pg_argv(*extra):
+    return ["--arch", PG_ARCH, "--size", "full", "--batch", str(BATCH),
+            "--prompt-len", str(PG_PROMPT), "--gen", str(PG_GEN), "--seed",
+            str(SEED), *extra]
+
+
+def paligemma_prefill(torch, ops, fa, dev, card):
+    """paligemma-3b FULL's patch prefill: ``LM.prefill_with_cache`` of
+    [BATCH, 256, 2048] stub patch embeddings (numpy draws from SEED, in
+    bf16) before BATCH x PG_PROMPT tokens (S 384, the cache PG_CACHE in
+    f32, as the serve CLI keeps it), then PG_GEN greedy steps of
+    ``serving.engine.make_sample_step``: exactly PG_PREFILL flash launches,
+    every one on "mma" at [4, 8, 384, 256] with the prefix 256 (counted
+    by call), none in decode; finite logits, tokens in range, the
+    position 384 + PG_GEN at the end.  Returns (prefill ms, decode tok/s,
+    peak GB, the flash calls)."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.engine import make_sample_step
+    cfg = get_arch(PG_ARCH).full
+    _free_card(torch, f"{PG_ARCH} patch prefill")
+    torch.cuda.reset_peak_memory_stats()
+    model = LM(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (BATCH, PG_PROMPT)),
+                             device=dev)
+    patches = torch.as_tensor(rng.standard_normal(
+        (BATCH, PG_PATCHES, cfg.d_model)).astype(np.float32),
+        device=dev).to(model.dtype)
+    step = make_sample_step(model, 0.0, SEED)
+    rows = torch.arange(BATCH, device=dev)
+    _reset_counts(ops, fa.ROUTES)
+    with torch.inference_mode(), flash_calls(fa) as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, st = model.prefill_with_cache(
+            params, {"tokens": tokens, "patch_embeds": patches}, PG_CACHE,
+            torch.float32)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill = dict(ops.LAUNCHES)
+        finite = bool(torch.isfinite(logits).all())
+        tok, cache, pos = torch.argmax(logits, -1, keepdim=True), \
+            st["cache"], st["position"]
+        out = []
+        t0 = time.perf_counter()
+        for i in range(PG_GEN):
+            nxt, logits, cache = step(params, tok, cache, pos, rows, i)
+            pos += 1
+            tok = nxt[:, None]
+            out.append(nxt)
+        toks = torch.stack(out, 1).cpu()
+        decode_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    key = ("flash_attention", BATCH, 8, PG_PATCHES + PG_PROMPT,
+           PG_PATCHES + PG_PROMPT, 256, True, "bfloat16", PG_PATCHES)
+    if prefill != PG_PREFILL or launches != PG_PREFILL \
+            or dict(calls) != {key: PG_LAYERS} \
+            or dict(fa.ROUTES) != {"mma": PG_LAYERS}:
+        fail(f"{PG_ARCH} patch prefill: launches {prefill}, run "
+             f"{launches}, calls {dict(calls)}, routes {dict(fa.ROUTES)}; "
+             f"expected {PG_PREFILL} with the prefix, on mma, none in "
+             "decode")
+    if not finite or pos != PG_CACHE or logits.shape != (BATCH, cfg.vocab):
+        fail(f"{PG_ARCH} patch prefill: finite logits {finite}, position "
+             f"{pos} (expected {PG_CACHE}), logits {tuple(logits.shape)}")
+    _check_tokens(f"{PG_ARCH} patch prefill", toks, (BATCH, PG_GEN),
+                  cfg.vocab)
+    tok_s = PG_GEN * BATCH / decode_s
+    print(f"{PG_ARCH} patch prefill: {BATCH} x ({PG_PATCHES} patches + "
+          f"{PG_PROMPT} tokens) in {prefill_ms:.2f} ms, {PG_GEN} greedy "
+          f"steps at {tok_s:.1f} tok/s, peak {peak:.2f} GB; flash "
+          f"{PG_LAYERS} on mma at [{BATCH}, 8, {PG_PATCHES + PG_PROMPT}, "
+          f"256] with prefix {PG_PATCHES}, none in decode; sample "
+          f"{toks[0, :8].tolist()} ({card})")
+    del model, params, cache, st, logits
+    return prefill_ms, tok_s, peak, calls
+
+
+def run_paligemma(torch, ops, serve, train, protocol, dev, wc, card):
+    """paligemma-3b at full width, the prefix-LM: static serving through
+    the serving CLI (batch 4, prompt PG_PROMPT, PG_GEN tokens: the token
+    loop without patches, as the reference's CLI serves the vlm family;
+    no flash launch, decode attention being plain), the refusals of
+    --continuous and --split-cut (tied embeddings, ``SplitDecode``'s first
+    check), the patch prefill (``paligemma_prefill``), then C2P2SL
+    training through the training CLI (f32 master weights, AdamW, T_BATCH
+    x T_SEQ tokens with 256 patches each, S 2 cut at 9, k 4, int8, 3
+    steps): finite losses, every parameter moved, each step's hop bytes
+    PG_HOP_BYTES each way, the bills at 768 rows a sequence (at 512 rows
+    they would be 8,519,680: the prefix dropped), exactly PG_T_LAUNCHES,
+    every flash forward and backward on "mma" at [2, 8, 768, 256] with the
+    prefix 256, the codec's calls at [2 x 768, 2048]; one more step
+    traced.  Returns the phase's numbers."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.kernels import rwkv6 as rw
+    cfg = get_arch(PG_ARCH).full
+    counters = (fa.ROUTES, fa.BWD_ROUTES, mg.ROUTES, rw.ROUTES, wc.ROUTES)
+    res, launches, peak = _serve_counted(torch, ops, serve, _pg_argv(),
+                                         counters)
+    _check_tokens(f"{PG_ARCH} CLI", res["tokens"], (BATCH, PG_GEN),
+                  cfg.vocab)
+    if res["prefill_launches"] != {} or launches != {}:
+        fail(f"{PG_ARCH} CLI: prefill launches {res['prefill_launches']}, "
+             f"run {launches}; the token loop launches no flash")
+    cli = dict(res, peak=peak)
+    print(f"{PG_ARCH} CLI (token loop, no patches): B {BATCH} x prompt "
+          f"{PG_PROMPT}, {PG_GEN} tokens: prefill {res['prefill_ms']:.2f} "
+          f"ms, decode {res['decode_tok_s']:.1f} tok/s, peak {peak:.2f} GB, "
+          f"no kernel launched ({card})")
+    del res
+    for flag, match in ((["--continuous", "--requests", "2"],
+                         "continuous batching"),
+                        (["--split-cut", str(PG_T_CUT), "--wire-dtype",
+                          "int8"], "tied embeddings")):
+        try:
+            serve.main(_pg_argv(*flag))
+        except ValueError as e:
+            if match not in str(e):
+                fail(f"{PG_ARCH} {flag[0]}: raised {e!r}")
+            print(f"{PG_ARCH} {' '.join(flag)}: refused ({e})")
+        else:
+            fail(f"{PG_ARCH} {flag[0]}: served; the reference refuses it")
+    prefill_ms, tok_s, prefill_peak, pcalls = paligemma_prefill(
+        torch, ops, fa, dev, card)
+
+    _free_card(torch, f"{PG_ARCH} training")
+    _reset_counts(ops, *counters)
+    with codec_calls(wc) as ccalls, flash_calls(fa) as tcalls:
+        res = train.main(["--arch", PG_ARCH, "--size", "full",
+                          "--pipeline-stages", "2", "--pipeline-k", str(T_K),
+                          "--batch", str(T_BATCH), "--seq", str(T_SEQ),
+                          "--steps", str(T_STEPS), "--seed", str(SEED),
+                          "--wire-dtype", "int8", "--log-every", "1"])
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    _check_train_launches(PG_ARCH, launches, {
+        "flash": (dict(fa.ROUTES), {"mma": PG_T_LAUNCHES["flash_attention"]}),
+        "flash backward": (dict(fa.BWD_ROUTES),
+                           {"mma": PG_T_LAUNCHES["flash_attention_bwd"]})},
+        PG_T_LAUNCHES)
+    mb = T_BATCH // T_K
+    want = {(kern, mb, 8, PG_T_ROWS, PG_T_ROWS, 256, True, "bfloat16",
+             PG_PATCHES): PG_T_LAUNCHES[kern]
+            for kern in ("flash_attention", "flash_attention_bwd")}
+    if dict(tcalls) != want:
+        fail(f"train {PG_ARCH}: flash calls {dict(tcalls)} != {want}")
+    n, up, down = check_training_run(torch, protocol, dev, res,
+                                     f"train {PG_ARCH}", "int8",
+                                     T_BATCH * PG_T_ROWS)
+    if (up, down) != (PG_HOP_BYTES, PG_HOP_BYTES):
+        fail(f"train {PG_ARCH}: billed {up} / {down} B a step, expected "
+             f"{PG_HOP_BYTES} each way (768 rows a sequence)")
+    check_codec_calls(wc, f"{PG_ARCH} training path", launches, ccalls,
+                      dict(wc.ROUTES))
+    cwant = {(kern, mb * PG_T_ROWS, cfg.d_model, "bfloat16", "int8"):
+             PG_T_LAUNCHES[kern] for kern in ("wire_encode", "wire_decode")}
+    if dict(ccalls) != cwant:
+        fail(f"train {PG_ARCH}: codec calls {dict(ccalls)} != {cwant}")
+    if res["pipeline"].microbatches != T_K or cfg.num_layers \
+            // res["pipeline"].num_stages != PG_T_CUT:
+        fail(f"train {PG_ARCH}: the pipeline is not S 2, k {T_K}, cut at "
+             f"{PG_T_CUT}")
+    for r in res["rows"]:
+        print(f"main path train {PG_ARCH} int8 step {r['step']}: loss "
+              f"{r['loss']:.5f}, {r['step_ms']:.1f} ms, "
+              f"{r['tokens_per_s']:.0f} tokens/s, peak {r['peak_gb']:.2f} "
+              f"GB, hop up {r['hop_bytes_up']} B, down "
+              f"{r['hop_bytes_down']} B (billed {up:.0f} each way; at 512 "
+              f"rows 8,519,680) ({card})")
+    print(f"train {PG_ARCH}: all {n} parameter tensors changed; launches "
+          f"{json.dumps(launches, sort_keys=True)}; flash by (kernel, B, H, "
+          f"Sq, Skv, dh, causal, dtype, prefix): " + "; ".join(
+              f"{k[:9]}: {v}" for k, v in sorted(tcalls.items())))
+    rows = res["rows"]
+    profile_training_step(torch, res, {"flash forward": "flash_fwd",
+                                       "flash backward": "flash_bwd"})
+    del res
+    torch.cuda.empty_cache()
+    return {"cli": cli, "prefill_ms": prefill_ms, "tok_s": tok_s,
+            "prefill_peak": prefill_peak, "prefill_calls": pcalls,
+            "train_rows": rows, "train_launches": launches,
+            "train_calls": tcalls}
+
+
 def run_hybrid_training(torch, ops, train, protocol, dev, card):
     """Training of recurrentgemma-2b at full width through the training
     CLI (k 2 by accumulation, 4 x 4096, 3 steps): every loss finite, every
@@ -3699,15 +4112,17 @@ def _reset_counters(torch, ops, fa, wc):
     wc.ROUTES.clear()
 
 
-def _check_run_launches(name, ops, fa, wc, steps, calls, d):
+def _check_run_launches(name, ops, fa, wc, steps, calls, d,
+                        layers=Q_LAYERS):
     """A run's exact launches: each step's flash forwards and backwards
-    (``RP_FLASH``), all on "mma"; the codec's calls by shape, ``steps``
-    maps each codec to its step count (``RP_CODEC`` calls a step), every
-    one at [T_BATCH / T_K * T_SEQ, d] bf16 int8, every decode on
-    "warp256".  Returns the launches."""
+    (``RP_FLASH`` at 40 layers, in proportion at ``layers``), all on
+    "mma"; the codec's calls by shape, ``steps`` maps each codec to its
+    step count (``RP_CODEC`` calls a step), every one at [T_BATCH / T_K *
+    T_SEQ, d] bf16 int8, every decode on "warp256".  Returns the
+    launches."""
     n = sum(steps.values())
     codec = sum(RP_CODEC[w] * s for w, s in steps.items())
-    want = {k: v * n for k, v in RP_FLASH.items()}
+    want = {k: v * n * layers // Q_LAYERS for k, v in RP_FLASH.items()}
     want.update(wire_encode=codec, wire_decode=codec)
     launches = dict(ops.LAUNCHES)
     _check_train_launches(name, launches, {
@@ -3722,8 +4137,26 @@ def _check_run_launches(name, ops, fa, wc, steps, calls, d):
     return launches
 
 
+@contextlib.contextmanager
+def depth_cut(arch: str, layers: int):
+    """While the block runs, the registry's ``arch`` has its FULL config's
+    depth cut to ``layers`` (widths kept): the CLIs, which have no depth
+    flag, then run it."""
+    import dataclasses
+
+    from repro_torch import configs
+    spec = configs.ARCHS[arch]
+    configs.ARCHS[arch] = dataclasses.replace(
+        spec, full=dataclasses.replace(spec.full, num_layers=layers))
+    try:
+        yield
+    finally:
+        configs.ARCHS[arch] = spec
+
+
 def run_ckpt_resume(torch, ops, train, fa, wc, card, ckpt_dir):
-    """Part (a) of the phase "qwen1.5-4b checkpoint, resume and replan":
+    """Part (a) of the phase "qwen1.5-4b checkpoint, resume and replan",
+    at qwen1.5-4b's widths with ``CK_LAYERS`` layers (``depth_cut``):
     run A trains 3 int8 steps and checkpoints at step 2 (exactly one
     checkpoint on disk); run B, the same flags, resumes there and trains
     step 3.  B's step-3 loss equals A's bit for bit, and so does every
@@ -3732,18 +4165,19 @@ def run_ckpt_resume(torch, ops, train, fa, wc, card, ckpt_dir):
     ``CKPT_STATE_GB`` by the count, the save and restore seconds and the
     peak host RSS.  Returns (launches, codec calls by shape)."""
     from repro_torch.training import checkpoint as ck
-    name = f"{ARCH} checkpoint and resume"
+    name = f"{ARCH} cut to {CK_LAYERS} layers, checkpoint and resume"
     du = shutil.disk_usage(ckpt_dir)
     with open("/proc/self/statm") as f:
         rss0 = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
     print(f"{name}: host RSS {rss0:.2f} GB at the start; checkpoint directory on a disk of {du.total / 1e9:.1f} "
           f"GB, {du.free / 1e9:.1f} GB free ({CKPT_STATE_GB} GB needed)")
     if du.free < CKPT_STATE_GB * 1.05e9:
-        fail(f"{name}: {du.free / 1e9:.1f} GB free, a full-width "
-             f"checkpoint takes {CKPT_STATE_GB} GB: cut the depth")
+        fail(f"{name}: {du.free / 1e9:.1f} GB free, the checkpoint takes "
+             f"{CKPT_STATE_GB} GB: cut the depth")
     argv = _train_argv("int8", ARCH) + ["--ckpt-dir", ckpt_dir]
     _reset_counters(torch, ops, fa, wc)
-    with codec_calls(wc) as calls, host_rss_peak() as rss:
+    with codec_calls(wc) as calls, host_rss_peak() as rss, \
+            depth_cut(ARCH, CK_LAYERS):
         a = train.main(argv + ["--ckpt-every", "2"])
         torch.cuda.synchronize()
         on_disk = sorted(os.listdir(ckpt_dir))
@@ -3761,8 +4195,10 @@ def run_ckpt_resume(torch, ops, train, fa, wc, card, ckpt_dir):
         torch.cuda.empty_cache()
         b = train.main(argv + ["--ckpt-every", "0"])
         torch.cuda.synchronize()
+    if b["model"].cfg.num_layers != CK_LAYERS:
+        fail(f"{name}: the run had {b['model'].cfg.num_layers} layers")
     launches = _check_run_launches(name, ops, fa, wc, {"int8": 4}, calls,
-                                   b["model"].cfg.d_model)
+                                   b["model"].cfg.d_model, CK_LAYERS)
     if sorted(os.listdir(ckpt_dir)) != ["step_2"]:
         fail(f"{name}: run B changed the checkpoint directory")
     if b["ckpt"]["resumed_from"] != 2 or [r["step"] for r in b["rows"]] \
@@ -4380,7 +4816,8 @@ def profile_serving(torch, dev, arch, decode_steps, watch=(), batch=BATCH,
     time) and the device's idle share, with the kernels that take the most
     time and those whose names hold a string of ``watch``.  An
     encoder-decoder's prefill encodes ``batch`` segments of random
-    frames."""
+    frames; a vlm's puts random patch embeddings before the prompt (the
+    patch prefill)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_arch
@@ -4398,6 +4835,11 @@ def profile_serving(torch, dev, arch, decode_steps, watch=(), batch=BATCH,
             generator=g).to(model.dtype)
     prompts = inputs["tokens"]
     cache_len = prompt + gen
+    if model.cfg.family == "vlm":
+        inputs["patch_embeds"] = torch.randn(
+            (batch, model.cfg.num_patches, model.cfg.d_model), device=dev,
+            generator=g).to(model.dtype)
+        cache_len += model.cfg.num_patches
 
     def prefill():
         return model.prefill_with_cache(params, inputs, cache_len,
@@ -5144,8 +5586,8 @@ def time_whisper(torch, fa, dev, wh, flash_err):
             "shape": [b, h, sq, skv, dh], "causal": causal,
             "dtype": "bfloat16",
             "launches": wh["serve_calls"].get(
-                ("flash_attention", b, h, sq, skv, dh, causal, "bfloat16"),
-                0),
+                ("flash_attention", b, h, sq, skv, dh, causal, "bfloat16",
+                 0), 0),
             "max_abs_err": flash_err[f"whisper_{name}"],
             "ms": cold_ms(fwd, (q, k, v), nbytes),
             "plain_ms": device_ms(lambda c=causal: fa.attention_plain(
@@ -5187,7 +5629,7 @@ def time_whisper(torch, fa, dev, wh, flash_err):
             "dtype": "bfloat16",
             "launches": wh["train_calls"].get(
                 ("flash_attention_bwd", b, h, sq, skv, dh, causal,
-                 "bfloat16"), 0),
+                 "bfloat16", 0), 0),
             "max_abs_err": flash_err[f"bwd_whisper_{name}"],
             "ms": cuda_ms(lambda: bwd(q, k, v, o, lse, do)),
             "plain_ms": cuda_ms(lambda c=causal: fa.attention_bwd_plain(
@@ -5202,6 +5644,120 @@ def time_whisper(torch, fa, dev, wh, flash_err):
         if r["ms"] > r["library_ms"]:
             print(f"kernel {r['name']}: {r['ms'] / r['library_ms']:.2f}x "
                   f"SDPA's time at {r['shape']} (ROADMAP Queue 2)")
+    return rows
+
+
+def prefix_pairs(s: int, prefix: int) -> int:
+    """The (q, k) pairs one head sees under the causal mask with a
+    bidirectional prefix: rows below the prefix see its keys, the rest
+    their own and earlier keys (327,936 at S 768, prefix 256)."""
+    p = min(prefix, s)
+    return p * p + sum(q + 1 for q in range(p, s))
+
+
+def time_paligemma(torch, fa, dev, pg, flash_err):
+    """The flash kernels at paligemma-3b's prefix calls (``PG_FLASH``; 8 q
+    heads on one kv head of 256, bf16, causal with the prefix 256, the
+    model layout): the forward with lse at the training call and without
+    at the patch prefill, and the backward at the training call, each
+    timed between CUDA events (``cuda_ms``; calls back to back on one
+    input), as are their plain versions and library calls, with its
+    launches on the path (the flash wrappers' calls counted by shape and
+    prefix, ``flash_calls``).  torch.profiler's reading of the forward
+    from cold data (``cold_ms``) and of SDPA is printed beside: in a call
+    of its first run it read the forward at 0.2637 ms where the traced
+    training step gave 0.0674 ms a launch.
+    Bounds: q, k, v and O (and lse; for the backward dO read and dq, dk,
+    dv written) once at 3.35 TB/s, against 4 dh operations a seen (q, k)
+    pair forward and 10 dh backward (``prefix_pairs``) at the bf16
+    tensor-core rate.  The library yardstick: SDPA with the prefix mask
+    as a boolean ``attn_mask`` on contiguous copies with the kv head
+    expanded to 8 (under grad mode at the training call, its backward
+    through ``torch.autograd.grad``), timed the row's way, and both
+    between CUDA events printed beside the profiler's rows."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(31)
+    rows = []
+    for name, (b, hq, hkv, s, dh, prefix) in PG_FLASH.items():
+        q, k, v, do = (torch.randn((b, s, h, dh), generator=gen, device=dev)
+                       .to(torch.bfloat16).transpose(1, 2)
+                       for h in (hq, hkv, hkv, hq))
+        pairs = b * hq * prefix_pairs(s, prefix)
+        train = name == "train"
+        nbytes = 2 * (2 * b * hq * s * dh + 2 * b * hkv * s * dh) \
+            + (4 * b * hq * s if train else 0)
+        b_ms, b_by = bound(nbytes, 4 * dh * pairs, BF16_OPS_S)
+        mask = fa._mask(s, s, True, 0, dev, prefix)
+        lib = [q.contiguous()] + [t.expand(b, hq, s, dh).contiguous()
+                                  for t in (k, v)]
+        if train:
+            lib = [t.requires_grad_(True) for t in lib]
+        fwd = lambda *a, t=train, p=prefix: fa.flash_attention_cuda(
+            *a, causal=True, prefix_len=p, with_lse=t)
+        sdpa = lambda t=lib, m=mask: F.scaled_dot_product_attention(
+            *t, attn_mask=m)
+        key = ("flash_attention", b, hq, s, s, dh, True, "bfloat16", prefix)
+        calls = pg["train_calls" if train else "prefill_calls"]
+        rows.append({
+            "name": f"flash_attention_paligemma_{name}", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:73",
+            "shape": [b, hq, hkv, s, dh], "prefix_len": prefix,
+            "dtype": "bfloat16", "with_lse": train,
+            "launches": calls.get(key, 0),
+            "max_abs_err": flash_err[f"paligemma_{name}"],
+            "ms": cuda_ms(lambda: fwd(q, k, v)),
+            "plain_ms": cuda_ms(lambda: fa.attention_plain_lse(
+                q, k, v, causal=True, prefix_len=prefix), iters=5,
+                warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(sdpa)})
+        print(rate_line(rows[-1], 4 * dh * pairs))
+        print(f"flash paligemma {name} by torch.profiler: kernel "
+              f"{cold_ms(fwd, (q, k, v), nbytes):.4f} ms from cold data, "
+              f"SDPA with the mask {device_ms(sdpa):.4f} ms")
+        if train:
+            o, lse = fwd(q, k, v)
+            nbytes = 2 * (4 * b * hq * s * dh + 4 * b * hkv * s * dh) \
+                + 4 * b * hq * s
+            b_ms, b_by = bound(nbytes, 10 * dh * pairs, BF16_OPS_S)
+            lib_out = sdpa()
+            lib_do = do.contiguous()
+            bwd = lambda: fa.flash_attention_bwd_cuda(
+                q, k, v, o, lse, do, causal=True, prefix_len=prefix)
+            fa.BWD_ROUTES.clear()
+            bwd()
+            if dict(fa.BWD_ROUTES) != {"mma": 1}:
+                fail(f"flash_attention_bwd at paligemma's {name} call: "
+                     f"routes {dict(fa.BWD_ROUTES)}")
+            rows.append({
+                "name": f"flash_attention_bwd_paligemma_{name}",
+                "route": "cuda", "kernel_route": "mma",
+                "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+                "replaces": "src/repro/models/common.py:88",
+                "shape": [b, hq, hkv, s, dh], "prefix_len": prefix,
+                "dtype": "bfloat16",
+                "launches": calls.get(("flash_attention_bwd",) + key[1:],
+                                      0),
+                "max_abs_err": flash_err[f"bwd_paligemma_{name}"],
+                "ms": cuda_ms(bwd),
+                "plain_ms": cuda_ms(lambda: fa.attention_bwd_plain(
+                    q, k, v, o, lse, do, causal=True, prefix_len=prefix),
+                    iters=3, warmup=1),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                    lib_out, lib, lib_do, retain_graph=True))})
+            print(rate_line(rows[-1], 10 * dh * pairs))
+            print(f"flash_attention_bwd paligemma {name}: "
+                  f"{device_ms(bwd, iters=10):.4f} ms by torch.profiler")
+            del o, lse, lib_out, lib_do
+        del q, k, v, do, lib, mask
+        torch.cuda.empty_cache()
+    for r in rows:
+        if r["ms"] > r["library_ms"]:
+            print(f"kernel {r['name']}: {r['ms'] / r['library_ms']:.2f}x "
+                  f"SDPA's time with the mask at {r['shape']} (ROADMAP "
+                  "Queue 2)")
     return rows
 
 
@@ -5431,6 +5987,7 @@ def main():
     flash_err = check_flash(torch, fa, dev)
     flash_err["bwd"], bwd_whisper = check_flash_bwd(torch, fa, dev)
     flash_err.update({f"bwd_{k}": v for k, v in bwd_whisper.items()})
+    flash_err.update(check_flash_prefix(torch, fa, dev))
     rglru_err = check_rglru(torch, rg, dev)
     wkv_err = check_wkv6(torch, rw, dev)
     gmm_err = check_moe_gmm(torch, mg, dev)
@@ -5438,6 +5995,7 @@ def main():
                 "moe_gmm_bwd": check_moe_gmm_bwd(torch, mg, dev),
                 "flash_bwd256": check_flash_bwd256(torch, fa, dev)}
     check_small_model(torch, dev)
+    check_small_paligemma(torch, ops, dev)
     check_small_hybrid(torch, dev)
     check_small_moe(torch, dev)
     check_small_moe_split(torch, ops, serve)
@@ -5575,6 +6133,16 @@ def main():
                     gen=WH_GEN)
     phase(f"{WH_ARCH} serving and training")
 
+    pg = run_paligemma(torch, ops, serve, train, protocol, dev, wc, card)
+    profile_serving(torch, dev, PG_ARCH, 4, prompt=PG_PROMPT, gen=PG_GEN)
+    print(f"main path {PG_ARCH}: CLI token loop "
+          f"{pg['cli']['decode_tok_s']:.1f} tok/s; patch prefill {pg['prefill_ms']:.2f} ms, decode "
+          f"{pg['tok_s']:.1f} tok/s, peak {pg['prefill_peak']:.2f} GB; "
+          f"training {[round(r['step_ms'], 1) for r in pg['train_rows']]} "
+          f"ms a step, peak "
+          f"{max(r['peak_gb'] for r in pg['train_rows']):.2f} GB ({card})")
+    phase(f"{PG_ARCH} serving and training")
+
     rg_all = dict(collections.Counter(rg_launches) + collections.Counter(
         {k: v for k, v in rt_launches.items() if not k.endswith("_bwd")}))
     kernels = time_kernels(torch, wc, fa, rw, rg, dev, launches, rg_all,
@@ -5597,6 +6165,7 @@ def main():
     kernels += time_serving_shapes(torch, fa, mg, rw, dev, qm_serve,
                                    rs_serve, flash_err, gmm_err, wkv_err)
     kernels += time_whisper(torch, fa, dev, wh, flash_err)
+    kernels += time_paligemma(torch, fa, dev, pg, flash_err)
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']:.4f} ms, plain "
               f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "

@@ -18,5 +18,7 @@ class ArchSpec:
     smoke: LMConfig
 
 
+FULL_ATTN_SKIP = ("long_500k needs sub-quadratic attention; this arch is "
+                  "pure full/global attention (DESIGN.md §Shape-skips)")
 WHISPER_LONG_SKIP = ("whisper decoder context is architecturally 448; the "
                      "encoder is fixed-length — no 500k variant exists")

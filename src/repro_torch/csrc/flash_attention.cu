@@ -12,10 +12,11 @@
 //   (flash_attention_bwd.cu) recomputes P from; serving passes null.  A row
 //   without any key writes -1e30 (its sum of exp(-1e30) terms), as the plain
 //   version does.
-//   Masks are positional from 0 on both sides: causal k <= q, window
-//   k > q - window.  GQA reads kv head h / (Hq / Hkv); grouped K/V are never
-//   materialized.  Any Sq and Skv: the ragged edge is masked here (the
-//   Pallas divisibility assert is a TPU tiling artefact).
+//   Masks are positional from 0 on both sides: causal k <= q, or k < prefix
+//   (the prefix-LM's bidirectional prefix; 0 for none), then window
+//   k > q - window on top.  GQA reads kv head h / (Hq / Hkv); grouped K/V
+//   are never materialized.  Any Sq and Skv: the ragged edge is masked here
+//   (the Pallas divisibility assert is a TPU tiling artefact).
 //
 // Bound on the card: at the main path's shape (B=4, H=20, S=512, dh=128,
 // causal, bf16) one call needs ~5.4 GFLOP (~5.4 us at 989 TFLOP/s bf16)
@@ -34,9 +35,9 @@
 //   inputs to the 2e-4 contract that TF32 tensor cores would break; q is
 //   pre-scaled by 1/sqrt(dh) in f32.  At head dim 256 its tiles take
 //   213,760 B of shared memory (the opt-in limit is 232,448 B).
-// Both skip kv tiles wholly above the causal diagonal or wholly left of the
-// window (unless a row of the block has no key: `first_tile`), and
-// schedule q tiles heaviest first.
+// Both skip kv tiles wholly above the causal diagonal and past the prefix
+// (`causal_end`) or wholly left of the window (unless a row of the block has
+// no key: `first_tile`), and schedule q tiles heaviest first.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,6 +81,14 @@ struct Strides {
   long long b, h, s;
 };
 
+// The end of the kv tiles a block of query rows .. q_last sees under a causal
+// mask: the tile past its last row's key, or past the prefix's last key
+// where the prefix reaches further (capped at the n_tiles there are).
+__device__ __forceinline__ int causal_end(int q_last, int prefix, int n_tiles,
+                                          int tile) {
+  return min(n_tiles, max(q_last, prefix - 1) / tile + 1);
+}
+
 // The first kv tile of a block of query rows q_first .. q_last: the tile
 // of the first row's window start, or tile 0 when some row of the block
 // has no key at all (q - window + 1 >= Skv).  Such a row scores every key
@@ -87,7 +96,8 @@ struct Strides {
 // plain version, and the block must visit every tile; the rows of the
 // block that do have keys drop those tiles' weights when their first
 // unmasked score arrives (the running max rescales them by
-// exp(-1e30 - m) = 0).
+// exp(-1e30 - m) = 0).  A prefix changes neither: the window still bounds
+// every row's keys from below.
 __device__ __forceinline__ int first_tile(int q_first, int q_last, int Skv,
                                           int window, int tile) {
   if (window <= 0 || q_last - window + 1 >= Skv) return 0;
@@ -105,7 +115,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
           int Hq, int Hkv, int Sq, int Skv, Strides qs, Strides ks,
-          Strides vs, Strides os, float scale, int causal, int window) {
+          Strides vs, Strides os, float scale, int causal, int window,
+          int prefix) {
   constexpr int RQ = kBQ / 16;  // rows per thread
   constexpr int CK = kBK / 16;  // key columns per thread
   constexpr int CD = DH / 16;   // output columns per thread
@@ -145,7 +156,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   int kt_end = (Skv + kBK - 1) / kBK;
-  if (causal) kt_end = min(kt_end, (min(q0 + kBQ, Sq) - 1) / kBK + 1);
+  if (causal)
+    kt_end = causal_end(min(q0 + kBQ, Sq) - 1, prefix, kt_end, kBK);
   const int kt_begin =
       first_tile(q0, min(q0 + kBQ, Sq) - 1, Skv, window, kBK);
 
@@ -187,7 +199,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < CK; ++j) {
         const int kj = k0 + tx + 16 * j;
         bool keep = true;
-        if (causal) keep = keep && kj <= qi;
+        if (causal) keep = keep && (kj <= qi || kj < prefix);
         if (window > 0) keep = keep && kj > qi - window;
         if (kj >= Skv) s[i][j] = -INFINITY;   // ragged edge: no weight
         else if (!keep) s[i][j] = kMasked;     // the Pallas body's mask
@@ -243,7 +255,7 @@ template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int Hq, int Hkv, int Sq, int Skv, Strides qs, Strides ks,
            Strides vs, Strides os, float scale, int causal, int window,
-           cudaStream_t stream) {
+           int prefix, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -253,7 +265,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   flash_fwd<T, DH><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hkv, Sq, Skv, qs,
-      ks, vs, os, scale, causal, window);
+      ks, vs, os, scale, causal, window, prefix);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -329,7 +341,8 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ v,
               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Hq,
               int Hkv, int Sq, int Skv, Strides qs, Strides ks, Strides vs,
-              Strides os, float scale_log2, int causal, int window) {
+              Strides os, float scale_log2, int causal, int window,
+              int prefix) {
   using Cf = Cfg<DH>;
   constexpr int BK = Cf::BK;
   constexpr int NB = BK / 8;   // n8 blocks of keys in S
@@ -353,7 +366,8 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* op = o + bb * os.b + h * os.h;
 
   int kt_end = (Skv + BK - 1) / BK;
-  if (causal) kt_end = min(kt_end, (min(q0 + kRows, Sq) - 1) / BK + 1);
+  if (causal)
+    kt_end = causal_end(min(q0 + kRows, Sq) - 1, prefix, kt_end, BK);
   const int kt_begin =
       first_tile(q0, min(q0 + kRows, Sq) - 1, Skv, window, BK);
 
@@ -428,9 +442,10 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
     }
 
     // Scale, mask, online softmax.  s[j][c]: row r0 + 8 (c >> 1), key
-    // k0 + 8 j + 2 (lane & 3) + (c & 1).
+    // k0 + 8 j + 2 (lane & 3) + (c & 1).  A tile wholly inside the prefix
+    // is full under the causal mask even above the diagonal.
     const int k0 = kt * BK;
-    const bool edge = (causal && k0 + BK - 1 > q0) ||
+    const bool edge = (causal && k0 + BK - 1 > q0 && k0 + BK > prefix) ||
                       (window > 0 && k0 <= q0 + kRows - 1 - window) ||
                       k0 + BK > Skv;
     float mx[2] = {-INFINITY, -INFINITY};
@@ -444,7 +459,8 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
           const int qi = r0 + 8 * (c >> 1);
           if (kj >= Skv)
             x = -INFINITY;  // ragged edge: no weight
-          else if ((causal && kj > qi) || (window > 0 && kj <= qi - window))
+          else if ((causal && kj > qi && kj >= prefix) ||
+                   (window > 0 && kj <= qi - window))
             x = kMasked;    // the Pallas body's mask
         }
         s[j][c] = x;
@@ -525,7 +541,7 @@ template <int DH>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int Hq, int Hkv, int Sq, int Skv, Strides qs, Strides ks,
            Strides vs, Strides os, float scale, int causal, int window,
-           cudaStream_t stream) {
+           int prefix, cudaStream_t stream) {
   constexpr int smem = Cfg<DH>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_mma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -536,7 +552,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       lse, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale * 1.4426950408889634f,
-      causal, window);
+      causal, window, prefix);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -547,15 +563,17 @@ template <typename T>
 int dispatch_dh(int route, int dh, const void* q, const void* k,
                 const void* v, void* o, float* lse, int B, int Hq, int Hkv,
                 int Sq, int Skv, Strides qs, Strides ks, Strides vs,
-                Strides os, float scale, int causal, int window,
+                Strides os, float scale, int causal, int window, int prefix,
                 cudaStream_t stream) {
-#define FLASH_CASE(DH)                                                    \
-  case DH:                                                                \
-    return route == ROUTE_MMA                                             \
-               ? mma::launch<DH>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, \
-                                 ks, vs, os, scale, causal, window, stream) \
-               : launch<T, DH>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs,   \
-                               ks, vs, os, scale, causal, window, stream);
+#define FLASH_CASE(DH)                                                     \
+  case DH:                                                                 \
+    return route == ROUTE_MMA                                              \
+               ? mma::launch<DH>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs,  \
+                                 ks, vs, os, scale, causal, window, prefix, \
+                                 stream)                                   \
+               : launch<T, DH>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs,    \
+                               ks, vs, os, scale, causal, window, prefix,   \
+                               stream);
   switch (dh) {
     FLASH_CASE(16)
     FLASH_CASE(32)
@@ -573,7 +591,9 @@ int dispatch_dh(int route, int dh, const void* q, const void* k,
 extern "C" {
 
 // Strides are in elements, for the [B, H, S, dh] index order.  lse: null,
-// or [B, Hq, Sq] f32 for each row's log-sum-exp.  route: 0
+// or [B, Hq, Sq] f32 for each row's log-sum-exp.  prefix: under a causal
+// mask keys below it are seen by every row (0: none; negative refused).
+// route: 0
 // the SIMT kernel (f32 or bf16), 1 the tensor-core kernel (bf16, bases and
 // strides 16-byte aligned; kernels/flash_attention.py `route` checks this
 // before the launch).  Returns cudaGetLastError() after the launch
@@ -586,12 +606,12 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         long long ksb, long long ksh, long long kss,
                         long long vsb, long long vsh, long long vss,
                         long long osb, long long osh, long long oss,
-                        float scale, int causal, int window, int route,
-                        int device, void* stream) {
+                        float scale, int causal, int window, int prefix,
+                        int route, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || Hq <= 0 || Sq <= 0 || Skv <= 0) return 0;
-  if ((route != ROUTE_SIMT && route != ROUTE_MMA) ||
+  if ((route != ROUTE_SIMT && route != ROUTE_MMA) || prefix < 0 ||
       (route == ROUTE_MMA && dtype != DT_BF16))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
@@ -600,9 +620,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   if (dtype == DT_BF16)
     return dispatch_dh<__nv_bfloat16>(route, dh, q, k, v, o, lse, B, Hq, Hkv,
                                       Sq, Skv, qs, ks, vs, os, scale, causal,
-                                      window, s);
+                                      window, prefix, s);
   return dispatch_dh<float>(route, dh, q, k, v, o, lse, B, Hq, Hkv, Sq, Skv,
-                            qs, ks, vs, os, scale, causal, window, s);
+                            qs, ks, vs, os, scale, causal, window, prefix, s);
 }
 
 const char* flash_attention_error_string(int code) {

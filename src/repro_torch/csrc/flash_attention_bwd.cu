@@ -9,8 +9,9 @@
 //   q [B, Hq, Sq, dh], k/v [B, Hkv, Skv, dh], o/dO [B, Hq, Sq, dh] (bf16 |
 //   f32, any strides with a unit stride along dh), lse [B, Hq, Sq] f32
 //   -> dq, dk, dv in the inputs' dtype, written with the strides given.
-//   S = q k^T / sqrt(dh) under the forward's masks (causal k <= q, window
-//   k > q - window, positions from 0 on both sides); P = exp(S - lse) where
+//   S = q k^T / sqrt(dh) under the forward's masks (causal k <= q or
+//   k < prefix, the prefix-LM's bidirectional prefix; window k > q - window
+//   on top; positions from 0 on both sides); P = exp(S - lse) where
 //   a key is seen, 0 where it is not; D = rowsum(dO * O); dV = P^T dO;
 //   dP = dO V^T; dS = P * (dP - D); dQ = dS K / sqrt(dh);
 //   dK = dS^T Q / sqrt(dh); dK and dV sum over the Hq / Hkv query heads of
@@ -24,13 +25,14 @@
 // * `flash_bwd_dq`: one block per (q tile of 64 rows, q head, batch),
 //   heaviest tiles first.  It computes D for its rows and writes it to a
 //   scratch row the wrapper allocates, then walks the kv tiles its rows see
-//   (the forward's causal and window skipping) and sums dQ in registers,
-//   written once.
+//   (the forward's causal, prefix and window skipping) and sums dQ in
+//   registers, written once.
 // * `flash_bwd_dkv`: one block per (kv tile of 64 keys, kv head, batch).
 //   It walks the query heads of its GQA group and the q tiles that see its
-//   kv tile (from the causal diagonal down to the window's last row, and the
-//   tiles holding rows without a key), reads D, and sums dK and dV in
-//   registers, written once.
+//   kv tile (from the causal diagonal, or from the first row for a tile
+//   that holds a prefix key, down to the window's last row, and the tiles
+//   holding rows without a key), reads D, and sums dK and dV in registers,
+//   written once.
 // No float atomics: each output element is one thread's sum in a fixed
 // order, so two calls on the same inputs give the same bits.
 //
@@ -104,12 +106,36 @@ struct Args {
   float* D;  // [B, Hq, Sq] scratch: flash_bwd_dq writes it, dkv reads it
   T *dq, *dk, *dv;
   Strides qs, ks, vs, os, dos, dqs, dks, dvs;
-  int Hq, Hkv, Sq, Skv, causal, window;
+  int Hq, Hkv, Sq, Skv, causal, window, prefix;
   float scale;  // 1 / sqrt(dh)
 };
 
-__device__ __forceinline__ bool sees(int qi, int kj, int causal, int window) {
-  return (!causal || kj <= qi) && (window <= 0 || kj > qi - window);
+__device__ __forceinline__ bool sees(int qi, int kj, int causal, int window,
+                                     int prefix) {
+  return (!causal || kj <= qi || kj < prefix) &&
+         (window <= 0 || kj > qi - window);
+}
+
+// The last key a block of query rows .. q_last sees under a causal mask:
+// q_last, or the prefix's last key where the prefix reaches past it.
+__device__ __forceinline__ int causal_last(int q_last, int prefix) {
+  return max(q_last, prefix - 1);
+}
+
+// A tile of `keys` keys from k0 that the causal mask cuts for query rows
+// from q0: some key lies past the first row and past the prefix (a tile
+// wholly inside the prefix is seen by every row).
+__device__ __forceinline__ bool causal_cuts(int causal, int k0, int keys,
+                                            int q0, int prefix) {
+  return causal && k0 + keys - 1 > q0 && k0 + keys > prefix;
+}
+
+// The first q tile of `rows` rows that sees key tile k0 under the masks:
+// the diagonal's, or 0 when the tile holds a prefix key (seen by every
+// row) or no causal mask applies.
+__device__ __forceinline__ int first_q_tile(int causal, int k0, int rows,
+                                            int prefix) {
+  return causal && k0 >= prefix ? k0 / rows : 0;
 }
 
 // Query row qi sees no key at all (then its softmax is uniform).
@@ -196,7 +222,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(Args<T> a) {
   // its dQ stays 0
   const int q_last = min(q0 + kBQ, a.Sq) - 1;
   int kt_end = (a.Skv + kBK - 1) / kBK;
-  if (a.causal) kt_end = min(kt_end, q_last / kBK + 1);
+  if (a.causal) kt_end = min(kt_end, causal_last(q_last, a.prefix) / kBK + 1);
   const int kt_begin = a.window > 0 ? max(q0 - a.window + 1, 0) / kBK : 0;
 
   float acc[RQ][CD];
@@ -245,7 +271,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(Args<T> a) {
       for (int j = 0; j < CK; ++j) {
         const int kj = k0 + tx + 16 * j;
         float ds = 0.f;
-        if (qi < a.Sq && kj < a.Skv && sees(qi, kj, a.causal, a.window))
+        if (qi < a.Sq && kj < a.Skv &&
+            sees(qi, kj, a.causal, a.window, a.prefix))
           ds = expf(s[i][j] - Ls[r]) * (dp[i][j] - Ds[r]);
         dSs[r * (kBK + 1) + tx + 16 * j] = ds;
       }
@@ -303,7 +330,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv(Args<T> a) {
   // then from qt_nokey on the tiles that hold rows without a key
   const int n_qt = (a.Sq + kBQ - 1) / kBQ;
   const int k_last = min(k0 + kBK, a.Skv) - 1;
-  const int qt_lo = a.causal ? k0 / kBQ : 0;
+  const int qt_lo = first_q_tile(a.causal, k0, kBQ, a.prefix);
   const long long reach = a.window > 0
                               ? static_cast<long long>(k_last) + a.window - 1
                               : static_cast<long long>(a.Sq) - 1;
@@ -380,7 +407,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv(Args<T> a) {
           const int r = tx + 16 * j, qi = q0 + r;
           float p = 0.f, ds = 0.f;
           if (qi < a.Sq && kj < a.Skv) {
-            if (sees(qi, kj, a.causal, a.window)) {
+            if (sees(qi, kj, a.causal, a.window, a.prefix)) {
               p = expf(s[i][j] - Ls[r]);
               ds = p * (dp[i][j] - Ds[r]);
             } else if (no_key(qi, a.Skv, a.window)) {
@@ -612,7 +639,7 @@ flash_bwd_dq_mma(Args<bf16> a) {
   // dQ stays 0
   const int q_last = min(q0 + kTile, a.Sq) - 1;
   int kt_end = (a.Skv + BK - 1) / BK;
-  if (a.causal) kt_end = min(kt_end, q_last / BK + 1);
+  if (a.causal) kt_end = min(kt_end, causal_last(q_last, a.prefix) / BK + 1);
   const int kt_begin = a.window > 0 ? max(q0 - a.window + 1, 0) / BK : 0;
 
   load_tile<DH, kTile>(Qs, a.q + bb * a.qs.b + h * a.qs.h, a.qs.s, q0, a.Sq);
@@ -705,7 +732,7 @@ flash_bwd_dq_mma(Args<bf16> a) {
     // s[j][c]: row r0 + 8 (c >> 1), key k0 + 8 j + 2 (lane & 3) + (c & 1).
     // Rows past Sq have zero dO and D, so their dS is 0 unmasked.
     const int k0 = kt * BK;
-    const bool edge = (a.causal && k0 + BK - 1 > q0) ||
+    const bool edge = causal_cuts(a.causal, k0, BK, q0, a.prefix) ||
                       (a.window > 0 && k0 <= q0 + kTile - 1 - a.window) ||
                       k0 + BK > a.Skv;
 #pragma unroll
@@ -716,7 +743,8 @@ flash_bwd_dq_mma(Args<bf16> a) {
         if (edge) {
           const int kj = k0 + 8 * j + 2 * (lane & 3) + (c & 1);
           const int qi = r0 + 8 * (c >> 1);
-          if (kj >= a.Skv || !sees(qi, kj, a.causal, a.window)) p = 0.f;
+          if (kj >= a.Skv || !sees(qi, kj, a.causal, a.window, a.prefix))
+            p = 0.f;
         }
         ds[j][c] = p * (ds[j][c] - dd[c >> 1]);
       }
@@ -759,7 +787,7 @@ flash_bwd_dkv_mma(Args<bf16> a) {
   // the q tiles of each query head, as flash_bwd_dkv walks them
   const int n_qt = (a.Sq + BQ - 1) / BQ;
   const int k_last = min(k0 + kTile, a.Skv) - 1;
-  const int qt_lo = a.causal ? k0 / BQ : 0;
+  const int qt_lo = first_q_tile(a.causal, k0, BQ, a.prefix);
   const long long reach = a.window > 0
                               ? static_cast<long long>(k_last) + a.window - 1
                               : static_cast<long long>(a.Sq) - 1;
@@ -844,7 +872,7 @@ flash_bwd_dkv_mma(Args<bf16> a) {
     // s[j][c]: key kr + 8 (c >> 1), query row q0 + 8 j + 2 (lane & 3) +
     // (c & 1)
     const int q0 = qt * BQ;
-    const bool edge = (a.causal && k0 + kTile - 1 > q0) ||
+    const bool edge = causal_cuts(a.causal, k0, kTile, q0, a.prefix) ||
                       (a.window > 0 && k0 <= q0 + BQ - 1 - a.window) ||
                       k0 + kTile > a.Skv || q0 + BQ > a.Sq;
 #pragma unroll
@@ -861,7 +889,7 @@ flash_bwd_dkv_mma(Args<bf16> a) {
           const int kj = kr + 8 * (c >> 1), qi = q0 + col + (c & 1);
           if (qi >= a.Sq || kj >= a.Skv) {
             p = g = 0.f;
-          } else if (!sees(qi, kj, a.causal, a.window)) {
+          } else if (!sees(qi, kj, a.causal, a.window, a.prefix)) {
             g = 0.f;
             p = no_key(qi, a.Skv, a.window) ? uniform : 0.f;
           }
@@ -1051,7 +1079,8 @@ flash_bwd_dq_mma256(Args<bf16> a) {
   // dQ stays 0
   const int q_last = min(q0 + kRows, a.Sq) - 1;
   int kt_end = (a.Skv + kKeys - 1) / kKeys;
-  if (a.causal) kt_end = min(kt_end, q_last / kKeys + 1);
+  if (a.causal)
+    kt_end = min(kt_end, causal_last(q_last, a.prefix) / kKeys + 1);
   const int kt_begin =
       a.window > 0 ? max(q0 - a.window + 1, 0) / kKeys : 0;
 
@@ -1142,7 +1171,7 @@ flash_bwd_dq_mma256(Args<bf16> a) {
     // s[j][c]: row r0 + 8 (c >> 1), key k0 + 32 hf + 8 j + 2 (lane & 3)
     // + (c & 1).  Rows past Sq have zero dO and D, so their dS is 0.
     const int k0 = kt * kKeys;
-    const bool edge = (a.causal && k0 + kKeys - 1 > q0) ||
+    const bool edge = causal_cuts(a.causal, k0, kKeys, q0, a.prefix) ||
                       (a.window > 0 && k0 <= q0 + kRows - 1 - a.window) ||
                       k0 + kKeys > a.Skv;
 #pragma unroll
@@ -1153,7 +1182,8 @@ flash_bwd_dq_mma256(Args<bf16> a) {
         if (edge) {
           const int kj = k0 + 32 * hf + 8 * j + 2 * (lane & 3) + (c & 1);
           const int qi = r0 + 8 * (c >> 1);
-          if (kj >= a.Skv || !sees(qi, kj, a.causal, a.window)) p = 0.f;
+          if (kj >= a.Skv || !sees(qi, kj, a.causal, a.window, a.prefix))
+            p = 0.f;
         }
         dp[j][c] = p * (dp[j][c] - dd[c >> 1]);
       }
@@ -1204,7 +1234,7 @@ flash_bwd_dkv_mma256(Args<bf16> a, int groups, float* part) {
   // the q tiles of each query head, as flash_bwd_dkv walks them
   const int n_qt = (a.Sq + kQRows - 1) / kQRows;
   const int k_last = min(k0 + kRows, a.Skv) - 1;
-  const int qt_lo = a.causal ? k0 / kQRows : 0;
+  const int qt_lo = first_q_tile(a.causal, k0, kQRows, a.prefix);
   const long long reach = a.window > 0
                               ? static_cast<long long>(k_last) + a.window - 1
                               : static_cast<long long>(a.Sq) - 1;
@@ -1293,7 +1323,7 @@ flash_bwd_dkv_mma256(Args<bf16> a, int groups, float* part) {
     // s[j][c]: key kr + 8 (c >> 1), query row q0 + 32 hf + 8 j +
     // 2 (lane & 3) + (c & 1)
     const int q0 = qt * kQRows;
-    const bool edge = (a.causal && k0 + kRows - 1 > q0) ||
+    const bool edge = causal_cuts(a.causal, k0, kRows, q0, a.prefix) ||
                       (a.window > 0 && k0 <= q0 + kQRows - 1 - a.window) ||
                       k0 + kRows > a.Skv || q0 + kQRows > a.Sq;
 #pragma unroll
@@ -1310,7 +1340,7 @@ flash_bwd_dkv_mma256(Args<bf16> a, int groups, float* part) {
           const int kj = kr + 8 * (c >> 1), qi = q0 + col + (c & 1);
           if (qi >= a.Sq || kj >= a.Skv) {
             p = gr = 0.f;
-          } else if (!sees(qi, kj, a.causal, a.window)) {
+          } else if (!sees(qi, kj, a.causal, a.window, a.prefix)) {
             gr = 0.f;
             p = no_key(qi, a.Skv, a.window) ? uniform : 0.f;
           }
@@ -1488,8 +1518,8 @@ template <typename T>
 int run(const void* q, const void* k, const void* v, const void* o,
         const void* dO, const float* lse, float* D, void* dq, void* dk,
         void* dv, int B, int Hq, int Hkv, int Sq, int Skv, int dh,
-        const long long* st, float scale, int causal, int window, int route,
-        int groups, float* part, cudaStream_t stream) {
+        const long long* st, float scale, int causal, int window, int prefix,
+        int route, int groups, float* part, cudaStream_t stream) {
   Args<T> a;
   a.q = static_cast<const T*>(q);
   a.k = static_cast<const T*>(k);
@@ -1511,6 +1541,7 @@ int run(const void* q, const void* k, const void* v, const void* o,
   a.Skv = Skv;
   a.causal = causal;
   a.window = window;
+  a.prefix = prefix;
   a.scale = scale;
   return dispatch_dh<T>(route, dh, a, B, groups, part, stream);
 }
@@ -1521,7 +1552,9 @@ extern "C" {
 
 // strides: 24 element strides, the batch, head and sequence strides of q,
 // k, v, o, dO, dq, dk and dv in that order (the [B, H, S, dh] index order;
-// the stride along dh is 1).  D: [B, Hq, Sq] f32 scratch.  route: 0 the
+// the stride along dh is 1).  D: [B, Hq, Sq] f32 scratch.  prefix: under a
+// causal mask keys below it are seen by every row (0: none; negative
+// refused).  route: 0 the
 // SIMT kernels (f32 or bf16), 1 the tensor-core kernels (bf16 at head dims
 // 64, 128 and 256, bases and strides 16-byte aligned; kernels/
 // flash_attention.py `bwd_route` checks this before the launch).  groups:
@@ -1538,22 +1571,23 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                         float* D, void* dq, void* dk, void* dv, int B, int Hq,
                         int Hkv, int Sq, int Skv, int dh, int dtype,
                         const long long* strides, float scale, int causal,
-                        int window, int route, int groups, float* part,
-                        int device, void* stream) {
+                        int window, int prefix, int route, int groups,
+                        float* part, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0) return 0;
-  if (Hq % Hkv != 0 || (route != ROUTE_SIMT && route != ROUTE_MMA))
+  if (Hq % Hkv != 0 || prefix < 0 ||
+      (route != ROUTE_SIMT && route != ROUTE_MMA))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_BF16)
     return run<__nv_bfloat16>(q, k, v, o, dO, lse, D, dq, dk, dv, B, Hq, Hkv,
                               Sq, Skv, dh, strides, scale, causal, window,
-                              route, groups, part, s);
+                              prefix, route, groups, part, s);
   if (dtype == DT_F32)
     return run<float>(q, k, v, o, dO, lse, D, dq, dk, dv, B, Hq, Hkv, Sq, Skv,
-                      dh, strides, scale, causal, window, route, groups, part,
-                      s);
+                      dh, strides, scale, causal, window, prefix, route,
+                      groups, part, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

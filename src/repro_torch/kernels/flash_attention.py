@@ -6,8 +6,10 @@ with ``kernels/ref.py::attention_ref`` as the plain version.
 
     q [B, Hq, Sq, dh], k/v [B, Hkv, Skv, dh] -> [B, Hq, Sq, dh] in q's dtype
 
-Masks are positional from 0 on both sides (causal ``k <= q``, window
-``k > q - window``); GQA maps q head ``h`` to kv head ``h // (Hq/Hkv)``.
+Masks are positional from 0 on both sides (causal ``k <= q``, or ``k <
+prefix_len`` for the prefix-LM's bidirectional prefix, as the reference's
+``models/common.py::chunked_attention`` masks; window ``k > q - window``
+on top); GQA maps q head ``h`` to kv head ``h // (Hq/Hkv)``.
 ``flash_attention_cuda`` launches ``csrc/flash_attention.cu`` on tensors
 of any strides with a unit stride along ``dh`` — a ``[B, S, H, dh]``
 activation passes as its ``transpose(1, 2)`` view, with no copy — and
@@ -92,13 +94,17 @@ def dkv_groups(dh: int, rep: int, hkv: int, b: int, skv: int) -> int:
                  if rep % g == 0 and blocks * g >= DKV_BLOCKS), rep)
 
 
-def _mask(sq: int, skv: int, causal: bool, window: int, device):
+def _mask(sq: int, skv: int, causal: bool, window: int, device,
+          prefix_len: int = 0):
     """[Sq, Skv] bool: query row i sees key j (positions from 0)."""
     q_pos = torch.arange(sq, device=device)[:, None]
     k_pos = torch.arange(skv, device=device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
     if causal:
-        mask = mask & (k_pos <= q_pos)
+        seen = k_pos <= q_pos
+        if prefix_len > 0:
+            seen = seen | (k_pos < prefix_len)
+        mask = mask & seen
     if window > 0:
         mask = mask & (k_pos > q_pos - window)
     return mask
@@ -110,39 +116,42 @@ def _grouped(t, hkv: int):
     return t.reshape(b, hkv, hq // hkv, s, dh).to(torch.float32)
 
 
-def _logits(q, k, causal: bool, window: int):
+def _logits(q, k, causal: bool, window: int, prefix_len: int = 0):
     """Scaled logits [B, Hkv, rep, Sq, Skv] f32, masked to -1e30, and the
     mask."""
     dh, skv = q.shape[-1], k.shape[2]
-    mask = _mask(q.shape[2], skv, causal, window, q.device)
+    mask = _mask(q.shape[2], skv, causal, window, q.device, prefix_len)
     s = torch.einsum("bkrqd,bksd->bkrqs", _grouped(q, k.shape[1]),
                      k.to(torch.float32)) / math.sqrt(dh)
     return torch.where(mask, s, NEG_INF), mask
 
 
-def _attend(q, k, v, causal: bool, window: int):
+def _attend(q, k, v, causal: bool, window: int, prefix_len: int = 0):
     """(out [B, Hq, Sq, dh] in q's dtype, the masked logits)."""
-    s, _ = _logits(q, k, causal, window)
+    s, _ = _logits(q, k, causal, window, prefix_len)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkrqs,bksd->bkrqd", p, v.to(torch.float32))
     return o.reshape(q.shape).to(q.dtype), s
 
 
-def attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
-    """Dense softmax attention in f32 (port of ``attention_ref``)."""
-    return _attend(q, k, v, causal, window)[0]
+def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                    prefix_len: int = 0):
+    """Dense softmax attention in f32 (port of ``attention_ref``, with the
+    reference's ``prefix_len`` of ``chunked_attention``)."""
+    return _attend(q, k, v, causal, window, prefix_len)[0]
 
 
-def attention_plain_lse(q, k, v, *, causal: bool = True, window: int = 0):
+def attention_plain_lse(q, k, v, *, causal: bool = True, window: int = 0,
+                        prefix_len: int = 0):
     """``attention_plain`` and each row's log-sum-exp of its scaled, masked
     logits: (out [B, Hq, Sq, dh] in q's dtype, lse [B, Hq, Sq] f32).  A row
     without any key has lse -1e30 (-1e30 + log Skv, rounded)."""
-    o, s = _attend(q, k, v, causal, window)
+    o, s = _attend(q, k, v, causal, window, prefix_len)
     return o, torch.logsumexp(s, dim=-1).reshape(q.shape[:3])
 
 
 def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
-                        window: int = 0):
+                        window: int = 0, prefix_len: int = 0):
     """The attention backward in the kernel's algebra, in f32: (dq, dk, dv)
     in the dtypes of q, k, v.  ``o`` and ``lse`` are the forward's output
     and log-sum-exp, ``do`` the output's gradient.
@@ -155,7 +164,7 @@ def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     nothing to dQ or dK, as the reference's ``where`` mask gives."""
     hkv, skv, dh = k.shape[1], k.shape[2], q.shape[-1]
     scale = 1.0 / math.sqrt(dh)
-    s, mask = _logits(q, k, causal, window)
+    s, mask = _logits(q, k, causal, window, prefix_len)
     lg = lse.reshape(s.shape[:4])[..., None]
     p = torch.where(mask, torch.exp(s - lg), 0.0)
     p = torch.where(mask.any(-1, keepdim=True), p, 1.0 / max(skv, 1))
@@ -173,12 +182,12 @@ _L, _I, _P = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
 _SIGNATURES = {
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                            ctypes.c_float, _I, _I, _I, _I, _P],
+                            ctypes.c_float, _I, _I, _I, _I, _I, _P],
 }
 _BWD_SIGNATURES = {
     "flash_attention_bwd": [_P] * 10 + [_I] * 7
                            + [ctypes.POINTER(_L), ctypes.c_float, _I, _I,
-                              _I, _I, _P, _I, _P],
+                              _I, _I, _I, _P, _I, _P],
 }
 
 
@@ -215,12 +224,19 @@ def _empty_like(t):
     return out
 
 
+def _check_prefix(prefix_len):
+    if prefix_len < 0:
+        raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
+    return int(prefix_len)
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
-                         with_lse: bool = False):
+                         prefix_len: int = 0, with_lse: bool = False):
     """Launch the flash kernel on CUDA tensors (bf16 | f32), on the route
     ``route`` picks (counted in ``ROUTES``).  With ``with_lse`` returns
     (out, lse [B, Hq, Sq] f32), the rows' log-sum-exp the backward reads."""
     _check_qkv(q, k, v, HEAD_DIMS)
+    prefix_len = _check_prefix(prefix_len)
     b, hq, sq, dh = q.shape
     _, hkv, skv, _ = k.shape
     out = _empty_like(q)
@@ -234,24 +250,27 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
         *(t.data_ptr() for t in tensors),
         None if lse is None else lse.data_ptr(), b, hq, hkv, sq, skv, dh,
         _DTYPES[q.dtype], *strides, 1.0 / math.sqrt(dh), int(bool(causal)),
-        int(window), _ROUTE_IDS[how], q.device.index, build.stream_of(q))
+        int(window), prefix_len, _ROUTE_IDS[how], q.device.index,
+        build.stream_of(q))
     build.check("flash_attention", code, f"flash_attention launch ({how})")
     ROUTES[how] += 1
     return (out, lse) if with_lse else out
 
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
-                             window: int = 0):
+                             window: int = 0, prefix_len: int = 0):
     """Launch the backward kernels on CUDA tensors, on the route
     ``bwd_route`` picks (counted in ``BWD_ROUTES``): (dq, dk, dv) with the
     dtypes of q, k, v and, where dense, their strides.  ``o`` and ``lse``
     come from ``flash_attention_cuda(..., with_lse=True)`` on the same
-    inputs and masks; ``do`` may have any strides (one without a unit
-    stride along dh is copied first).  Two launches: dQ with D, then dK
+    inputs and masks (``causal``, ``window``, ``prefix_len``); ``do`` may
+    have any strides (one without a unit stride along dh is copied
+    first).  Two launches: dQ with D, then dK
     and dV, and at head dim 256 on "mma" with ``dkv_groups`` > 1 a third
     that adds the groups' f32 partials (scratch allocated here); none
     where Sq or Skv is 0, and the gradients are zeros."""
     _check_qkv(q, k, v, BWD_HEAD_DIMS)
+    prefix_len = _check_prefix(prefix_len)
     b, hq, sq, dh = q.shape
     _, hkv, skv, _ = k.shape
     if do.stride(-1) != 1:
@@ -282,9 +301,9 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     code = lib.flash_attention_bwd(
         *(t.data_ptr() for t in (q, k, v, o, do, lse, d, dq, dk, dv)),
         b, hq, hkv, sq, skv, dh, _DTYPES[q.dtype], (_L * 24)(*flat),
-        1.0 / math.sqrt(dh), int(bool(causal)), int(window), _ROUTE_IDS[how],
-        groups, None if part is None else part.data_ptr(), q.device.index,
-        build.stream_of(q))
+        1.0 / math.sqrt(dh), int(bool(causal)), int(window), prefix_len,
+        _ROUTE_IDS[how], groups, None if part is None else part.data_ptr(),
+        q.device.index, build.stream_of(q))
     build.check("flash_attention_bwd", code,
                 f"flash_attention_bwd launch ({how})")
     BWD_ROUTES[how] += 1

@@ -72,30 +72,36 @@ class _Flash(torch.autograd.Function):
     and the backward kernels as one autograd node."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, prefix_len):
         out, lse = _fa.flash_attention_cuda(q, k, v, causal=causal,
-                                            window=window, with_lse=True)
+                                            window=window,
+                                            prefix_len=prefix_len,
+                                            with_lse=True)
         LAUNCHES["flash_attention"] += 1
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.masks = dict(causal=causal, window=window, prefix_len=prefix_len)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _fa.flash_attention_bwd_cuda(
-            q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window)
+        dq, dk, dv = _fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                                  **ctx.masks)
         LAUNCHES["flash_attention_bwd"] += 1
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q [B,Hq,S,dh], k/v [B,Hkv,S,dh] -> [B,Hq,S,dh]."""
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    prefix_len: int = 0):
+    """q [B,Hq,S,dh], k/v [B,Hkv,S,dh] -> [B,Hq,S,dh].  Under ``causal``
+    the first ``prefix_len`` keys are seen by every row (prefix-LM)."""
     if not _on_cuda(q):
-        return _fa.attention_plain(q, k, v, causal=causal, window=window)
+        return _fa.attention_plain(q, k, v, causal=causal, window=window,
+                                   prefix_len=prefix_len)
     if _records_grad(q, k, v):
-        return _Flash.apply(q, k, v, causal, window)
-    out = _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        return _Flash.apply(q, k, v, causal, window, prefix_len)
+    out = _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                   prefix_len=prefix_len)
     LAUNCHES["flash_attention"] += 1
     return out
 

@@ -37,6 +37,10 @@ one-pass prefill caches each decoder layer's cross K/V, and
 ``--token-loop-prefill`` encodes, fills them (``LM.fill_cross_kv``) and
 then feeds the prompt.  ``--continuous`` and ``--split-cut`` raise
 ``ValueError`` on it, as the reference's engine and ``SplitDecode`` do.
+The prefix-LM paligemma-3b serves static only and always by the token
+loop, as the reference's CLI does: like it, the CLI feeds no patch
+embeddings (``LM.prefill_with_cache`` takes them from a caller);
+``--continuous`` and ``--split-cut`` raise ``ValueError``.
 
 PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \
     --size full --batch 4 --prompt-len 512 --gen 32
@@ -68,6 +72,8 @@ PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
     --size full --batch 8 --prompt-len 224 --gen 224
 PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
     --size full --batch 8 --prompt-len 224 --gen 224 --token-loop-prefill
+PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \
+    --size full --batch 4 --prompt-len 128 --gen 32
 """
 from __future__ import annotations
 
@@ -116,12 +122,14 @@ def _static_serve(model, params, prompts, args, cache_len,
     steps.  Emitted tokens [batch, gen]: the prefill's argmax seeds the
     first decode, and each decode's sampled token is emitted after it
     runs.  ``frames`` (an encoder-decoder's stub frame embeddings) are
-    encoded in the prefill; the decode steps read the cached cross K/V."""
+    encoded in the prefill; the decode steps read the cached cross K/V.
+    The vlm family takes the token loop whatever the flags, as the
+    reference's CLI does."""
     dev = model.device
     _sync(dev)
     before = dict(ops.LAUNCHES)
     t0 = time.perf_counter()
-    if args.token_loop_prefill:
+    if args.token_loop_prefill or model.cfg.family == "vlm":
         cache = model.init_cache(prompts.shape[0], cache_len, torch.float32)
         if frames is not None:
             model.fill_cross_kv(params, model._encode(params, frames), cache)

@@ -41,14 +41,18 @@ cell and, for an MoE model, the load-balance aux; ``--metrics-out`` writes
 every step's row as a JSON list.
 
 Which arch trains by which path: the homogeneous stacks (``rwkv6-3b``,
-``qwen1.5-4b``, ``granite-moe-3b-a800m`` and the
-encoder-decoder ``whisper-small``) by either; the hybrid
+``qwen1.5-4b``, ``granite-moe-3b-a800m``, the
+encoder-decoder ``whisper-small`` and the prefix-LM ``paligemma-3b``) by
+either; the hybrid
 ``recurrentgemma-2b`` (RG-LRU and local-attention layers) by
 ``--microbatches`` accumulation only, since the pipeline takes a
 homogeneous stack, as the reference asserts.  whisper-small's batches
 carry stub frame embeddings [batch, enc_seq, d_model] f32 from a stream of
 their own (``build_batch_iter``, seed + 2, as the reference draws them);
 its encoder runs once a batch, outside the pipeline's hop.
+paligemma-3b's carry stub patch embeddings [batch, num_patches, d_model]
+f32 (seed + 1), put before the tokens with labels -1: the pipeline's hops
+carry those rows too.
 
 PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-4b \
     --size full --pipeline-stages 2 --virtual-stages 2 --pipeline-k 4 \
@@ -61,6 +65,9 @@ PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \
 PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \
     --size full --pipeline-stages 2 --pipeline-k 4 --wire-dtype int8 \
     --batch 32 --seq 448 --steps 3 --log-every 1
+PYTHONPATH=src python -m repro_torch.launch.train --arch paligemma-3b \
+    --size full --pipeline-stages 2 --pipeline-k 4 --wire-dtype int8 \
+    --batch 8 --seq 512 --steps 3 --log-every 1
 """
 from __future__ import annotations
 
@@ -128,18 +135,24 @@ def parse_args(argv=None):
 
 def build_batch_iter(cfg, batch: int, seq: int, seed: int = 0):
     """The training batches (the reference's ``build_batch_iter``): the
-    token task's, and for an encoder-decoder stub frames [batch, enc_seq,
-    d_model] f32 drawn from ``default_rng(seed + 2)``, one draw a batch."""
+    token task's, with one draw a batch of stub inputs from their own
+    stream: for the vlm family patch embeddings [batch, num_patches,
+    d_model] f32 from ``default_rng(seed + 1)``, for an encoder-decoder
+    frames [batch, enc_seq, d_model] f32 from ``default_rng(seed + 2)``."""
     gen = token_batches(TokenTaskConfig(vocab=cfg.vocab), batch, seq,
                         seed=seed)
-    if not cfg.enc_layers:
+    if cfg.family == "vlm":
+        key, offset, rows = "patch_embeds", 1, cfg.num_patches
+    elif cfg.enc_layers:
+        key, offset, rows = "frames", 2, cfg.enc_seq
+    else:
         return gen
-    rng = np.random.default_rng(seed + 2)
+    rng = np.random.default_rng(seed + offset)
 
     def it():
         for b in gen:
-            b["frames"] = rng.standard_normal(
-                (batch, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+            b[key] = rng.standard_normal(
+                (batch, rows, cfg.d_model)).astype(np.float32)
             yield b
     return it()
 

@@ -316,16 +316,18 @@ def _kv_into_cache(k, v, state, ring: bool = False):
 # --------------------------------------------------------------------------
 
 def apply_block(p, x, cfg: LMConfig, kind: str, *, positions=None,
-                enc_out=None):
+                enc_out=None, prefix_len: int = 0):
     """x: [B, S, D] -> ([B, S, D], aux loss).  The full-sequence forward
     that training runs; positions are 0..S-1 (RWKV and the encoder use
     none).  An attention or recurrent block is the prefill without a
     state to fill; its aux loss is the MoE's, or 0.  An "xattn" block
-    attends to the encoder memory ``enc_out`` [B, Se, D]."""
+    attends to the encoder memory ``enc_out`` [B, Se, D]; ``prefix_len``
+    is the self-attention's bidirectional prefix (``chunked_attention``)."""
     if positions is None and kind not in ("rwkv", "enc"):
         positions = torch.arange(x.shape[1], device=x.device)
     x, aux = apply_block_prefill(p, x, cfg, kind, positions=positions,
-                                 state=None, enc_out=enc_out)
+                                 state=None, enc_out=enc_out,
+                                 prefix_len=prefix_len)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
@@ -336,12 +338,15 @@ def apply_block(p, x, cfg: LMConfig, kind: str, *, positions=None,
 # --------------------------------------------------------------------------
 
 def apply_block_prefill(p, x, cfg: LMConfig, kind: str, *, positions, state,
-                        enc_out=None):
+                        enc_out=None, prefix_len: int = 0):
     """x: [B, S, D] -> ([B, S, D], the MoE's aux loss or None); fills
     ``state`` (this layer's decode state) in place, unless it is None.
     An RWKV block takes no positions: it is causal by its recurrence.  An
     "enc" block is non-causal and takes no RoPE (and no state); an
-    "xattn" block also fills the cross K/V of ``enc_out``."""
+    "xattn" block also fills the cross K/V of ``enc_out``.  The first
+    ``prefix_len`` positions attend bidirectionally (the vlm family's
+    patch prefix); decode needs no such mask, since every cached key
+    then lies at or below the decoding position."""
     _require(kind, SERVE_KINDS if state is not None else BLOCK_KINDS)
     dt = x.dtype
     if kind == "rwkv":
@@ -362,7 +367,8 @@ def apply_block_prefill(p, x, cfg: LMConfig, kind: str, *, positions, state,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     window = cfg.window if kind == "local" else 0
-    att = chunked_attention(q, k, v, causal=kind != "enc", window=window)
+    att = chunked_attention(q, k, v, causal=kind != "enc", window=window,
+                            prefix_len=prefix_len)
     if state is not None:
         _kv_into_cache(k, v, state, ring=kind == "local")
     x = _attn_out(p["attn"], att, x, cfg, dt)

@@ -88,17 +88,20 @@ def apply_rope(x, positions, theta: float = 10000.0):
 
 # --- attention --------------------------------------------------------------
 
-def chunked_attention(q, k, v, *, causal: bool, window: int = 0):
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      prefix_len: int = 0):
     """Attention over a whole sequence at positions 0..S-1 on both sides
     (the prefill case of the reference's ``chunked_attention``).
 
     q: [B, Sq, Hq, dh]; k, v: [B, Skv, Hkv, dh] -> [B, Sq, Hq, dh].
-    The flash kernel reads the [B, S, H, dh] tensors through their
-    transposed views (strides, no copy) and writes its output in the
-    same layout.  Prefix-LM masking (``prefix_len``) is not ported yet.
+    ``prefix_len`` > 0 makes positions below it bidirectional under the
+    causal mask (the vlm family's prefix-LM masking).  The flash kernel
+    reads the [B, S, H, dh] tensors through their transposed views
+    (strides, no copy) and writes its output in the same layout.
     """
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal, window=window)
+                              v.transpose(1, 2), causal=causal, window=window,
+                              prefix_len=prefix_len)
     return out.transpose(1, 2)
 
 

@@ -10,7 +10,11 @@ Port of the JAX package's ``models/lm.py`` for
   * the encoder-decoder (whisper: stub frame embeddings + sinusoids
     through a stack of ``"enc"`` blocks and ``enc_norm``, ``_encode``; a
     homogeneous decoder of ``"xattn"`` blocks that attend to its output;
-    untied head; forward, prefill with cache, ``fill_cross_kv``, decode).
+    untied head; forward, prefill with cache, ``fill_cross_kv``, decode);
+  * the vlm family (paligemma: stub patch embeddings before the tokens,
+    attended bidirectionally as a prefix, ``_with_prefix``; a homogeneous
+    ``"attn"`` stack with tied embeddings; forward, prefill with cache,
+    decode).
 Parameters are a tree of nested dicts in the reference's layout: block
 weights stacked ``[L, ...]`` for a homogeneous stack, a tuple of
 per-layer trees for a heterogeneous one (and the decode cache likewise).
@@ -90,15 +94,18 @@ def _sin_pos(seq: int, d: int, offset: int = 0, *, device=None):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def prefill_blocks(cfg: LMConfig, blocks, x, cache, enc_out=None):
+def prefill_blocks(cfg: LMConfig, blocks, x, cache, enc_out=None,
+                   prefix_len: int = 0):
     """Run a block tree over x [B, S, D] (positions 0..S-1), filling
     ``cache`` (one decode state per layer, ``init_cache``) in place; an
-    "xattn" layer attends to (and caches the K/V of) ``enc_out``."""
+    "xattn" layer attends to (and caches the K/V of) ``enc_out``; the
+    first ``prefix_len`` positions attend bidirectionally."""
     positions = torch.arange(x.shape[1], device=x.device)
     for p, st, kind in zip(layers_of(blocks), layers_of(cache),
                            _kinds(cfg, blocks), strict=True):
         x, _ = apply_block_prefill(p, x, cfg, kind, positions=positions,
-                                   state=st, enc_out=enc_out)
+                                   state=st, enc_out=enc_out,
+                                   prefix_len=prefix_len)
     return x                                         # serving drops the aux
 
 
@@ -162,18 +169,20 @@ def unstack(blocks, dt) -> list:
 
 
 def run_blocks(cfg: LMConfig, layers: list, x, kinds: tuple | None = None,
-               enc_out=None):
+               enc_out=None, prefix_len: int = 0):
     """Per-layer block trees (``unstack``) of ``kinds`` (default: all of
     the stack's one kind) over x [B, S, D] (positions 0..S-1), one
     activation checkpoint per block when autograd records; the encoder
     memory ``enc_out`` (for "xattn" layers) enters each checkpoint as an
-    argument.  -> (x, summed aux loss)."""
+    argument, the bidirectional prefix ``prefix_len`` as a plain int.
+    -> (x, summed aux loss)."""
     kinds = kinds or (cfg.layer_kinds[0],) * len(layers)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(layers, kinds, strict=True):
         fn = lambda h, e, p=p, kind=kind: apply_block(  # noqa: E731
-            p, h, cfg, kind, positions=positions, enc_out=e)
+            p, h, cfg, kind, positions=positions, enc_out=e,
+            prefix_len=prefix_len)
         if torch.is_grad_enabled():
             x, a = checkpoint(fn, x, enc_out, use_reentrant=False)
         else:
@@ -186,8 +195,9 @@ class LM:
     """LM over a homogeneous stack of attention or RWKV blocks with an
     untied head, a stack of MoE attention blocks, a hybrid stack of
     recurrent and local attention blocks (MoE and hybrid stacks tied or
-    untied), or an encoder-decoder: a homogeneous "xattn" decoder over
-    an "enc" encoder, untied (the "audio" family)."""
+    untied), an encoder-decoder: a homogeneous "xattn" decoder over an
+    "enc" encoder, untied (the "audio" family), or a homogeneous "attn"
+    stack behind a patch prefix, tied (the "vlm" family)."""
 
     def __init__(self, cfg: LMConfig, device):
         if "xattn" in cfg.layer_kinds or cfg.enc_layers \
@@ -199,6 +209,14 @@ class LM:
                     f"{cfg.name}: 'xattn' blocks are ported as a "
                     "homogeneous audio decoder over an encoder "
                     "(enc_layers) with an untied head only")
+        elif cfg.family == "vlm":
+            if not (cfg.homogeneous and cfg.layer_kinds[0] == "attn"
+                    and cfg.tie_embeddings and not cfg.is_moe
+                    and cfg.num_patches > 0):
+                raise NotImplementedError(
+                    f"{cfg.name}: the vlm family is ported as a "
+                    "homogeneous 'attn' stack with tied embeddings behind "
+                    "a patch prefix (num_patches) only")
         elif cfg.family == "hybrid":
             kinds = tuple(k for k in SERVE_KINDS if k != "xattn")
             bad = sorted(set(cfg.layer_kinds) - set(kinds))
@@ -264,9 +282,25 @@ class LM:
             return params["embed"].to(dt).t()
         return params["head"].to(dt)
 
-    def _run_blocks(self, params, x, enc_out=None):
+    def _run_blocks(self, params, x, enc_out=None, prefix_len: int = 0):
         return run_blocks(self.cfg, unstack(params["blocks"], x.dtype), x,
-                          _kinds(self.cfg, params["blocks"]), enc_out)
+                          _kinds(self.cfg, params["blocks"]), enc_out,
+                          prefix_len)
+
+    def _with_prefix(self, batch, x, labels=None):
+        """The vlm family's patch prefix: ``batch["patch_embeds"]`` [B, P,
+        D] cast to the compute dtype and put before the token embeddings x
+        [B, S, D], the labels [B, S] (or None) padded with -1 over it, as
+        the reference's ``forward`` does.  -> (x, labels, prefix_len);
+        another family's x and labels pass through, prefix 0."""
+        if self.cfg.family != "vlm":
+            return x, labels, 0
+        patches = batch["patch_embeds"].to(x.dtype)
+        x = torch.cat([patches, x], dim=1)
+        if labels is not None:
+            labels = torch.cat([labels.new_full(patches.shape[:2], -1),
+                                labels], dim=1)
+        return x, labels, patches.shape[1]
 
     def _encode(self, params, frames):
         """The encoder on stub frame embeddings [B, T, D] (in the compute
@@ -326,10 +360,12 @@ class LM:
         """Training forward.  Returns (loss, metrics); with no labels,
         (final hidden states, {"aux": ...})."""
         x = self._embed(params, batch["tokens"], self.dtype)
+        x, labels, prefix_len = self._with_prefix(batch, x,
+                                                  batch.get("labels"))
         x, aux = self._run_blocks(params, x,
-                                  self._encoder_memory(params, batch))
+                                  self._encoder_memory(params, batch),
+                                  prefix_len)
         x = apply_norm(x, params["final_norm"], self.cfg.norm)
-        labels = batch.get("labels")
         if labels is None:
             return x, {"aux": aux}
         loss = self.xent(params, x, labels)
@@ -372,13 +408,18 @@ class LM:
         Returns (last-position logits [B, V] f32, serve_state) with
         ``serve_state = {"cache": ..., "position": S}``.  The audio family
         encodes ``batch["frames"]`` first; each "xattn" layer caches the
-        cross K/V of the encoder memory.
+        cross K/V of the encoder memory.  The vlm family puts
+        ``batch["patch_embeds"]`` [B, P, D] before the tokens (attended
+        bidirectionally): then S counts P + the prompt, and ``cache_len``
+        must hold them.
         """
         tokens = batch["tokens"]
         enc_out = self._encoder_memory(params, batch)
         x = self._embed(params, tokens, self.dtype)
+        x, _, prefix_len = self._with_prefix(batch, x)
         cache = self.init_cache(x.shape[0], cache_len, cache_dtype)
-        x = prefill_blocks(self.cfg, params["blocks"], x, cache, enc_out)
+        x = prefill_blocks(self.cfg, params["blocks"], x, cache, enc_out,
+                           prefix_len)
         return self.logits(params, x), {"cache": cache,
                                         "position": int(x.shape[1])}
 

@@ -152,13 +152,15 @@ def wire_ef_zeros(cfg, spec: PipelineSpec, batch: int, seq: int,
     """Zero error-feedback buffer of a top-k wire codec: f32 [S, ticks,
     mb, seq, d_model], one residual slot per (stage, tick) of the static
     schedule, with ``mb = ceil(batch / k)`` as ``make_pipelined_loss``
-    pads a ragged batch.  None when the codec carries no top-k, or at
-    S = 1, where there is no hop."""
+    pads a ragged batch, and ``seq`` the token count plus a vlm's patch
+    prefix, which the hop carries.  None when the codec carries no
+    top-k, or at S = 1, where there is no hop."""
     if spec.num_stages <= 1 or not wire.has_topk(spec.wire_dtype):
         return None
     k = spec.microbatches
     mb = (batch + (-batch) % k) // k
-    return torch.zeros((spec.num_stages, wire_ef_ticks(spec), mb, seq,
+    seq_total = seq + (cfg.num_patches if cfg.family == "vlm" else 0)
+    return torch.zeros((spec.num_stages, wire_ef_ticks(spec), mb, seq_total,
                         cfg.d_model), dtype=torch.float32, device=device)
 
 
@@ -170,8 +172,10 @@ def make_pipelined_loss(model, spec: PipelineSpec):
 
     A batch whose size is not a multiple of k is padded with zero rows to
     ``k * ceil(b / k)``, as the reference does; the pad rows are dropped
-    before the loss, so the cross entropy is the unpadded batch's.  The
-    hop's wire bytes accumulate in ``loss_fn.meter``.
+    before the loss, so the cross entropy is the unpadded batch's.  A
+    vlm's patch prefix is put before the tokens first (``LM._with_prefix``),
+    so every hop carries its rows too.  The hop's wire bytes accumulate in
+    ``loss_fn.meter``.
     """
     cfg = model.cfg
     if not cfg.homogeneous:
@@ -183,6 +187,7 @@ def make_pipelined_loss(model, spec: PipelineSpec):
 
     def _loss(params, batch, wire_ef):
         x = model._embed(params, batch["tokens"], model.dtype)
+        x, labels, prefix_len = model._with_prefix(batch, x, batch["labels"])
         enc = model._encoder_memory(params, batch)
         b, seq, d = x.shape
         pad_rows = (-b) % k
@@ -214,12 +219,13 @@ def make_pipelined_loss(model, spec: PipelineSpec):
                         else None
                     h = wire.coded_hop(h, spec.wire_dtype, meter, ef)
                 h, a = run_blocks(cfg, chunk, h, enc_out=None
-                                  if encs is None else encs[m])
+                                  if encs is None else encs[m],
+                                  prefix_len=prefix_len)
                 aux = aux + a
             outs.append(h)
         h = torch.cat(outs)[:b]
         h = apply_norm(h, params["final_norm"], cfg.norm)
-        loss = model.xent(params, h, batch["labels"])
+        loss = model.xent(params, h, labels)
         aux = aux / k
         return loss + 0.01 * aux, {"xent": loss, "aux": aux}
 

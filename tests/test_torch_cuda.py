@@ -584,6 +584,97 @@ def test_flash_bwd_at_head_dim_256(case, dt, tol):
         assert torch.equal(got, same)
 
 
+# paligemma-3b's prefix-LM calls (8 q heads on one kv head of 256, causal,
+# the first ``prefix`` keys seen by every row) and their edges
+FLASH_PREFIX_CASES = [  # (b, hq, hkv, s, dh, prefix, window)
+    (2, 8, 1, 768, 256, 256, 0),     # the training call: 512 + 256 patches
+    (4, 8, 1, 384, 256, 256, 0),     # the patch prefill: 128 + 256
+    (1, 8, 1, 512, 256, 200, 0),     # a prefix that splits a key tile
+    (1, 4, 1, 300, 256, 300, 0),     # prefix = Sq: bidirectional
+    (1, 4, 1, 130, 64, 200, 0),      # prefix past Sq
+    (1, 4, 1, 100, 16, 37, 0),       # dh 16, ragged
+    (1, 4, 2, 300, 128, 100, 64),    # a window on top of the prefix
+]
+
+
+def _prefix_inputs(dev, case, dt, seed):
+    """q, k, v, dO [B, S, H, dh] in the model layout (transposed views)."""
+    b, hq, hkv, s, dh = case[:5]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((b, s, h, dh), generator=g, device=dev).to(dt)
+            .transpose(1, 2) for h in (hq, hkv, hkv, hq)]
+
+
+@pytest.mark.parametrize("case", FLASH_PREFIX_CASES, ids=str)
+@pytest.mark.parametrize("dt,tol", [("float32", 2e-4), ("bfloat16", 5e-2)])
+def test_flash_kernels_with_a_prefix_match_plain(case, dt, tol):
+    """The forward, with and without lse, and the backward under the
+    prefix-LM mask against the plain versions with ``prefix_len``: bf16 on
+    "mma" (the backward at dh 256 on ``bwd256``; at dh 16 on SIMT), f32 on
+    "simt"; the
+    forward within ``tol`` and ``FLASH_FWD_ELEM`` (on P|V|), the lse
+    within 1e-4, dq / dk / dv within ``tol`` and ``FLASH_BWD_ELEM``, two
+    backward calls bit for bit.  A prefix at or past Sq gives the
+    non-causal call's bits both ways."""
+    dev = cuda_device()
+    prefix, window = case[5], case[6]
+    q, k, v, do = _prefix_inputs(dev, case, TORCH_DT[dt], 11)
+    kw = dict(causal=True, window=window, prefix_len=prefix)
+    route = "mma" if dt == "bfloat16" else "simt"
+    bwd_route = route if case[4] in fa.BWD_MMA_HEAD_DIMS else "simt"
+    fa.ROUTES.clear()
+    fa.BWD_ROUTES.clear()
+    out = fa.flash_attention_cuda(q, k, v, **kw)
+    o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    assert dict(fa.ROUTES) == {route: 2}
+    assert dict(fa.BWD_ROUTES) == {bwd_route: 2}
+    f32 = [t.float() for t in (q, k, v)]
+    want, lse_p = fa.attention_plain_lse(*f32, **kw)
+    mag = fa.attention_plain(f32[0], f32[1], f32[2].abs(), **kw)
+    atol, rtol = FLASH_FWD_ELEM[dt]
+    for got in (out, o):
+        err = (got.float() - want).abs()
+        assert float(err.max()) <= tol
+        assert bool((err <= atol + rtol * mag).all()), float(err.max())
+    assert float((lse - lse_p).abs().max()) <= 1e-4
+    plain = fa.attention_bwd_plain(*f32, o.float(), lse_p, do.float(), **kw)
+    for got, p, same in zip(grads, plain, again):
+        assert float((got.float() - p).abs().max()) <= tol
+        _assert_elementwise(got, p, dt)
+        assert torch.equal(got, same)
+    if prefix >= q.shape[2]:
+        o2, lse2 = fa.flash_attention_cuda(q, k, v, causal=False,
+                                           window=window, with_lse=True)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        free = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                           causal=False, window=window)
+        assert all(torch.equal(a, b) for a, b in zip(grads, free))
+
+
+def test_flash_prefix_autograd_counts_and_refuses_a_negative_prefix():
+    """``ops.flash_attention`` with a prefix under autograd: one forward
+    and one backward launch, the backward with the forward's prefix (the
+    gradients equal the plain autograd's within 5e-2 in bf16); a
+    negative prefix raises before any launch."""
+    dev = cuda_device()
+    case = (1, 8, 1, 200, 256, 64, 0)
+    q, k, v, do = _prefix_inputs(dev, case, torch.bfloat16, 3)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    ops.reset_launches()
+    ops.flash_attention(*leaves, causal=True, prefix_len=64).backward(do)
+    assert dict(ops.LAUNCHES) == {"flash_attention": 1,
+                                  "flash_attention_bwd": 1}
+    plain = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    fa.attention_plain(*plain, causal=True, prefix_len=64).backward(
+        do.float())
+    for a, b in zip(leaves, plain):
+        assert float((a.grad.float() - b.grad).abs().max()) <= 5e-2
+    with pytest.raises(ValueError, match="prefix_len"):
+        fa.flash_attention_cuda(q, k, v, prefix_len=-1)
+
+
 def _small_training_step_on_card_and_cpu(arch, wire_dtype, **step_kw):
     """One SGD step of ``arch``'s f32 smoke model on the CPU and on the
     card, pipelined (S = 2, k = 2) or with ``step_kw`` (k = 2 by
@@ -598,6 +689,9 @@ def _small_training_step_on_card_and_cpu(arch, wire_dtype, **step_kw):
     if cfg.enc_layers:
         batch["frames"] = torch.randn((4, cfg.enc_seq, cfg.d_model),
                                       generator=gen)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn((4, cfg.num_patches,
+                                             cfg.d_model), generator=gen)
     out = {}
     for where in ("cpu", dev):
         opt = sgd(0.1, momentum=0.9)
@@ -664,6 +758,21 @@ def test_small_whisper_training_step_on_card_matches_cpu(wire_dtype):
                                                     wire_dtype)
     assert launches["flash_attention"] == 2 * 2 + 2 * 2 * 2 * 2
     assert launches["flash_attention_bwd"] == 2 + 2 * 2 * 2
+
+
+@pytest.mark.parametrize("wire_dtype", ["none", "int8"])
+def test_small_paligemma_training_step_on_card_matches_cpu(wire_dtype):
+    """The f32 smoke paligemma (2 layers, 4 q heads on 1 kv head of 16, 8
+    patches before 40 tokens), S = 2, k = 2: each block's flash forward
+    twice a micro-batch under its checkpoint and its backward once, every
+    one with the prefix of 8 on "simt"; the hop carries the 48 rows."""
+    fa.ROUTES.clear()
+    fa.BWD_ROUTES.clear()
+    launches = _small_training_step_on_card_and_cpu("paligemma-3b",
+                                                    wire_dtype)
+    assert launches["flash_attention"] == 8
+    assert launches["flash_attention_bwd"] == 4
+    assert dict(fa.BWD_ROUTES) == {"simt": 4}
 
 
 def test_small_hybrid_training_step_on_card_matches_cpu():

@@ -188,7 +188,9 @@ def test_token_loop_prefill_matches_chunked_prefill(arch, monkeypatch):
     18; ``test_moe_prefill_drops_what_the_token_loop_keeps``).  The
     encoder-decoder's prompts come with frames: the one-pass prefill
     encodes them, the loop starts from ``fill_cross_kv`` of their
-    encoding, as the serve CLI's two paths do."""
+    encoding, as the serve CLI's two paths do.  The vlm family's one-pass
+    prefill takes an empty patch prefix, since the loop feeds tokens
+    only, as its serve CLI does."""
     cfg = get_arch(arch).smoke
     model = LM(cfg, "cpu")
     params = model.init(torch.Generator().manual_seed(3))
@@ -198,6 +200,8 @@ def test_token_loop_prefill_matches_chunked_prefill(arch, monkeypatch):
     if cfg.enc_layers:
         batch["frames"] = torch.from_numpy(rng.standard_normal(
             (2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.zeros((2, 0, cfg.d_model))
     cache_len = S + G
     with torch.inference_mode():
         if cfg.is_moe:
